@@ -1,0 +1,74 @@
+"""Serving flags of the port (counterpart: `paddle_tpu/utils/flags.py`).
+
+Only the ``FLAGS_tpu_serving_*`` surface the serving slice reads, with the
+same names and defaults as the JAX package, so one environment configures
+both. Flags ingest ``FLAGS_*`` environment variables at import."""
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+_FLAGS: Dict[str, object] = {
+    # tokens per KV-cache page (the allocation unit of the paged cache)
+    "FLAGS_tpu_serving_page_size": 16,
+    # total pages in the KV pool
+    "FLAGS_tpu_serving_num_pages": 512,
+    # max concurrently running requests (decode batch upper bound)
+    "FLAGS_tpu_serving_max_seqs": 8,
+    # decode-step batch buckets; the minimum is clamped to >= 2 because a
+    # batch-1 matmul (gemv) rounds differently from the same row inside a
+    # larger batch, and batched decoding must equal sequential decoding
+    "FLAGS_tpu_serving_decode_buckets": "2,4,8",
+    # prefill token buckets; longer prompts prefill in chunks
+    "FLAGS_tpu_serving_prefill_buckets": "16,64",
+    # ragged paged attention: "auto" = the CUDA kernel for tensors on the
+    # card, the plain PyTorch version for tensors on the CPU;
+    # "reference" forces the plain version
+    "FLAGS_tpu_serving_attention_impl": "auto",
+    # submit() backpressure: max queued requests; 0 = unbounded
+    "FLAGS_tpu_serving_max_queue": 0,
+    # KV page dtype: "float32", "bfloat16", "float16" or "int8"
+    "FLAGS_tpu_serving_kv_dtype": "float32",
+    # int8 weight quantization at Engine construction (not ported yet)
+    "FLAGS_tpu_serving_quantize_weights": False,
+    # prefix caching with copy-on-write boundary pages
+    "FLAGS_tpu_serving_prefix_cache": True,
+    # priority aging: one class per this many admission rounds waited
+    "FLAGS_tpu_serving_aging_steps": 32,
+    # parked prefix-cache tier budget: pages, or "64mb"-style bytes
+    "FLAGS_tpu_serving_cached_pages": 0,
+}
+
+#: numeric flags that also accept a symbolic string value from the env
+_SYMBOLIC_VALUE_FLAGS = frozenset({"FLAGS_tpu_serving_cached_pages"})
+
+
+def _ingest_env():
+    for k in list(_FLAGS):
+        if k in os.environ:
+            v = os.environ[k]
+            cur = _FLAGS[k]
+            if isinstance(cur, bool):
+                _FLAGS[k] = v.lower() in ("1", "true", "yes")
+            elif isinstance(cur, (int, float)):
+                try:
+                    _FLAGS[k] = (int(v) if isinstance(cur, int)
+                                 else float(v))
+                except ValueError:
+                    if k in _SYMBOLIC_VALUE_FLAGS:
+                        _FLAGS[k] = v
+                    else:
+                        raise
+            else:
+                _FLAGS[k] = v
+
+
+_ingest_env()
+
+
+def set_flags(flags_dict):
+    _FLAGS.update(flags_dict)
+
+
+def get_flag(name, default=None):
+    return _FLAGS.get(name, default)

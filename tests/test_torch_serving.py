@@ -1,0 +1,294 @@
+"""The port's serving runtime (paddle_tpu_torch.serving, on the CPU)
+against the JAX package's: weights carried across with
+`load_jax_params`, one forward over a prefill and a decode bucket, the
+engine's greedy token streams over a synthetic trace with system
+prompts (float32 and int8 pools), and `dense_decode_reference`. Then the
+port's own contracts: batched == sequential, prefix cache on == off,
+sampled streams independent of batching, drain/adopt continuity, no
+silent CPU fallback, and no JAX anywhere in the port at run time.
+
+Tolerances: logits and float32 pages fp32 atol 1e-5 (both sides compute
+in float32 on the CPU and differ only in summation order); token ids and
+int8 page values exactly."""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu import serving as jserving
+from paddle_tpu_torch import serving
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ATOL = 1e-5
+
+#: tests/test_serving.py's model, and a GQA variant of it
+CFGS = {
+    "mha": dict(vocab=48, embed=24, layers=2, heads=2, kv_heads=2,
+                head_dim=8, ffn=48, max_seq=48),
+    "gqa": dict(vocab=48, embed=24, layers=2, heads=4, kv_heads=2,
+                head_dim=8, ffn=48, max_seq=48),
+}
+ENGINE_KW = dict(num_pages=96, page_size=4, max_seqs=4)
+_JAX = {}
+
+
+def _jax_model(name):
+    """One JAX model, its jitted forward and numpy params per config.
+    The params are made with numpy from a seed, in the layout (keys and
+    shapes) of the JAX `init_params`, which is only traced."""
+    if name not in _JAX:
+        m = jserving.TinyDecoderLM(jserving.TinyLMConfig(**CFGS[name]))
+        r = np.random.RandomState(3)
+
+        def leaf(path, shape):
+            key = jax.tree_util.keystr(path[-1:])
+            if key.endswith("_g']"):
+                return np.ones(shape.shape, np.float32)
+            if key.endswith("_b']"):
+                return np.zeros(shape.shape, np.float32)
+            return (0.02 * r.standard_normal(shape.shape)).astype(
+                np.float32)
+
+        params = jax.tree_util.tree_map_with_path(
+            leaf, jax.eval_shape(m.init_params, 0))
+        _JAX[name] = (m, jax.jit(m.forward), params)
+    return _JAX[name]
+
+
+def _port_model(name, **kw):
+    _, _, params = _jax_model(name)
+    model = serving.TinyDecoderLM(serving.TinyLMConfig(**CFGS[name]), **kw)
+    return serving.load_jax_params(model, params)
+
+
+def _port_engine(name="mha", **over):
+    _, _, params = _jax_model(name)
+    return serving.Engine(_port_model(name), params=params,
+                          config=serving.EngineConfig(**{**ENGINE_KW,
+                                                         **over}),
+                          device="cpu")
+
+
+def _trace():
+    return serving.synthetic_trace(
+        n_requests=7, n_tenants=2, seed=5, vocab=48, prompt_range=(3, 14),
+        output_range=(3, 8), system_prompt_range=(4, 9))
+
+
+def _replay(engine, trace):
+    reqs = [engine.submit(tr.prompt, max_new_tokens=tr.max_new_tokens)
+            for tr in trace]
+    engine.run_until_idle()
+    return [list(r.output_tokens) for r in reqs]
+
+
+# -- forward against the JAX model ------------------------------------------
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("cfg", sorted(CFGS))
+def test_forward_matches_jax(cfg, kv_dtype):
+    """One prefill bucket, then one decode bucket, through both models on
+    equal weights and equal fresh pools: last logits, next tokens and the
+    written pages agree."""
+    _, jforward, params = _jax_model(cfg)
+    tm = _port_model(cfg)
+    spec = dict(num_pages=16, page_size=4, pages_per_seq=12, dtype=kv_dtype)
+    jpages = jserving.PagedKVCache(tm.kv_cache_spec(**spec)) \
+        .init_device_state()
+    tpages = serving.PagedKVCache(tm.kv_cache_spec(**spec)) \
+        .init_device_state("cpu")
+    tables = np.zeros((4, 12), np.int32)
+    tables[0, :4] = [1, 2, 3, 4]
+    tables[1, :3] = [5, 6, 7]
+    tables[2, :2] = [8, 9]
+
+    def both(tokens, ctx, qlens):
+        nonlocal jpages
+        jtok, jlog, jpages = jforward(
+            params, jnp.asarray(tokens), jpages, jnp.asarray(tables),
+            jnp.asarray(ctx), jnp.asarray(qlens))
+        tt, tb, tc, tq = (torch.from_numpy(np.array(a))
+                          for a in (tokens, tables, ctx, qlens))
+        ttok, tlog, _ = tm(tt, tpages, tb, tc, tq)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   rtol=0, atol=ATOL)
+        assert ttok.numpy().tolist() == np.asarray(jtok).tolist()
+        for jentry, tentry in zip(jpages, tpages):
+            for ja, ta in zip(jentry, tentry):
+                if ta.dtype == torch.int8:
+                    assert np.array_equal(ta.numpy(), np.asarray(ja))
+                else:
+                    np.testing.assert_allclose(ta.numpy(), np.asarray(ja),
+                                               rtol=0, atol=ATOL)
+        return np.asarray(jtok, np.int32)
+
+    qlens = np.array([14, 9, 5, 0], np.int32)  # slot 3 inactive
+    prompt = np.random.RandomState(0).randint(0, 48, (4, 16))
+    first = both(prompt.astype(np.int32), qlens, qlens)
+    step = np.array([1, 1, 1, 0], np.int32)
+    both(first[:, None], qlens + step, step)
+
+
+def test_dense_decode_reference_matches_jax():
+    jm, _, params = _jax_model("gqa")
+    prompt = np.random.RandomState(1).randint(0, 48, 9).astype(np.int32)
+    want = jserving.dense_decode_reference(jm, params, prompt, 2)
+    assert serving.dense_decode_reference(_port_model("gqa"), prompt,
+                                          2) == want
+
+
+# -- the engine against the JAX engine --------------------------------------
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_engine_greedy_streams_match_jax(kv_dtype):
+    """Greedy streams over a multi-tenant trace with system prompts (the
+    prefix cache shares their pages) equal the JAX engine's."""
+    jm, _, params = _jax_model("mha")
+    jeng = jserving.Engine(jm, params=params, config=jserving.EngineConfig(
+        kv_dtype=kv_dtype, **ENGINE_KW))
+    want = _replay(jeng, _trace())
+    teng = _port_engine(kv_dtype=kv_dtype)
+    assert _replay(teng, _trace()) == want
+    assert teng.kv.prefix_hit_tokens == jeng.kv.prefix_hit_tokens > 0
+    assert teng.kv.pages_in_use == 0
+
+
+def test_engine_stream_matches_dense_reference():
+    eng = _port_engine("gqa")
+    prompt = np.random.RandomState(2).randint(0, 48, 21).astype(np.int32)
+    req = eng.submit(prompt, max_new_tokens=13)  # chunked prefill
+    eng.run_until_idle()
+    assert req.output_tokens == serving.dense_decode_reference(
+        eng.model, prompt, 13)
+
+
+# -- the port's own contracts -----------------------------------------------
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_batched_equals_sequential(kv_dtype):
+    trace = _trace()
+    batched = _replay(_port_engine(kv_dtype=kv_dtype), trace)
+    sequential = [_replay(_port_engine(kv_dtype=kv_dtype), [tr])[0]
+                  for tr in trace]
+    assert batched == sequential
+    assert [len(o) for o in batched] == [tr.max_new_tokens for tr in trace]
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_prefix_cache_on_equals_off(kv_dtype):
+    """Repeated prompts force copy-on-write boundary pages; the streams
+    are the same with the cache off."""
+    trace = _trace()
+    trace = trace + trace[:3]
+    on = _port_engine(kv_dtype=kv_dtype)
+    got = _replay(on, trace)
+    assert on.kv.cow_copies > 0 and on.kv.prefix_hit_tokens > 0
+    assert got == _replay(_port_engine(kv_dtype=kv_dtype,
+                                       prefix_cache=False), trace)
+
+
+def test_sampled_streams_batch_independent_and_seeded():
+    trace = _trace()
+
+    def run(batched, seed=11):
+        eng = _port_engine()
+        kw = dict(temperature=0.8, top_k=10, top_p=0.9, seed=seed)
+        if batched:
+            reqs = [eng.submit(tr.prompt, max_new_tokens=tr.max_new_tokens,
+                               **kw) for tr in trace]
+            eng.run_until_idle()
+            return [list(r.output_tokens) for r in reqs]
+        out = []
+        for tr in trace:
+            r = eng.submit(tr.prompt, max_new_tokens=tr.max_new_tokens, **kw)
+            eng.run_until_idle()
+            out.append(list(r.output_tokens))
+        return out
+
+    batched = run(True)
+    assert batched == run(False)
+    assert batched != run(True, seed=12)
+    assert batched != _replay(_port_engine(), trace)
+
+
+def test_drain_adopt_continues_stream():
+    """A stream drained mid-decode and adopted by a second engine equals
+    the uninterrupted stream."""
+    prompt = np.arange(3, 14, dtype=np.int32)
+    want = _replay(_port_engine(), [serving.synthetic_trace(1)[0].__class__(
+        0, "", prompt, 12)])[0]
+    first = _port_engine()
+    req = first.submit(prompt, max_new_tokens=12)
+    for _ in range(4):
+        first.step()
+    out = first.drain(grace_s=0.0)
+    assert out["completed"] == 0 and len(out["migrated"]) == 1
+    entry = out["migrated"][0]
+    second = _port_engine()
+    (cont,) = second.adopt(out["migrated"])
+    second.run_until_idle()
+    assert req.output_tokens[:entry["already_emitted"]] + \
+        cont.output_tokens == want
+    with pytest.raises(RuntimeError, match="draining"):
+        first.submit(prompt)
+
+
+def test_kv_device_state_and_param_loading():
+    kw = dict(num_pages=6, page_size=4, pages_per_seq=3, num_layers=2,
+              num_kv_heads=2, head_dim=8)
+    st = serving.PagedKVCache(serving.KVCacheConfig(
+        dtype="int8", **kw)).init_device_state("cpu")
+    assert len(st) == 2 and len(st[0]) == 4
+    assert st[0][0].dtype == torch.int8 and st[0][0].shape == (6, 4, 2, 8)
+    assert st[0][2].dtype == torch.float32 and bool((st[0][2] == 1).all())
+    st = serving.PagedKVCache(serving.KVCacheConfig(
+        dtype="bfloat16", **kw)).init_device_state("cpu")
+    assert len(st[0]) == 2 and st[0][1].dtype == torch.bfloat16
+    model = _port_model("mha")
+    names = {n for n, _ in model.named_parameters()}
+    assert {"emb", "pos", "lnf_g", "layers.1.wq", "layers.0.w2"} <= names
+    _, _, params = _jax_model("gqa")
+    with pytest.raises(ValueError, match="shape"):
+        serving.load_jax_params(model, params)
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    """Entry points default to the card: without CUDA, `Engine()` with no
+    device raises; int8 weights are not ported and say so."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.Engine(serving.TinyDecoderLM(serving.TinyLMConfig()))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.Engine(serving.TinyDecoderLM(serving.TinyLMConfig()),
+                       device="cuda")
+    with pytest.raises(NotImplementedError):
+        serving.Engine(serving.TinyDecoderLM(serving.TinyLMConfig()),
+                       config=serving.EngineConfig(quantize_weights=True),
+                       device="cpu")
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter serves a tiny trace through the port and has
+    imported neither jax nor anything of paddle_tpu."""
+    code = (
+        "import sys\n"
+        "from paddle_tpu_torch import serving\n"
+        "eng = serving.Engine(serving.TinyDecoderLM(), device='cpu',\n"
+        "    config=serving.EngineConfig(num_pages=32, page_size=4,\n"
+        "                                max_seqs=2))\n"
+        "s = serving.run_trace(eng, serving.synthetic_trace(3, 2))\n"
+        "assert s['finished'] == 3, s\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('CLEAN')\n")
+    env = dict(os.environ, PYTHONPATH=_REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "CLEAN" in res.stdout
