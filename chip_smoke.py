@@ -25,15 +25,34 @@ Phases, each printing one JSON line:
    prefill and three decode buckets run through `forward` with the kernel
    and with the plain version on equal pages: last-row logits within
    1e-3, next tokens equal wherever the top-two margin exceeds that;
-5. kernels — one line listing every ported kernel with its launches on
+5. flash cases — the flash attention forward, dK/dV and dQ kernels
+   against their plain PyTorch versions on the card, on the inputs the
+   wrapper gives them: (a) the trainer's shape (B 8, H 12, S 512, D 64,
+   bf16, causal), (b) BERT's (S 128, fp32, a padding key bias), (c) S 100
+   (fp32, causal, the padding path), (d) fp32 with a key bias and dropout
+   0.1 at a fixed seed. Tolerances: fp32 forward 2e-5 and gradients 3e-4,
+   bf16 2e-2. Each kernel's time beside its plain version's, the least
+   time the card could take, and `scaled_dot_product_attention`'s forward
+   and backward as a yardstick;
+6. the training path — `parallel.transformer` at the default `SPMDConfig`
+   (vocab 32000, d_model 768, 12 heads, d_ff 3072, seq 512, 12 layers,
+   bf16 compute, remat; random weights from seed 0), batch 8: one warm-up
+   step, then 5 timed steps with finite losses; the launch counts, set to
+   0 just before them, must be 2L forward and L each of dK/dV and dQ per
+   step. Then one step with the kernels and one with the plain attention
+   on the same params and batch: loss within 1e-2 relative and every
+   gradient leaf within 2e-2 relative in norm;
+7. kernels — one line listing every ported kernel with its launches on
    its main path and its times;
-6. the last line, ``{"ok": true, "device": {...}}``, printed only when
+8. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
 repository around it.
 """
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,6 +60,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 ATOL, RTOL = 2e-5, 1e-4     # kernel vs plain, float32 arithmetic
 LOGIT_TOL = 1e-3            # serving forward, kernel vs plain attention
 
@@ -56,6 +76,23 @@ INT8_TRACE = dict(n_requests=4, n_tenants=2, seed=1, vocab=30522,
 DEV = "cuda"
 RPA_SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 RPA_TPU = "paddle_tpu/ops/pallas/ragged_paged_attention.py"
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py"
+#: dtype -> (forward tol, gradient tol), atol = rtol
+FLASH_TOL = {"float32": (2e-5, 3e-4), "bfloat16": (2e-2, 2e-2)}
+FLASH_CASES = [
+    dict(name="trainer_bf16_causal", B=8, H=12, S=512, D=64,
+         dtype="bfloat16", causal=True, bias=False, p=0.0),
+    dict(name="bert_f32_bias", B=8, H=12, S=128, D=64, dtype="float32",
+         causal=False, bias=True, p=0.0),
+    dict(name="unaligned_f32_causal", B=4, H=12, S=100, D=64,
+         dtype="float32", causal=True, bias=False, p=0.0),
+    dict(name="dropout_f32_bias", B=8, H=12, S=128, D=64, dtype="float32",
+         causal=False, bias=True, p=0.1),
+]
+FLASH_SEED = 1234
+TRAIN_BATCH, TRAIN_STEPS = 8, 5
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 2e-2
 
 
 def emit(obj):
@@ -384,6 +421,237 @@ def phase_forward_kernel_vs_plain(torch, serving, model):
           % (worst, tok_mismatch))
 
 
+# -- phase 5 ------------------------------------------------------------------
+
+def flash_inputs(torch, case, seed):
+    """Seeded [B, H, S, D] inputs, a cotangent, and a padding bias (each
+    sequence keeps a random prefix of at least half its keys)."""
+    B, H, S, D = case["B"], case["H"], case["S"], case["D"]
+    dtype = getattr(torch, case["dtype"])
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=gen).to(DEV, dtype)
+                   for _ in range(4))
+    bias = None
+    if case["bias"]:
+        keep = torch.randint(S // 2, S + 1, (B,), generator=gen)
+        mask = (torch.arange(S)[None, :] < keep[:, None]).float()
+        bias = ((mask - 1.0) * 1e4).to(DEV)
+    return q, k, v, do, bias
+
+
+def flash_pairs(case):
+    """(row, col) pairs that attend, per (b, h): the work of one call."""
+    S = case["S"]
+    return S * (S + 1) // 2 if case["causal"] else S * S
+
+
+def flash_bounds(case):
+    """Least time of each kernel: the bytes it must move (each input read
+    once, each output written once) over the memory rate, and its
+    operations on the attending pairs over the peak for the input type
+    (bf16 tensor cores, or fp32); the larger of the two."""
+    B, H, S, D = case["B"], case["H"], case["S"], case["D"]
+    BH = B * H
+    elt = 2 if case["dtype"] == "bfloat16" else 4
+    tile = BH * S * D * elt           # one of q, k, v, o, do, dq, dk, dv
+    rows = BH * S * 4                 # lse, delta or the bias, float32
+    bias = rows if case["bias"] else 0
+    peak, peak_name = ((BF16_FLOPS_PER_S, "bf16 tensor cores 989 TFLOP/s")
+                       if elt == 2 else (FP32_FLOPS_PER_S,
+                                         "fp32 67 TFLOP/s"))
+    pairs = BH * flash_pairs(case)
+    work = {"forward": (4 * tile + rows + bias, 4 * pairs * D),
+            "dkv": (6 * tile + 2 * rows + bias, 8 * pairs * D),
+            "dq": (5 * tile + 2 * rows + bias, 6 * pairs * D)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "flops": flops,
+                     "peak": peak_name}
+    return out
+
+
+def flash_library(torch, q, k, v, do, bias, case):
+    """scaled_dot_product_attention with the same mask and dropout rate:
+    (forward, backward of dq/dk/dv, forward + backward) callables."""
+    import torch.nn.functional as F
+
+    mask = None if bias is None else bias[:, None, None, :].to(q.dtype)
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, dropout_p=case["p"],
+            is_causal=case["causal"])
+
+    out = fwd()
+    return (fwd,
+            lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(fwd(), (qs, ks, vs), do))
+
+
+def phase_flash_cases(torch, timer):
+    """Each flash kernel against its plain version on the same inputs:
+    forward (o, lse); dK/dV and dQ from the plain forward's lse and
+    delta."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    fa_mod = sys.modules[fa.__module__]
+    results = {}
+    for n, case in enumerate(FLASH_CASES):
+        q, k, v, do, bias4 = flash_inputs(torch, case, 100 + n)
+        qf, kf, vf, bias = fa_mod.pad_and_flatten(q, k, v, bias4)
+        dof = fa_mod.pad_and_flatten(do, k, v)[0]
+        dof[:, case["S"]:] = 0  # the padded rows get no gradient
+        kw = dict(sm_scale=1.0 / math.sqrt(case["D"]),
+                  causal=case["causal"], dropout_p=case["p"])
+        args = (qf, kf, vf, bias, FLASH_SEED)
+        fwd = lambda impl: fa_mod.flash_attention_fwd(*args, impl=impl, **kw)
+        o, lse = fwd("kernel")
+        o_r, lse_r = fwd("reference")
+        delta = fa_mod.flash_attention_delta(o_r, dof)
+        grad_args = args + (dof, lse_r, delta)
+        dkv = lambda impl: fa_mod.flash_attention_bwd_dkv(
+            *grad_args, impl=impl, **kw)
+        dq = lambda impl: fa_mod.flash_attention_bwd_dq(
+            *grad_args, impl=impl, **kw)
+        got = dict(zip(("dk", "dv"), dkv("kernel")), dq=dq("kernel"), o=o,
+                   lse=lse)
+        torch.cuda.synchronize()
+        want = dict(zip(("dk", "dv"), dkv("reference")), dq=dq("reference"),
+                    o=o_r, lse=lse_r)
+        fwd_tol, grad_tol = FLASH_TOL[case["dtype"]]
+        errs, ok = {}, True
+        for name in ("o", "lse", "dk", "dv", "dq"):
+            g, w = got[name].float(), want[name].float()
+            tol = fwd_tol if name in ("o", "lse") else grad_tol
+            errs[name] = float((g - w).abs().max())
+            ok = ok and bool(torch.isfinite(g).all()) and bool(
+                torch.allclose(g, w, atol=tol, rtol=tol))
+        bounds = flash_bounds(case)
+        lib_fwd, lib_bwd, lib_both = flash_library(torch, q, k, v, do,
+                                                   bias4, case)
+        timed = {
+            "forward": (timer(lambda: fwd("kernel"), 20),
+                        timer(lambda: fwd("reference"), 5)),
+            "dkv": (timer(lambda: dkv("kernel"), 20),
+                    timer(lambda: dkv("reference"), 5)),
+            "dq": (timer(lambda: dq("kernel"), 20),
+                   timer(lambda: dq("reference"), 5))}
+        library = {"forward": timer(lib_fwd, 20),
+                   "backward": timer(lib_bwd, 20),
+                   "forward_backward": timer(lib_both, 20)}
+        res = {"phase": "flash_case", "case": case["name"],
+               "shape": [case["B"], case["H"], case["S"], case["D"]],
+               "dtype": case["dtype"], "causal": case["causal"],
+               "key_bias": case["bias"], "dropout_p": case["p"],
+               "padded_s": qf.shape[1], "max_abs_err": errs,
+               "tol": {"forward": fwd_tol, "grads": grad_tol}, "ok": ok,
+               "library_ms": library, "kernels": {
+                   name: dict(bounds[name], ms=t[0], plain_ms=t[1])
+                   for name, t in timed.items()}}
+        emit(res)
+        check(ok, "flash case %s: the kernels disagree with the plain "
+              "version (max abs errors %s)" % (case["name"], errs))
+        results[case["name"]] = res
+    return results
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+def train_model_flops(cfg, batch):
+    """Model FLOPs of one step (forward and backward, no recompute): the
+    matmuls, the tied LM head and causal attention over the attending
+    pairs."""
+    D, Fd, V, S, L = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.seq_len, \
+        cfg.n_layers
+    tokens = batch * S
+    matmul = tokens * (L * 2 * (4 * D * D + 2 * D * Fd) + 2 * D * V)
+    attn = L * batch * cfg.n_heads * 4 * (S * (S + 1) // 2) * cfg.d_head
+    return 3 * (matmul + attn)
+
+
+def phase_training(torch):
+    """The trainer's steps through its user entry points, with the launch
+    counts zeroed just before and read just after; then kernels vs plain
+    attention on one step."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import transformer as tt
+
+    cfg = tt.SPMDConfig()
+    L = cfg.n_layers
+    params = tt.init_params(cfg, seed=0, device=DEV)
+    opt = tt.init_opt_state(params)
+    step = tt.make_train_step(cfg, device=DEV)
+    tokens, labels = tt.demo_batch(cfg, TRAIN_BATCH, seed=0)
+    params, opt, loss = step(params, opt, tokens, labels, 0)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+    losses, step_ms = [], []
+    for i in range(1, TRAIN_STEPS + 1):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, labels, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = {"forward": fa.fwd_launches, "dkv": fa.dkv_launches,
+                "dq": fa.dq_launches}
+    want = {"forward": 2 * L * TRAIN_STEPS, "dkv": L * TRAIN_STEPS,
+            "dq": L * TRAIN_STEPS}
+    mean_s = sum(step_ms) / len(step_ms) / 1e3
+    flops = train_model_flops(cfg, TRAIN_BATCH)
+
+    # one step with the kernels and one with the plain attention
+    with_grads = {impl: tt.make_train_step(cfg, device=DEV, with_grads=True,
+                                           attn_impl=impl)
+                  for impl in ("auto", "reference")}
+    outs = {impl: fn(params, opt, tokens, labels, TRAIN_STEPS + 1)
+            for impl, fn in with_grads.items()}
+    lk, lp = float(outs["auto"][2]), float(outs["reference"][2])
+    grad_err = {name: float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for (name, a), (_, b) in zip(leaves(outs["auto"][3]),
+                                             leaves(outs["reference"][3]))}
+    loss_err = abs(lk - lp) / abs(lp)
+    res = {"phase": "train_path", "config": dataclasses.asdict(cfg),
+           "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms": step_ms, "mean_step_ms": mean_s * 1e3,
+           "tokens_per_sec": TRAIN_BATCH * cfg.seq_len / mean_s,
+           "model_flops_per_step": flops,
+           "mfu_vs_bf16_peak": flops / mean_s / BF16_FLOPS_PER_S,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "launches_expected": want,
+           "kernel_vs_plain": {"loss_kernel": lk, "loss_plain": lp,
+                               "loss_rel_err": loss_err,
+                               "max_grad_rel_err": max(grad_err.values()),
+                               "grad_rel_err": grad_err}}
+    emit(res)
+    check(all(math.isfinite(x) for x in losses),
+          "training: non-finite loss %s" % losses)
+    check(launches == want, "training: launches %s, expected %s"
+          % (launches, want))
+    check(loss_err <= TRAIN_LOSS_RTOL and
+          max(grad_err.values()) <= TRAIN_GRAD_RTOL,
+          "training: kernels vs plain attention: loss rel err %g, max "
+          "grad rel err %g" % (loss_err, max(grad_err.values())))
+    del params, opt, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def leaves(tree, prefix=""):
+    """(path, tensor) for every leaf of a nested dict, in order."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from leaves(val, prefix + key + "/")
+        else:
+            yield prefix + key, val
+
+
 def kernel_entry(name, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": RPA_SOURCE,
             "replaces": replaces, "launches": launches,
@@ -391,6 +659,24 @@ def kernel_entry(name, replaces, launches, case):
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
             "library_ms": case["library_ms"], "at_case": case["case"]}
+
+
+def flash_entry(kname, replaces, launches, case):
+    """A flash kernel's line at the trainer's shape (case a). library_ms
+    is scaled_dot_product_attention's forward for the forward kernel and
+    its backward (dq, dk and dv together) for the two backward kernels."""
+    k = case["kernels"][kname]
+    errs = case["max_abs_err"]
+    err = {"forward": max(errs["o"], errs["lse"]),
+           "dkv": max(errs["dk"], errs["dv"]), "dq": errs["dq"]}[kname]
+    lib = case["library_ms"]["forward" if kname == "forward"
+                             else "backward"]
+    return {"name": "flash_attention_" + kname, "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": lib,
+            "at_case": case["case"]}
 
 
 def main():
@@ -412,7 +698,9 @@ def main():
 
     name = phase_device(torch)
     phase_build()
-    cases = phase_kernel_cases(torch, Timer(torch))
+    timer = Timer(torch)
+    cases = phase_kernel_cases(torch, timer)
+    flash = phase_flash_cases(torch, timer)
 
     from paddle_tpu_torch import serving
 
@@ -422,6 +710,9 @@ def main():
     int8 = run_main_path(torch, serving, model, "int8",
                          serving.synthetic_trace(**INT8_TRACE))
     phase_forward_kernel_vs_plain(torch, serving, model)
+    del model
+    torch.cuda.empty_cache()
+    train = phase_training(torch)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)
@@ -433,7 +724,10 @@ def main():
         dict(kernel_entry("ragged_paged_attention_int8", RPA_TPU + ":235",
                           int8["int8_kernel_launches"],
                           cases["decode_int8"]), max_abs_err=quant_err),
-    ]}
+    ] + [flash_entry(kname, FLASH_TPU + ":" + line, train["launches"][kname],
+                     flash[FLASH_CASES[0]["name"]])
+         for kname, line in (("forward", "109"), ("dkv", "235"),
+                             ("dq", "298"))]}
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                              3)})
     emit(kernels)

@@ -1,0 +1,132 @@
+"""The flash attention CUDA kernels (forward, dK/dV, dQ) against their
+plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU
+(marker ``cuda``) and skips without one. The file imports neither JAX nor
+the JAX package, so on a GPU machine without JAX it runs alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_flash_cuda.py
+
+Tolerances: float32 forward atol/rtol 2e-5 and gradients 3e-4 (those of
+tests/test_flash_attention.py: float32 arithmetic on both sides, in
+another summation order); bfloat16 2e-2 (both sides compute in float32
+from the same bf16 inputs and round the result to bf16)."""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops.kernels import flash_attention
+
+pytestmark = pytest.mark.cuda
+
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+
+#: name -> (B, H, Sq, Sk, D, dtype, causal, padding bias, dropout_p)
+CASES = {
+    # the trainer's shape (SPMDConfig defaults, batch 8)
+    "trainer_bf16_causal": (8, 12, 512, 512, 64, torch.bfloat16, True, False,
+                            0.0),
+    # BERT's shape: non-causal with a padding bias
+    "bert_f32_bias": (4, 12, 128, 128, 64, torch.float32, False, True, 0.0),
+    # S 100: padded to 104, a ragged last 64-row tile
+    "unaligned_f32_causal": (2, 3, 100, 100, 64, torch.float32, True, False,
+                             0.0),
+    "dropout_f32_bias": (2, 4, 128, 128, 64, torch.float32, False, True, 0.1),
+    "dropout_bf16_causal": (2, 2, 192, 192, 64, torch.bfloat16, True, False,
+                            0.3),
+    "head_dim_128_f32": (1, 2, 130, 130, 128, torch.float32, True, False,
+                         0.0),
+    "head_dim_40_bf16_bias": (2, 2, 96, 96, 40, torch.bfloat16, False, True,
+                              0.0),
+    "decode_q1_f32": (3, 2, 1, 200, 64, torch.float32, False, True, 0.0),
+    "cross_len_f32": (1, 2, 64, 192, 32, torch.float32, False, False, 0.2),
+}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, seed, B, H, Sq, Sk, D, dtype, pad_bias):
+    rng = np.random.default_rng(seed)
+    t = lambda shape: torch.tensor(rng.standard_normal(shape),
+                                   dtype=torch.float32).to(dev, dtype)
+    q, k, v = t((B, H, Sq, D)), t((B, H, Sk, D)), t((B, H, Sk, D))
+    w = t((B, H, Sq, D))
+    bias = None
+    if pad_bias:
+        mask = np.ones((B, Sk), np.float32)
+        for b in range(B):
+            mask[b, rng.integers(Sk // 2, Sk + 1):] = 0.0
+        bias = torch.tensor((mask - 1.0) * 1e4, device=dev)
+    return q, k, v, w, bias
+
+
+def _run(impl, q, k, v, w, bias, causal, p):
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = flash_attention(qs, ks, vs, key_bias=bias, causal=causal,
+                          dropout_p=p, dropout_seed=1234 if p else None,
+                          impl=impl)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), qs.grad, ks.grad, vs.grad
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernels_match_plain(dev, case):
+    B, H, Sq, Sk, D, dtype, causal, pad_bias, p = CASES[case]
+    q, k, v, w, bias = _inputs(dev, sum(map(ord, case)), B, H, Sq, Sk, D,
+                               dtype, pad_bias)
+    before = (flash_attention.fwd_launches, flash_attention.dkv_launches,
+              flash_attention.dq_launches)
+    got = _run("kernel", q, k, v, w, bias, causal, p)
+    after = (flash_attention.fwd_launches, flash_attention.dkv_launches,
+             flash_attention.dq_launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    want = _run("reference", q, k, v, w, bias, causal, p)
+    for name, g, r in zip(("o", "dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        tol = FWD_TOL[dtype] if name == "o" else GRAD_TOL[dtype]
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: "%s: %s" % (name, m))
+
+
+def test_lse_matches_plain(dev):
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_reference)
+
+    q, k, v, _, bias = _inputs(dev, 5, 2, 2, 96, 96, 64, torch.float32,
+                               True)
+    flat = [x.reshape(4, 96, 64).contiguous() for x in (q, k, v)]
+    bias = bias.repeat_interleave(2, dim=0).contiguous()
+    o, lse = flash_attention_fwd(*flat, bias, 0, sm_scale=0.125,
+                                 causal=True, impl="kernel")
+    o_r, lse_r = flash_attention_fwd_reference(*flat, bias, 0,
+                                               sm_scale=0.125, causal=True)
+    torch.testing.assert_close(lse, lse_r, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(o, o_r, atol=2e-5, rtol=2e-5)
+
+
+def test_deterministic_and_seed_sensitive(dev):
+    q, k, v, w, _ = _inputs(dev, 6, 1, 2, 128, 128, 64, torch.float32,
+                            False)
+    a = _run("kernel", q, k, v, w, None, False, 0.2)
+    b = _run("kernel", q, k, v, w, None, False, 0.2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    c = flash_attention(q, k, v, dropout_p=0.2, dropout_seed=1235,
+                        impl="kernel")
+    assert not torch.allclose(a[0], c)
+
+
+def test_kernel_rejects_what_it_does_not_take(dev):
+    q, k, v, _, _ = _inputs(dev, 7, 1, 1, 16, 16, 160, torch.float32, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, k, v, impl="kernel")
+    q, k, v, _, _ = _inputs(dev, 7, 1, 1, 16, 16, 32, torch.float16, False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q, k, v, impl="kernel")

@@ -273,16 +273,25 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter serves a tiny trace through the port and has
-    imported neither jax nor anything of paddle_tpu."""
+    """A fresh interpreter serves a tiny trace through the port, takes one
+    train step with flash attention, and has imported neither jax nor
+    anything of paddle_tpu."""
     code = (
-        "import sys\n"
+        "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
+        "from paddle_tpu_torch.parallel import transformer as tt\n"
         "eng = serving.Engine(serving.TinyDecoderLM(), device='cpu',\n"
         "    config=serving.EngineConfig(num_pages=32, page_size=4,\n"
         "                                max_seqs=2))\n"
         "s = serving.run_trace(eng, serving.synthetic_trace(3, 2))\n"
         "assert s['finished'] == 3, s\n"
+        "cfg = tt.SPMDConfig(vocab=64, d_model=32, n_heads=4, d_ff=64,\n"
+        "                    seq_len=16, n_layers=2, use_flash=True)\n"
+        "p = tt.init_params(cfg, device='cpu')\n"
+        "step = tt.make_train_step(cfg, device='cpu')\n"
+        "p, o, loss = step(p, tt.init_opt_state(p),\n"
+        "                  *tt.demo_batch(cfg, 2), 0)\n"
+        "assert math.isfinite(float(loss)), loss\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"
