@@ -8,7 +8,7 @@ Phases, each printing one JSON line:
 1. device — the card's name and power limit (nvidia-smi's own line is
    printed as is, too);
 2. build — every kernel under paddle_tpu_torch/csrc/ built with nvcc for
-   sm_90a (ptxas's register and spill report included);
+   sm_90a (ptxas's register and spill report, kernel by kernel);
 3. kernel cases — the ragged paged attention kernel against its plain
    PyTorch version on the card at the serving path's shapes (BERT-base
    heads: Hq = 12, D = 64, page 16, 32 pages per sequence): max abs error
@@ -28,12 +28,16 @@ Phases, each printing one JSON line:
 5. flash cases — the flash attention forward, dK/dV and dQ kernels
    against their plain PyTorch versions on the card, on the inputs the
    wrapper gives them: (a) the trainer's shape (B 8, H 12, S 512, D 64,
-   bf16, causal), (b) BERT's (S 128, fp32, a padding key bias), (c) S 100
-   (fp32, causal, the padding path), (d) fp32 with a key bias and dropout
-   0.1 at a fixed seed. Tolerances: fp32 forward 2e-5 and gradients 3e-4,
-   bf16 2e-2. Each kernel's time beside its plain version's, the least
-   time the card could take, and `scaled_dot_product_attention`'s forward
-   and backward as a yardstick;
+   bf16, causal), with q, k, v and the cotangent laid out as the trainer
+   makes them (views of one [B, S, 3, H, D] tensor and of a [B, S, H, D]
+   one, read in place: no copy inside the timed calls), (b) BERT's (S 128,
+   fp32, a padding key bias), (c) S 100 (fp32, causal, the padding path),
+   (d) fp32 with a key bias and dropout 0.1 at a fixed seed. Tolerances:
+   fp32 forward 2e-5 and gradients 3e-4, bf16 2e-2. Each kernel's time
+   beside its plain version's, the least time the card could take, its
+   rate on the attending pairs (TFLOP/s), its design (bf16 forward and dQ
+   on tensor cores, "wgmma bf16"; the rest "simt"), and
+   `scaled_dot_product_attention`'s forward and backward as a yardstick;
 6. the training path — `parallel.transformer` at the default `SPMDConfig`
    (vocab 32000, d_model 768, 12 heads, d_ff 3072, seq 512, 12 layers,
    bf16 compute, remat; random weights from seed 0), batch 8: one warm-up
@@ -43,7 +47,8 @@ Phases, each printing one JSON line:
    on the same params and batch: loss within 1e-2 relative and every
    gradient leaf within 2e-2 relative in norm;
 7. kernels — one line listing every ported kernel with its launches on
-   its main path and its times;
+   its main path and its times (the flash kernels also with their design
+   and TFLOP/s);
 8. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
@@ -54,6 +59,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,7 +88,7 @@ FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py"
 FLASH_TOL = {"float32": (2e-5, 3e-4), "bfloat16": (2e-2, 2e-2)}
 FLASH_CASES = [
     dict(name="trainer_bf16_causal", B=8, H=12, S=512, D=64,
-         dtype="bfloat16", causal=True, bias=False, p=0.0),
+         dtype="bfloat16", causal=True, bias=False, p=0.0, qkv_views=True),
     dict(name="bert_f32_bias", B=8, H=12, S=128, D=64, dtype="float32",
          causal=False, bias=True, p=0.0),
     dict(name="unaligned_f32_causal", B=4, H=12, S=100, D=64,
@@ -133,11 +139,36 @@ def phase_build():
 
     t0 = time.perf_counter()
     built = _build.build()
-    report = {name: [ln.strip() for ln in b["log"].splitlines()
-                     if "registers" in ln or "spill" in ln]
-              for name, b in built.items()}
+    report = {name: ptxas_report(b["log"]) for name, b in built.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(built), "ptxas": report})
+
+
+def kernel_label(mangled):
+    """The kernel's name in a mangled symbol (each name is preceded by its
+    length), with its template arguments as mangled."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):  # the length is a suffix of the run
+            name = mangled[m.end():m.end() + int(m.group()[i:])]
+            rest = mangled[m.end() + len(name):]
+            if name.endswith("kernel") and rest.startswith("I"):
+                return "%s<%s>" % (name, rest[1:rest.find("EEv")])
+    return mangled
+
+
+def ptxas_report(log):
+    """{kernel: "N registers; spills"} from nvcc's -Xptxas -v output. A
+    kernel is named by its mangled core, e.g. ``fa_fwd_tc_kernel<Li1E>``
+    (template arguments as mangled: ``Li64E`` is 64, ``f`` float)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = kernel_label(ln.split()[-1])
+            out[name] = ""
+        elif name is not None and ("spill" in ln or "registers" in ln):
+            out[name] = (out[name] + "; " + ln.strip().replace(
+                "ptxas info    : ", "")).strip("; ")
+    return out
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -425,12 +456,20 @@ def phase_forward_kernel_vs_plain(torch, serving, model):
 
 def flash_inputs(torch, case, seed):
     """Seeded [B, H, S, D] inputs, a cotangent, and a padding bias (each
-    sequence keeps a random prefix of at least half its keys)."""
+    sequence keeps a random prefix of at least half its keys). With
+    `qkv_views`, q, k and v are the trainer's views of one [B, S, 3, H, D]
+    tensor and the cotangent a view of a [B, S, H, D] one."""
     B, H, S, D = case["B"], case["H"], case["S"], case["D"]
     dtype = getattr(torch, case["dtype"])
     gen = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn((B, H, S, D), generator=gen).to(DEV, dtype)
-                   for _ in range(4))
+    if case.get("qkv_views"):
+        qkv = torch.randn((B, S, 3, H, D), generator=gen).to(DEV, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.randn((B, S, H, D), generator=gen).to(
+            DEV, dtype).transpose(1, 2)
+    else:
+        q, k, v, do = (torch.randn((B, H, S, D), generator=gen).to(
+            DEV, dtype) for _ in range(4))
     bias = None
     if case["bias"]:
         keep = torch.randint(S // 2, S + 1, (B,), generator=gen)
@@ -474,6 +513,14 @@ def flash_bounds(case):
     return out
 
 
+def flash_design(kname, dtype):
+    """How the wrapper runs a kernel for this dtype: the bf16 forward and
+    dQ on tensor cores, everything else SIMT."""
+    if dtype == "bfloat16" and kname in ("forward", "dq"):
+        return "wgmma bf16"
+    return "simt " + ("bf16" if dtype == "bfloat16" else "fp32")
+
+
 def flash_library(torch, q, k, v, do, bias, case):
     """scaled_dot_product_attention with the same mask and dropout rate:
     (forward, backward of dq/dk/dv, forward + backward) callables."""
@@ -506,7 +553,7 @@ def phase_flash_cases(torch, timer):
         q, k, v, do, bias4 = flash_inputs(torch, case, 100 + n)
         qf, kf, vf, bias = fa_mod.pad_and_flatten(q, k, v, bias4)
         dof = fa_mod.pad_and_flatten(do, k, v)[0]
-        dof[:, case["S"]:] = 0  # the padded rows get no gradient
+        dof[:, :, case["S"]:] = 0  # the padded rows get no gradient
         kw = dict(sm_scale=1.0 / math.sqrt(case["D"]),
                   causal=case["causal"], dropout_p=case["p"])
         args = (qf, kf, vf, bias, FLASH_SEED)
@@ -549,10 +596,13 @@ def phase_flash_cases(torch, timer):
                "shape": [case["B"], case["H"], case["S"], case["D"]],
                "dtype": case["dtype"], "causal": case["causal"],
                "key_bias": case["bias"], "dropout_p": case["p"],
-               "padded_s": qf.shape[1], "max_abs_err": errs,
+               "qkv_views": bool(case.get("qkv_views")),
+               "padded_s": qf.shape[2], "max_abs_err": errs,
                "tol": {"forward": fwd_tol, "grads": grad_tol}, "ok": ok,
                "library_ms": library, "kernels": {
-                   name: dict(bounds[name], ms=t[0], plain_ms=t[1])
+                   name: dict(bounds[name], ms=t[0], plain_ms=t[1],
+                              route=flash_design(name, case["dtype"]),
+                              tflops=bounds[name]["flops"] / (t[0] * 1e9))
                    for name, t in timed.items()}}
         emit(res)
         check(ok, "flash case %s: the kernels disagree with the plain "
@@ -664,7 +714,9 @@ def kernel_entry(name, replaces, launches, case):
 def flash_entry(kname, replaces, launches, case):
     """A flash kernel's line at the trainer's shape (case a). library_ms
     is scaled_dot_product_attention's forward for the forward kernel and
-    its backward (dq, dk and dv together) for the two backward kernels."""
+    its backward (dq, dk and dv together) for the two backward kernels;
+    `design` says how the kernel runs ("wgmma bf16" or "simt ...") and
+    `tflops` is its rate on the attending pairs."""
     k = case["kernels"][kname]
     errs = case["max_abs_err"]
     err = {"forward": max(errs["o"], errs["lse"]),
@@ -676,6 +728,7 @@ def flash_entry(kname, replaces, launches, case):
             "launches": launches, "max_abs_err": err, "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": lib,
+            "design": k["route"], "tflops": k["tflops"],
             "at_case": case["case"]}
 
 

@@ -8,9 +8,10 @@ kernels of the reference:
 - ``fa_bwd_dkv``  for ``_bwd_dkv_kernel`` (``dk`` and ``dv``);
 - ``fa_bwd_dq``   for ``_bwd_dq_kernel``  (``dq``).
 
-Semantics, shared by the kernels and the plain versions, on flattened
-inputs ``q`` [BH, Sq, D], ``k``/``v`` [BH, Sk, D] and an optional additive
-``bias`` [BH, Sk] (float32, no gradient):
+Semantics, shared by the kernels and the plain versions, on inputs
+``q`` [B, H, Sq, D], ``k``/``v`` [B, H, Sk, D] and an optional additive
+``bias`` [B*H, Sk] (float32, no gradient); the plain versions also take
+flattened [BH, S, D] inputs:
 
 - ``S = q kᵀ · sm_scale + bias``, with ``S = -1e30`` where ``col > row``
   when causal (the reference's constant, not -inf);
@@ -18,16 +19,26 @@ inputs ``q`` [BH, Sq, D], ``k``/``v`` [BH, Sk, D] and an optional additive
   ``l_safe = 1`` where ``l == 0``; ``l`` sums the pre-dropout
   probabilities, and dropout scales only the numerator;
 - the dropout keep mask is the reference's murmur3-finalizer hash of the
-  global (row, col, bh, seed) coordinates, bit for bit, so results do not
-  depend on tiling;
+  global (row, col, bh, seed) coordinates, bh = b·H + h, bit for bit, so
+  results do not depend on tiling;
 - ``o``, ``dq``, ``dk``, ``dv`` in the input dtype, computed in float32.
+  On the card, the bfloat16 forward and dQ kernels round P and dS to
+  bfloat16 before their second product (tensor cores), so their results
+  are close to the plain version's but not bit-equal; the float32 kernels
+  and dK/dV keep P and dS in float32.
 
 `flash_attention` is the public entry: it pads S to block multiples with
 a -1e30 bias on the padded keys (as the reference does), and its backward
 is a `torch.autograd.Function`. ``impl="auto"`` launches the kernels for
 CUDA tensors and runs the plain versions for CPU tensors; ``"kernel"``
-raises on the CPU; ``"reference"`` runs the plain versions anywhere. The
-wrapper makes every input contiguous (the kernels take no strides).
+raises on the CPU; ``"reference"`` runs the plain versions anywhere.
+
+The kernels read q, k, v and do through their strides and write o, dq, dk
+and dv as [B, H, S, D] views of [B, S, H, D] tensors, so the trainer's
+head split and merge (``reshape(B, S, H, D).transpose(1, 2)`` and back)
+copy nothing. An operand is copied only where the kernel cannot read it in
+place: its last dimension is strided, or (bfloat16, read by TMA) a stride
+or its base is not 16-byte aligned or D is not a multiple of 8.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["flash_attention", "pad_and_flatten", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_dkv",
@@ -99,31 +111,41 @@ def dropout_keep_mask(seed, BH, Sq, Sk, p_drop, device=None):
 
 
 def _scores(q, k, bias, sm_scale, causal):
-    """float32 S = q kᵀ · scale + bias, causal-masked with -1e30."""
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * sm_scale
+    """float32 S = q kᵀ · scale + bias over [..., Sq, Sk] (the bias's
+    [BH, Sk] rows in the order of q's leading dims), causal-masked with
+    -1e30."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * sm_scale
     if bias is not None:
-        s = s + bias.float()[:, None, :]
+        s = s + bias.float().reshape(*s.shape[:-2], 1, s.shape[-1])
     if causal:
-        rows = torch.arange(s.shape[1], device=s.device)[:, None]
-        cols = torch.arange(s.shape[2], device=s.device)[None, :]
+        rows = torch.arange(s.shape[-2], device=s.device)[:, None]
+        cols = torch.arange(s.shape[-1], device=s.device)[None, :]
         s = torch.where(rows >= cols, s, torch.full_like(s, _NEG_INF))
     return s
 
 
+def _keep_mask(seed, s, p_drop):
+    """`dropout_keep_mask` over the lattice of scores s [..., Sq, Sk]."""
+    bh = s[..., 0, 0].numel()
+    return dropout_keep_mask(seed, bh, s.shape[-2], s.shape[-1], p_drop,
+                             device=s.device).reshape(s.shape)
+
+
 def flash_attention_fwd_reference(q, k, v, bias=None, seed=0, *, sm_scale,
                                   causal=False, dropout_p=0.0):
-    """Plain version of the forward kernel on [BH, S, D] inputs, with full
-    [BH, Sq, Sk] float32 matrices. Returns ``(o, lse)``: o in q's dtype,
-    lse [BH, Sq] float32."""
+    """Plain version of the forward kernel on [..., S, D] inputs, with full
+    [..., Sq, Sk] float32 matrices. Returns ``(o, lse)``: o in q's dtype,
+    lse [..., Sq] float32."""
     s = _scores(q, k, bias, sm_scale, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     if dropout_p > 0.0:
-        p = p * dropout_keep_mask(seed, q.shape[0], q.shape[1], k.shape[1],
-                                  dropout_p, device=q.device)
-    o = torch.einsum("bqk,bkd->bqd", p, v.float()) / l_safe
+        p = p * _keep_mask(seed, s, dropout_p)
+    # stored as [B, S, H, D], as the kernel writes o
+    o = torch.einsum("...hqk,...hkd->...qhd", p, v.float()).contiguous()
+    o = (o / l_safe.transpose(-3, -2)).transpose(-3, -2)
     lse = (m + torch.log(l_safe))[..., 0]
     return o.to(q.dtype), lse
 
@@ -131,14 +153,19 @@ def flash_attention_fwd_reference(q, k, v, bias=None, seed=0, *, sm_scale,
 def _probs(q, k, bias, seed, lse, do, v, sm_scale, causal, dropout_p):
     """The backward kernels' recompute: P = exp(S - lse) and
     dP = (dO Vᵀ)∘M, and Z = P∘M (float32)."""
-    p = torch.exp(_scores(q, k, bias, sm_scale, causal)
-                  - lse.float()[..., None])
-    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    s = _scores(q, k, bias, sm_scale, causal)
+    p = torch.exp(s - lse.float().reshape(s.shape[:-1])[..., None])
+    dp = torch.einsum("...qd,...kd->...qk", do.float(), v.float())
     if dropout_p > 0.0:
-        mask = dropout_keep_mask(seed, q.shape[0], q.shape[1], k.shape[1],
-                                 dropout_p, device=q.device)
+        mask = _keep_mask(seed, s, dropout_p)
         return p, p * mask, dp * mask
     return p, p, dp
+
+
+def _ds(p, dp, delta, sm_scale):
+    """dS = P∘(dP - delta)·scale, delta [..., Sq] as the rows of p."""
+    return p * (dp - delta.float().reshape(p.shape[:-1])[..., None]) \
+        * sm_scale
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, bias, seed, do, lse, delta, *,
@@ -148,9 +175,9 @@ def flash_attention_bwd_dkv_reference(q, k, v, bias, seed, do, lse, delta, *,
     ``(dk, dv)`` in the dtypes of k and v."""
     p, z, dp = _probs(q, k, bias, seed, lse, do, v, sm_scale, causal,
                       dropout_p)
-    ds = p * (dp - delta.float()[..., None]) * sm_scale
-    dv = torch.einsum("bqk,bqd->bkd", z, do.float())
-    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    ds = _ds(p, dp, delta, sm_scale)
+    dv = torch.einsum("...qk,...qd->...kd", z, do.float())
+    dk = torch.einsum("...qk,...qd->...kd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -159,13 +186,13 @@ def flash_attention_bwd_dq_reference(q, k, v, bias, seed, do, lse, delta, *,
     """Plain version of the dQ kernel: ``dQ = dS K``, in q's dtype."""
     p, _, dp = _probs(q, k, bias, seed, lse, do, v, sm_scale, causal,
                       dropout_p)
-    ds = p * (dp - delta.float()[..., None]) * sm_scale
-    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+    ds = _ds(p, dp, delta, sm_scale)
+    return torch.einsum("...qk,...kd->...qd", ds, k.float()).to(q.dtype)
 
 
 def flash_attention_bwd_reference(q, k, v, bias, seed, o, lse, do, *,
                                   sm_scale, causal=False, dropout_p=0.0):
-    """Plain version of the whole backward on [BH, S, D] inputs:
+    """Plain version of the whole backward on [..., S, D] inputs:
     ``delta = rowsum(dO∘O)`` from the stored ``o``, then both kernels'
     plain versions. Returns ``(dq, dk, dv)`` in the dtypes of q, k, v."""
     kw = dict(sm_scale=sm_scale, causal=causal, dropout_p=dropout_p)
@@ -178,7 +205,7 @@ def flash_attention_bwd_reference(q, k, v, bias, seed, o, lse, do, *,
 
 
 def flash_attention_delta(o, do):
-    """rowsum(dO∘O) in float32, [BH, Sq] (outside any kernel, as in the
+    """rowsum(dO∘O) in float32, [..., Sq] (outside any kernel, as in the
     reference's `_bwd_call`)."""
     return (do.float() * o.float()).sum(dim=-1)
 
@@ -194,43 +221,95 @@ def _kernel_lib():
     if lib.fa_forward.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         u32 = ctypes.c_uint32
-        # dtype, causal, dropout, BH, Sq, Sk, D, sm_scale, seed, thresh,
-        # keep_scale
-        common = [i32] * 7 + [f32, i32, u32, f32]
-        lib.fa_forward.argtypes = common + [ptr] * 6 + [ptr]
-        lib.fa_bwd_dkv.argtypes = common + [ptr] * 9 + [ptr]
-        lib.fa_bwd_dq.argtypes = common + [ptr] * 8 + [ptr]
+        # dtype, causal, dropout, B, H, Sq, Sk, D, sm_scale, seed, thresh,
+        # keep_scale; then the tensors, the strides and the stream
+        common = [i32] * 8 + [f32, i32, u32, f32]
+        lib.fa_forward.argtypes = common + [ptr] * 6 + [ptr, ptr]
+        lib.fa_bwd_dkv.argtypes = common + [ptr] * 9 + [ptr, ptr]
+        lib.fa_bwd_dq.argtypes = common + [ptr] * 8 + [ptr, ptr]
         for fn in (lib.fa_forward, lib.fa_bwd_dkv, lib.fa_bwd_dq):
             fn.restype = i32
     return lib
 
 
-def _kernel_args(q, k, v, bias, seed, *, sm_scale, causal, dropout_p):
-    """Check what the kernels take; returns the leading C arguments."""
+def _tma_readable(t):
+    """Whether TMA can read t in place: 16-byte-aligned base and batch,
+    head and row strides (those of size-1 dimensions never apply)."""
+    esz = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st * esz) % 16 == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _kernel_inputs(ts, tensor_cores):
+    """The [B, H, S, D] operands as the kernels read them: as they are
+    where possible; a contiguous copy where d is strided or, for the
+    tensor-core kernels, where TMA cannot read them; all zero-padded to a
+    multiple of 8 in D for the tensor-core kernels where D is not one."""
+    if tensor_cores and ts[0].shape[-1] % 8:
+        pad = -ts[0].shape[-1] % 8
+        return [F.pad(t, (0, pad)) for t in ts]
+    return [t if t.stride(-1) == 1 and (not tensor_cores or _tma_readable(t))
+            else t.contiguous() for t in ts]
+
+
+def _strides(*ts):
+    """The (batch, head, row) element strides of each operand, as the C
+    functions take them; a size-1 dimension gets 16 bytes (never used, and
+    valid for a TMA map)."""
+    out = []
+    for t in ts:
+        unit = 16 // t.element_size()
+        out += [st if n > 1 else unit
+                for n, st in zip(t.shape[:3], t.stride()[:3])]
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def _empty_bshd(t, S):
+    """An uninitialised [B, H, S, D] tensor like t, laid out as
+    [B, S, H, D]: what ``transpose(1, 2).reshape(B, S, H * D)`` reads
+    without a copy."""
+    B, H, _, D = t.shape
+    return torch.empty((B, S, H, D), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def _kernel_args(q, k, v, bias, seed, extra=(), *, tensor_cores, sm_scale,
+                 causal, dropout_p):
+    """Check what the kernels take and prepare the operands q, k, v and
+    `extra` (`_kernel_inputs`). Returns the leading C arguments and the
+    prepared operands."""
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias)):
         if t is None:
             continue
         if t.device != dev:
             raise ValueError("%s is on %s, q on %s" % (name, t.device, dev))
-        if not t.is_contiguous():
-            raise ValueError("%s must be contiguous" % name)
     kind = _DTYPES.get(q.dtype)
     if kind is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("kernels take float32 or bfloat16 q/k/v of one "
                         "dtype, got %s/%s/%s" % (q.dtype, k.dtype, v.dtype))
-    if bias is not None and bias.dtype != torch.float32:
-        raise TypeError("bias must be float32, got %s" % bias.dtype)
-    BH, Sq, D = q.shape
-    Sk = k.shape[1]
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError("kernels take q [B, H, Sq, D] and k, v "
+                         "[B, H, Sk, D], got %s, %s, %s"
+                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
     if D > _MAX_HEAD_DIM:
         raise ValueError("kernels take head_dim <= %d, got %d"
                          % (_MAX_HEAD_DIM, D))
+    if bias is not None:
+        if bias.dtype != torch.float32:
+            raise TypeError("bias must be float32, got %s" % bias.dtype)
+        if not bias.is_contiguous() or bias.numel() != B * H * Sk:
+            raise ValueError("bias must be a contiguous [B*H, Sk] tensor")
+    ops = _kernel_inputs((q, k, v) + tuple(extra), tensor_cores)
     thresh = _keep_threshold(dropout_p) if dropout_p > 0.0 else 0
     keep = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
-    return [kind, int(causal), int(dropout_p > 0.0), BH, Sq, Sk, D,
-            float(sm_scale),
-            int(seed) if dropout_p > 0.0 else 0, thresh, keep]
+    return [kind, int(causal), int(dropout_p > 0.0), B, H, Sq, Sk,
+            ops[0].shape[-1], float(sm_scale),
+            int(seed) if dropout_p > 0.0 else 0, thresh, keep], ops
 
 
 def _ptr(t):
@@ -244,31 +323,41 @@ def _check_rc(rc, name):
 
 
 def _check_grad_inputs(q, do, lse, delta):
-    for name, t in (("do", do), ("lse", lse), ("delta", delta)):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("%s must be contiguous on %s" % (name, q.device))
+    if do.device != q.device or do.shape != q.shape:
+        raise ValueError("do must be %s on %s" % (tuple(q.shape), q.device))
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.device != q.device or not t.is_contiguous() \
+                or t.numel() != q.shape[0] * q.shape[1] * q.shape[2]:
+            raise ValueError("%s must be a contiguous [B*H, Sq] tensor on %s"
+                             % (name, q.device))
     if do.dtype != q.dtype or lse.dtype != torch.float32 \
             or delta.dtype != torch.float32:
         raise TypeError("do must be %s, lse and delta float32" % q.dtype)
 
 
+def _unpad(t, D):
+    return t if t.shape[-1] == D else t[..., :D]
+
+
 def flash_attention_fwd(q, k, v, bias=None, seed=0, *, sm_scale,
                         causal=False, dropout_p=0.0, impl="auto"):
-    """Forward on flattened [BH, S, D] inputs: ``(o, lse)``, from the
-    kernel or the plain version as `impl` says."""
+    """Forward on [B, H, S, D] inputs (any strides): ``(o, lse)``, from
+    the kernel or the plain version as `impl` says. The kernel's o is a
+    view of a [B, S, H, D] tensor and its lse is [B, H, Sq]."""
     kw = dict(sm_scale=sm_scale, causal=causal, dropout_p=dropout_p)
     if _use_reference(q, impl):
         return flash_attention_fwd_reference(q, k, v, bias, seed, **kw)
-    head = _kernel_args(q, k, v, bias, seed, **kw)
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    head, (qk, kk, vk) = _kernel_args(
+        q, k, v, bias, seed, tensor_cores=q.dtype == torch.bfloat16, **kw)
+    o = _empty_bshd(qk, qk.shape[2])
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     rc = _kernel_lib().fa_forward(
-        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        o.data_ptr(), lse.data_ptr(),
+        *head, qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), _ptr(bias),
+        o.data_ptr(), lse.data_ptr(), _strides(qk, kk, vk, o),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "forward")
     flash_attention.fwd_launches += 1
-    return o, lse
+    return _unpad(o, q.shape[-1]), lse
 
 
 def flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta, *,
@@ -279,13 +368,15 @@ def flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta, *,
     if _use_reference(q, impl):
         return flash_attention_bwd_dkv_reference(q, k, v, bias, seed, do,
                                                  lse, delta, **kw)
-    head = _kernel_args(q, k, v, bias, seed, **kw)
     _check_grad_inputs(q, do, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    head, (qk, kk, vk, dok) = _kernel_args(q, k, v, bias, seed, (do,),
+                                           tensor_cores=False, **kw)
+    dk, dv = _empty_bshd(kk, kk.shape[2]), _empty_bshd(vk, vk.shape[2])
     rc = _kernel_lib().fa_bwd_dkv(
-        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        *head, qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), _ptr(bias),
+        dok.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _strides(qk, kk, vk, dok, dk, dv),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "dkv")
     flash_attention.dkv_launches += 1
     return dk, dv
@@ -298,26 +389,29 @@ def flash_attention_bwd_dq(q, k, v, bias, seed, do, lse, delta, *, sm_scale,
     if _use_reference(q, impl):
         return flash_attention_bwd_dq_reference(q, k, v, bias, seed, do, lse,
                                                 delta, **kw)
-    head = _kernel_args(q, k, v, bias, seed, **kw)
     _check_grad_inputs(q, do, lse, delta)
-    dq = torch.empty_like(q)
+    head, (qk, kk, vk, dok) = _kernel_args(
+        q, k, v, bias, seed, (do,), tensor_cores=q.dtype == torch.bfloat16,
+        **kw)
+    dq = _empty_bshd(qk, qk.shape[2])
     rc = _kernel_lib().fa_bwd_dq(
-        *head, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        *head, qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), _ptr(bias),
+        dok.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(qk, kk, vk, dok, dq),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "dq")
     flash_attention.dq_launches += 1
-    return dq
+    return _unpad(dq, q.shape[-1])
 
 
 def flash_attention_bwd(q, k, v, bias, seed, o, lse, do, *, sm_scale,
                         causal=False, dropout_p=0.0, impl="auto"):
-    """Backward on flattened inputs: ``delta = rowsum(dO∘O)`` (a torch op,
-    as in the reference), then the dK/dV and dQ kernels, or the plain
-    versions, as `impl` says. Returns ``(dq, dk, dv)``."""
+    """Backward on [B, H, S, D] inputs (any strides): ``delta =
+    rowsum(dO∘O)`` (a torch op, as in the reference), then the dK/dV and
+    dQ kernels, or the plain versions, as `impl` says. Returns
+    ``(dq, dk, dv)``."""
     kw = dict(sm_scale=sm_scale, causal=causal, dropout_p=dropout_p,
               impl=impl)
-    do = do.contiguous()
     delta = flash_attention_delta(o, do)
     dk, dv = flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta,
                                      **kw)
@@ -381,17 +475,17 @@ def _pad_to(x, dim, mult, value=0.0):
 
 def pad_and_flatten(q, k, v, key_bias=None, block_q=128, block_k=128):
     """The kernels' inputs, as the reference's wrapper makes them: q, k, v
-    as contiguous [B*H, S, D] with S padded to a multiple of
-    ``min(block, roundup8(S))``, and the key bias as float32 [B*H, Sk]
-    with -1e30 on the padded keys (a zero bias is made where keys are
-    padded and there is none)."""
-    B, H, Sq, D = q.shape
+    [B, H, S, D] with S padded to a multiple of ``min(block, roundup8(S))``
+    (q, k and v themselves, views and all, where S needs no padding), and
+    the key bias flattened to float32 [B*H, Sk] with -1e30 on the padded
+    keys (a zero bias is made where keys are padded and there is none)."""
+    B, H, Sq = q.shape[:3]
     Sk = k.shape[2]
     block_q = min(block_q, -(-Sq // 8) * 8)
     block_k = min(block_k, -(-Sk // 8) * 8)
-    qf = _pad_to(q.reshape(B * H, Sq, D), 1, block_q).contiguous()
-    kf = _pad_to(k.reshape(B * H, Sk, D), 1, block_k).contiguous()
-    vf = _pad_to(v.reshape(B * H, Sk, D), 1, block_k).contiguous()
+    qf = _pad_to(q, 2, block_q)
+    kf = _pad_to(k, 2, block_k)
+    vf = _pad_to(v, 2, block_k)
     bias = key_bias
     if (-Sk) % block_k and bias is None:
         bias = torch.zeros((B, Sk), dtype=torch.float32, device=q.device)
@@ -418,8 +512,11 @@ def flash_attention(q, k, v, key_bias=None, causal=False, sm_scale=None,
     impl: "auto" (kernels on the card, plain version on the CPU),
     "kernel" (raises for CPU tensors) or "reference" (plain anywhere).
     ``flash_attention.fwd_launches``, ``.dkv_launches`` and
-    ``.dq_launches`` count the kernels' launches."""
-    B, H, Sq, D = q.shape
+    ``.dq_launches`` count the kernels' launches. q, k and v may be
+    strided views (the trainer's heads of one qkv tensor); where S needs
+    no padding they reach the kernels as they are, and the result is a
+    view of a [B, Sq, H, D] tensor."""
+    Sq, D = q.shape[2], q.shape[3]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(D)
     dropout_p = float(dropout_p)
@@ -436,7 +533,7 @@ def flash_attention(q, k, v, key_bias=None, causal=False, sm_scale=None,
     qf, kf, vf, bias = pad_and_flatten(q, k, v, key_bias, block_q, block_k)
     o, _ = _FlashCore.apply(qf, kf, vf, bias, seed, float(sm_scale),
                             bool(causal), dropout_p, impl)
-    return o[:, :Sq, :].reshape(B, H, Sq, D)
+    return o if o.shape[2] == Sq else o[:, :, :Sq]
 
 
 flash_attention.fwd_launches = 0

@@ -11,8 +11,8 @@ steps, then traces the next N steps (default 1) with `torch.profiler`
 the device time summed over kernels (the device's busy share is that over
 the wall time), the device time of the three flash attention kernels and
 of the matrix products (kernel names holding gemm, xmma, cutlass or
-nvjet, cuBLAS's Hopper GEMMs), and the twenty kernels with the most
-device time. With --out, the Chrome trace
+nvjet, cuBLAS's Hopper GEMMs), of the copy kernels (names holding copy),
+and the twenty kernels with the most device time. With --out, the Chrome trace
 of the window is written there.
 """
 import argparse
@@ -26,7 +26,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke  # noqa: E402  (the same configuration and batch)
 
-FLASH_KERNELS = ("fa_fwd_kernel", "fa_bwd_dkv_kernel", "fa_bwd_dq_kernel")
+#: name stems of the flash kernels, each matching both designs (SIMT and,
+#: for bf16 forward and dQ, tensor cores: fa_fwd_tc_kernel, ...)
+FLASH_KERNELS = ("fa_fwd", "fa_bwd_dkv", "fa_bwd_dq")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet")
 
 
@@ -70,6 +72,7 @@ def main():
                    for name in FLASH_KERNELS}
     gemm = sum(k[1] for k in kernels
                if any(m in k[0].lower() for m in GEMM_MARKS))
+    copies = [k for k in kernels if "copy" in k[0].lower()]
     kernels.sort(key=lambda k: -k[1])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -84,6 +87,8 @@ def main():
         else None,
         "gemm_us": gemm, "gemm_share_of_device": gemm / busy if busy
         else None,
+        "copy_us": sum(k[1] for k in copies),
+        "copy_calls": sum(k[2] for k in copies),
         "top_kernels": [{"name": k[0][:120], "device_us": k[1],
                          "calls": k[2]} for k in kernels[:20]]}))
     return 0
