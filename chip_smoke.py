@@ -11,9 +11,10 @@ Phases, each printing one JSON line:
    sm_90a (ptxas's register and spill report, kernel by kernel);
 3. kernel cases — the ragged paged attention kernel against its plain
    PyTorch version on the card at the serving path's shapes (BERT-base
-   heads: Hq = 12, D = 64, page 16, 32 pages per sequence): max abs error
-   <= 2e-5 with rtol 1e-4, and exact zeros on inactive rows. Each case
-   gives the kernel's, the plain version's and one PyTorch call's time
+   heads: Hq = 12, D = 64, page 16, 32 pages per sequence; and a decode
+   over contexts of 1,024 to 2,000 slots, 128 pages per sequence): max abs
+   error <= 2e-5 with rtol 1e-4, and exact zeros on inactive rows. Each
+   case gives the kernel's, the plain version's and one PyTorch call's time
    (`scaled_dot_product_attention` on the pre-gathered dense K/V, a
    yardstick only) beside the least time the card could take;
 4. main paths — the serving engine at BERT-base widths (vocab 30522,
@@ -32,23 +33,26 @@ Phases, each printing one JSON line:
    makes them (views of one [B, S, 3, H, D] tensor and of a [B, S, H, D]
    one, read in place: no copy inside the timed calls), (b) BERT's (S 128,
    fp32, a padding key bias), (c) S 100 (fp32, causal, the padding path),
-   (d) fp32 with a key bias and dropout 0.1 at a fixed seed. Tolerances:
-   fp32 forward 2e-5 and gradients 3e-4, bf16 2e-2. Each kernel's time
-   beside its plain version's, the least time the card could take, its
-   rate on the attending pairs (TFLOP/s), its design (bf16 forward and dQ
-   on tensor cores, "wgmma bf16"; the rest "simt"), and
-   `scaled_dot_product_attention`'s forward and backward as a yardstick;
+   (d) fp32 with a key bias and dropout 0.1 at a fixed seed, (e) bf16 at
+   the trainer's widths with a key bias and dropout 0.1. Tolerances: fp32
+   forward 2e-5 and gradients 3e-4, bf16 2e-2. Each kernel's time beside
+   its plain version's, the least time the card could take, its rate on
+   the attending pairs (TFLOP/s), its design (bf16 on tensor cores,
+   "wgmma bf16"; fp32 "simt"), and `scaled_dot_product_attention`'s
+   forward and backward as a yardstick;
 6. the training path — `parallel.transformer` at the default `SPMDConfig`
    (vocab 32000, d_model 768, 12 heads, d_ff 3072, seq 512, 12 layers,
    bf16 compute, remat; random weights from seed 0), batch 8: one warm-up
    step, then 5 timed steps with finite losses; the launch counts, set to
    0 just before them, must be 2L forward and L each of dK/dV and dQ per
-   step. Then one step with the kernels and one with the plain attention
-   on the same params and batch: loss within 1e-2 relative and every
-   gradient leaf within 2e-2 relative in norm;
+   step, every one of them on tensor cores. Then one step with the
+   kernels and one with the plain attention on the same params and batch:
+   loss within 1e-2 relative and every gradient leaf within 2e-2 relative
+   in norm;
 7. kernels — one line listing every ported kernel with its launches on
-   its main path and its times (the flash kernels also with their design
-   and TFLOP/s);
+   its main path and its times (RPA at the decode bucket, with its prefill
+   case's times beside; the flash kernels also with their design and
+   TFLOP/s);
 8. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
@@ -94,6 +98,8 @@ FLASH_CASES = [
     dict(name="unaligned_f32_causal", B=4, H=12, S=100, D=64,
          dtype="float32", causal=True, bias=False, p=0.0),
     dict(name="dropout_f32_bias", B=8, H=12, S=128, D=64, dtype="float32",
+         causal=False, bias=True, p=0.1),
+    dict(name="bias_dropout_bf16", B=8, H=12, S=512, D=64, dtype="bfloat16",
          causal=False, bias=True, p=0.1),
 ]
 FLASH_SEED = 1234
@@ -153,6 +159,8 @@ def kernel_label(mangled):
             rest = mangled[m.end() + len(name):]
             if name.endswith("kernel") and rest.startswith("I"):
                 return "%s<%s>" % (name, rest[1:rest.find("EEv")])
+            if name.endswith("kernel") and rest.startswith("E"):
+                return name
     return mangled
 
 
@@ -201,10 +209,12 @@ class Timer:
         return times[len(times) // 2]
 
 
-def make_case(torch, name, seed, S, Q, Hq, Hkv, ctx, qlen, dtype):
+def make_case(torch, name, seed, S, Q, Hq, Hkv, ctx, qlen, dtype, pps=32,
+              pool=POOL["num_pages"]):
     """Seeded inputs at the serving path's page geometry: each sequence's
-    live pages drawn at random from the 512-page pool."""
-    D, page, pps, P = 64, POOL["page_size"], 32, POOL["num_pages"]
+    live pages drawn at random from the pool (512 pages, 32 a sequence,
+    as the engine's)."""
+    D, page, P = 64, POOL["page_size"], pool
     gen = torch.Generator().manual_seed(seed)
     kf = torch.randn((P, page, Hkv, D), generator=gen)
     vf = torch.randn((P, page, Hkv, D), generator=gen)
@@ -312,6 +322,8 @@ def phase_kernel_cases(torch, timer):
                   torch.float32),
         make_case(torch, "decode_f16", 8, 8, 1, 12, 12, dec_ctx, [1] * 8,
                   torch.float16),
+        make_case(torch, "decode_long_bf16", 9, 8, 1, 12, 12,
+                  ragged(8, 1024, 2000), [1] * 8, bf16, pps=128, pool=1024),
     ]
     results = {}
     for case in cases:
@@ -514,11 +526,9 @@ def flash_bounds(case):
 
 
 def flash_design(kname, dtype):
-    """How the wrapper runs a kernel for this dtype: the bf16 forward and
-    dQ on tensor cores, everything else SIMT."""
-    if dtype == "bfloat16" and kname in ("forward", "dq"):
-        return "wgmma bf16"
-    return "simt " + ("bf16" if dtype == "bfloat16" else "fp32")
+    """How the wrapper runs a kernel for this dtype: every bf16 kernel
+    (forward, dK/dV, dQ) on tensor cores, fp32 SIMT."""
+    return "wgmma bf16" if dtype == "bfloat16" else "simt fp32"
 
 
 def flash_library(torch, q, k, v, do, bias, case):
@@ -642,6 +652,7 @@ def phase_training(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+    fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
     losses, step_ms = [], []
     for i in range(1, TRAIN_STEPS + 1):
         t0 = time.perf_counter()
@@ -651,6 +662,7 @@ def phase_training(torch):
         losses.append(float(loss))
     launches = {"forward": fa.fwd_launches, "dkv": fa.dkv_launches,
                 "dq": fa.dq_launches}
+    tc_launches = dict(fa.tc_launches)
     want = {"forward": 2 * L * TRAIN_STEPS, "dkv": L * TRAIN_STEPS,
             "dq": L * TRAIN_STEPS}
     mean_s = sum(step_ms) / len(step_ms) / 1e3
@@ -675,6 +687,7 @@ def phase_training(torch):
            "mfu_vs_bf16_peak": flops / mean_s / BF16_FLOPS_PER_S,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "launches_expected": want,
+           "tensor_core_launches": tc_launches,
            "kernel_vs_plain": {"loss_kernel": lk, "loss_plain": lp,
                                "loss_rel_err": loss_err,
                                "max_grad_rel_err": max(grad_err.values()),
@@ -682,8 +695,9 @@ def phase_training(torch):
     emit(res)
     check(all(math.isfinite(x) for x in losses),
           "training: non-finite loss %s" % losses)
-    check(launches == want, "training: launches %s, expected %s"
-          % (launches, want))
+    check(launches == want and tc_launches == want,
+          "training: launches %s (tensor cores %s), expected %s"
+          % (launches, tc_launches, want))
     check(loss_err <= TRAIN_LOSS_RTOL and
           max(grad_err.values()) <= TRAIN_GRAD_RTOL,
           "training: kernels vs plain attention: loss rel err %g, max "
@@ -702,13 +716,17 @@ def leaves(tree, prefix=""):
             yield prefix + key, val
 
 
-def kernel_entry(name, replaces, launches, case):
+def kernel_entry(name, replaces, launches, case, prefill):
+    """An RPA kernel's line at the decode bucket, with its prefill case's
+    times beside."""
     return {"name": name, "route": "cuda", "source": RPA_SOURCE,
             "replaces": replaces, "launches": launches,
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
-            "library_ms": case["library_ms"], "at_case": case["case"]}
+            "library_ms": case["library_ms"], "at_case": case["case"],
+            "prefill": {key: prefill[key] for key in (
+                "case", "ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
 def flash_entry(kname, replaces, launches, case):
@@ -772,11 +790,13 @@ def main():
     quant_err = max(cases[n]["max_abs_err"] for n in cases if "int8" in n)
     kernels = {"kernels": [
         dict(kernel_entry("ragged_paged_attention", RPA_TPU + ":172",
-                          bf16["kernel_launches"], cases["decode_bf16"]),
+                          bf16["kernel_launches"], cases["decode_bf16"],
+                          cases["prefill_bf16"]),
              max_abs_err=float_err),
         dict(kernel_entry("ragged_paged_attention_int8", RPA_TPU + ":235",
                           int8["int8_kernel_launches"],
-                          cases["decode_int8"]), max_abs_err=quant_err),
+                          cases["decode_int8"], cases["prefill_int8"]),
+             max_abs_err=quant_err),
     ] + [flash_entry(kname, FLASH_TPU + ":" + line, train["launches"][kname],
                      flash[FLASH_CASES[0]["name"]])
          for kname, line in (("forward", "109"), ("dkv", "235"),

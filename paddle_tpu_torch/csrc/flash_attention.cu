@@ -34,11 +34,13 @@
 //
 // Two designs.
 //
-// 1. bfloat16 forward and dQ on tensor cores (fa_fwd_tc_kernel,
-//    fa_bwd_dq_tc_kernel). A block owns 64 q rows of one (b, h): one
-//    consumer warpgroup (64 rows is the row count of `wgmma`) and one
-//    producer warp. The producer's first thread loads the block's Q (and dO)
-//    once and streams the 64-key K and V tiles through a ring of kStages
+// 1. bfloat16 on tensor cores (fa_fwd_tc_kernel, fa_bwd_dq_tc_kernel,
+//    fa_bwd_dkv_tc_kernel). A block owns one 64-row tile: 64 q rows of one
+//    (b, h) for the forward and dQ, 64 keys for dK/dV. One consumer
+//    warpgroup (64 rows is the row count of `wgmma`) and one producer
+//    warp. The producer's first thread loads the block's own operands once
+//    (Q, and dO; K and V for dK/dV) and streams the 64-row tiles of the
+//    other axis (K and V; Q and dO for dK/dV) through a ring of kStages
 //    stages in shared memory with TMA (`cp.async.bulk.tensor`, 128-byte
 //    swizzle, one `mbarrier` per stage for "full" and one for "empty"). The
 //    tensor maps are encoded on the host for each call from the operands'
@@ -52,7 +54,9 @@
 //        registers as the A operand and V from shared memory with the
 //        transpose bit (V is N-major there);
 //      dQ: S = Q Kᵀ and dP = dO Vᵀ, dS on the fragments, dQ += dS K with dS
-//        rounded to bf16 in registers and K read N-major (transpose bit).
+//        rounded to bf16 in registers and K read N-major (transpose bit);
+//      dK/dV: the same on the other axis, Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, then
+//        dV += Zᵀ dO and dK += dSᵀ Q with Zᵀ and dSᵀ in registers.
 //    head_dim is padded to DP = 64 · NP (NP 64-column panels of 128 bytes,
 //    one swizzle row each); TMA fills the padding with zeros.
 //    Accumulator layout of m64nN (what the softmax, bias, causal mask,
@@ -64,10 +68,11 @@
 //    k-step kk (keys 16 kk .. 16 kk + 15) of the next product, so P and dS
 //    never leave registers. The four threads of a quad share a row: row max
 //    and sum are quad shuffles. Scores are kept prescaled by log2(e) and
-//    exponentiated with exp2f; lse is written in natural log.
-//    Causal: the grid's q-tile index is reversed, so the heaviest tiles
-//    (most keys) start first; masks are applied only on edge tiles (the
-//    diagonal, the ragged last key tile, the ragged last q tile).
+//    exponentiated with exp2f; lse is written in natural log. In dK/dV's
+//    transposed products a row is a key and a column a q row.
+//    Causal: the forward's and dQ's q-tile index is reversed, so the
+//    heaviest tiles (most keys) start first; masks are applied only on edge
+//    tiles (the diagonal, the ragged last key tile, the ragged last q tile).
 //    Why 64-row blocks and not 128 (two consumer warpgroups sharing each
 //    K/V tile): at the trainer's shape three 64-row blocks an SM, with the
 //    dQ kernel's registers capped at 136 a thread to fit them, took the
@@ -75,22 +80,22 @@
 //    H100 (PERF.md §6). A deeper ring (3 or 4 stages) and a software
 //    pipeline that issues the next tile's Q Kᵀ before this tile's P V
 //    (more registers, fewer blocks an SM) measured no faster.
-// 2. SIMT (float32 forward and dQ, and dK/dV in both types;
-//    fa_fwd_kernel, fa_bwd_dkv_kernel, fa_bwd_dq_kernel). One block per
-//    (bh, 64-row tile). Each tile is staged into shared memory as float32,
-//    transposed to [D][64 + 1] (the odd stride keeps both row and column
-//    reads free of bank conflicts); 256 threads each compute a 4 x 4 patch
-//    of the 64 x 64 score tile with float32 FMAs. float32 stays off the
-//    tensor cores: they take float32 only as TF32 (about 3 decimal digits),
-//    which would not hold the reference's float32 arithmetic.
+// 2. SIMT (float32; fa_fwd_kernel, fa_bwd_dkv_kernel, fa_bwd_dq_kernel).
+//    One block per (bh, 64-row tile). Each tile is staged into shared
+//    memory as float32, transposed to [D][64 + 1] (the odd stride keeps
+//    both row and column reads free of bank conflicts); 256 threads each
+//    compute a 4 x 4 patch of the 64 x 64 score tile with float32 FMAs.
+//    float32 stays off the tensor cores: they take float32 only as TF32
+//    (about 3 decimal digits), which would not hold the reference's
+//    float32 arithmetic.
 //
 // Bound. At the trainer's shapes (S 512, D 64, bf16) the bytes each kernel
-// must move (about 8 µs at 3.35 TB/s) outweigh its tensor-core operations
-// (about 4 µs at 989 TFLOP/s); what holds the tensor-core kernels back is
-// latency within a block (each warpgroup waits on its products, and its
-// softmax runs between them; other blocks on the SM fill the gaps) and the
-// causal tail. The SIMT kernels are bound by the float32 FMA rate and by
-// shared-memory bandwidth.
+// must move (about 8 to 11 µs at 3.35 TB/s) outweigh its tensor-core
+// operations (about 4 to 7 µs at 989 TFLOP/s); what holds the tensor-core
+// kernels back is latency within a block (each warpgroup waits on its
+// products, and its softmax runs between them; other blocks on the SM fill
+// the gaps) and the causal tail. The SIMT kernels are bound by the float32
+// FMA rate and by shared-memory bandwidth.
 #include <cuda.h>  // CUtensorMap and its enums only; nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -566,22 +571,27 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kMasked2 = kNegInf * kLog2e;  // -1e30, prescaled
 
-// Shared memory of a block holding NQ q-tile operands (Q; or Q and dO)
-// in NP panels each, then the K/V ring, then the barriers: Q full, the
-// stages' full, the stages' empty.
-template <int NP, int NQ>
+// Shared memory of a block: NQ operands it holds throughout (Q, or Q and
+// dO; K and V for dK/dV) in NP panels each, the ring of kStages stages of
+// the two streamed operands (K and V; Q and dO for dK/dV), NS float32
+// values a streamed row for each stage (lse and delta for dK/dV), then the
+// barriers: held operands full, the stages' full, the stages' empty.
+template <int NP, int NQ, int NS = 0>
 struct Layout {
-  static constexpr int kStage = 2 * NP * kPanel;  // K panels, V panels
+  static constexpr int kStage = 2 * NP * kPanel;  // two streamed operands
   static constexpr int kQ = NQ * NP * kPanel;
-  static constexpr int kBars = kQ + kStages * kStage;
+  static constexpr int kStats = kQ + kStages * kStage;
+  static constexpr int kBars = kStats + kStages * NS * kRowsK * 4;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
 struct Params {
-  __nv_bfloat16* out;  // o (forward) or dq
+  __nv_bfloat16* out;  // o (forward), dq, or dk
   View so;
-  float* lse;           // forward: written; dQ: read
-  const float* delta;   // dQ only
+  __nv_bfloat16* out2;  // dv (dK/dV only)
+  View so2;
+  float* lse;           // forward: written; dQ and dK/dV: read
+  const float* delta;   // dQ and dK/dV only
   const float* bias;
   int H, Sq, Sk, D;
   float sm_scale;
@@ -750,19 +760,26 @@ __device__ __forceinline__ void to_a_frags(const float (&s)[32],
       a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
-// What both kernels share: the block's q tile and the thread's rows in it,
-// the shared memory, the barriers, and the producer.
-template <int NP, int NQ>
+// What the kernels share: the block's own 64-row tile (q rows; keys for
+// dK/dV) and the thread's two rows in it, the shared memory, the
+// barriers, and the producers. The block holds NQ operands of its own tile
+// and streams the tiles of the other axis, starting at row s0.
+template <int NP, int NQ, int NS = 0>
 struct Block {
-  using L = Layout<NP, NQ>;
+  using L = Layout<NP, NQ, NS>;
   uint8_t* smem;
   uint64_t* q_full;
   uint64_t* full;
   uint64_t* empty;
-  int bh, b, h, q0, n_tiles;
+  int bh, b, h, t0, s0, n_tiles;
   int lane, row[2];  // consumers: lane, the thread's two rows
 
-  __device__ __forceinline__ Block(uint8_t* raw, const Params& p) {
+  // `arrivals`: arrivals that complete a stage's full barrier (the
+  // producer's expect_tx, and one a lane where the producer warp also
+  // writes the stage's row statistics).
+  __device__ __forceinline__ Block(uint8_t* raw, const Params& p, int t0_,
+                                   int s0_, int n_tiles_, int arrivals)
+      : t0(t0_), s0(s0_), n_tiles(n_tiles_) {
     smem = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
     q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -771,62 +788,103 @@ struct Block {
     bh = blockIdx.x;
     b = bh / p.H;
     h = bh % p.H;
-    // the heaviest causal q tiles (most keys) start first
-    q0 = (gridDim.y - 1 - blockIdx.y) * kRowsQ;
-    const int k_end = p.causal ? min(p.Sk, q0 + kRowsQ) : p.Sk;
-    n_tiles = (k_end + kRowsK - 1) / kRowsK;
     lane = threadIdx.x % 32;
-    row[0] = q0 + 16 * (threadIdx.x / 32) + lane / 4;
+    row[0] = t0 + 16 * (threadIdx.x / 32) + lane / 4;
     row[1] = row[0] + 8;
     if (threadIdx.x == 0) {
       mbar_init(q_full, 1);
       for (int s = 0; s < kStages; ++s) {
-        mbar_init(&full[s], 1);
+        mbar_init(&full[s], arrivals);
         mbar_init(&empty[s], kConsumerWarps);
       }
     }
     __syncthreads();
   }
 
+  // The block's own operand n (Q, dO; K, V for dK/dV).
   __device__ __forceinline__ uint8_t* q_tile(int n) const {
     return smem + n * NP * kPanel;
   }
+  // The streamed operands of stage s (K, V; Q, dO for dK/dV).
   __device__ __forceinline__ uint8_t* k_tile(int s) const {
     return smem + L::kQ + s * L::kStage;
   }
   __device__ __forceinline__ uint8_t* v_tile(int s) const {
     return k_tile(s) + NP * kPanel;
   }
+  // The NS row statistics of stage s, kRowsK floats each.
+  __device__ __forceinline__ float* stats(int s) const {
+    return reinterpret_cast<float*>(smem + L::kStats) + s * NS * kRowsK;
+  }
 
-  // The producer thread: the q-tile operands once, then K and V tile by
-  // tile, each into the stage its consumers have released.
+  // The held operands, once, into q_full: NQ maps at the block's tile.
+  __device__ __forceinline__ void load_held(const CUtensorMap* m0,
+                                            const CUtensorMap* m1) const {
+    mbar_expect_tx(q_full, NQ * NP * kPanel);
+    for (int n = 0; n < NQ; ++n)
+      for (int p = 0; p < NP; ++p)
+        tma_load(q_tile(n) + p * kPanel, n == 0 ? m0 : m1, q_full,
+                 p * kCols, t0, h, b);
+  }
+
+  // Streamed tile `it` of both maps into stage s.
+  __device__ __forceinline__ void load_stage(int it, int s,
+                                             const CUtensorMap* m0,
+                                             const CUtensorMap* m1) const {
+    mbar_expect_tx(&full[s], 2 * NP * kPanel);
+    for (int p = 0; p < NP; ++p) {
+      tma_load(k_tile(s) + p * kPanel, m0, &full[s], p * kCols,
+               s0 + it * kRowsK, h, b);
+      tma_load(v_tile(s) + p * kPanel, m1, &full[s], p * kCols,
+               s0 + it * kRowsK, h, b);
+    }
+  }
+
+  // The producer thread of the forward and dQ: the q-tile operands once,
+  // then K and V tile by tile, each into the stage its consumers have
+  // released.
   __device__ __forceinline__ void produce(const CUtensorMap* mq0,
                                           const CUtensorMap* mq1,
                                           const CUtensorMap* mk,
                                           const CUtensorMap* mv) const {
-    mbar_expect_tx(q_full, NQ * NP * kPanel);
-    for (int n = 0; n < NQ; ++n)
-      for (int p = 0; p < NP; ++p)
-        tma_load(q_tile(n) + p * kPanel, n == 0 ? mq0 : mq1, q_full,
-                 p * kCols, q0, h, b);
+    load_held(mq0, mq1);
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % kStages;
       if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-      mbar_expect_tx(&full[s], 2 * NP * kPanel);
-      for (int p = 0; p < NP; ++p) {
-        tma_load(k_tile(s) + p * kPanel, mk, &full[s], p * kCols,
-                 it * kRowsK, h, b);
-        tma_load(v_tile(s) + p * kPanel, mv, &full[s], p * kCols,
-                 it * kRowsK, h, b);
-      }
+      load_stage(it, s, mk, mv);
     }
   }
 
-  // Whether the tile at k0 needs masks: the diagonal, the ragged last key
-  // tile or the ragged last q tile.
+  // The producer warp of dK/dV: its first lane loads K and V once and
+  // streams Q and dO by TMA; every lane also writes rows of the stage's
+  // lse (times log2 e; 0 past Sq) and delta, then arrives.
+  __device__ __forceinline__ void produce_dkv(const CUtensorMap* mk,
+                                              const CUtensorMap* mv,
+                                              const CUtensorMap* mq,
+                                              const CUtensorMap* mdo,
+                                              const Params& p) const {
+    if (lane == 0) load_held(mk, mv);
+    const float* lse = p.lse + (size_t)bh * p.Sq;
+    const float* delta = p.delta + (size_t)bh * p.Sq;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages, r0 = s0 + it * kRowsQ;
+      if (it >= kStages) mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      if (lane == 0) load_stage(it, s, mq, mdo);
+      float* st = stats(s);
+      for (int r = lane; r < kRowsQ; r += 32) {
+        const bool in = r0 + r < p.Sq;
+        st[r] = in ? lse[r0 + r] * kLog2e : 0.f;
+        st[kRowsQ + r] = in ? delta[r0 + r] : 0.f;
+      }
+      mbar_arrive(&full[s]);  // releases this lane's writes
+    }
+  }
+
+  // Whether the K/V tile at k0 of a forward or dQ block needs masks: the
+  // diagonal, the ragged last key tile or the ragged last q tile.
   __device__ __forceinline__ bool edge(const Params& p, int k0) const {
-    return (p.causal && k0 + kRowsK - 1 > q0) || k0 + kRowsK > p.Sk ||
-           q0 + kRowsQ > p.Sq;
+    return (p.causal && k0 + kRowsK - 1 > t0) || k0 + kRowsK > p.Sk ||
+           t0 + kRowsQ > p.Sq;
   }
 
   __device__ __forceinline__ void release(int s) const {
@@ -834,22 +892,23 @@ struct Block {
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // Writes the thread's rows of an [64 rows, DP] accumulator, times
-  // 1 / div[i], as bf16 through the output's strides.
-  __device__ __forceinline__ void store(const Params& p,
+  // Writes the thread's rows (those below `n`) of an [64 rows, DP]
+  // accumulator, times 1 / div[i], as bf16 through the strides `so`.
+  __device__ __forceinline__ void store(__nv_bfloat16* out, const View& so,
+                                        int n, int D,
                                         const float (&acc)[NP][32],
                                         const float (&div)[2]) const {
-    __nv_bfloat16* out = at(p.out, p.so, b, h);
+    out = at(out, so, b, h);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      if (row[i] >= p.Sq) continue;
-      __nv_bfloat16* o = out + (long long)row[i] * p.so.r;
+      if (row[i] >= n) continue;
+      __nv_bfloat16* o = out + (long long)row[i] * so.r;
 #pragma unroll
       for (int np = 0; np < NP; ++np)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int d = np * kCols + 8 * j + 2 * (lane & 3);
-          if (d < p.D)  // D is even, so d + 1 < D too
+          if (d < D)  // D is even, so d + 1 < D too
             *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(
                 acc[np][4 * j + 2 * i] / div[i],
                 acc[np][4 * j + 2 * i + 1] / div[i]);
@@ -857,6 +916,16 @@ struct Block {
     }
   }
 };
+
+// The forward's and dQ's q tile (the heaviest causal tiles, with the most
+// keys, start first) and its number of K/V tiles.
+__device__ __forceinline__ int q_tile_start() {
+  return (gridDim.y - 1 - blockIdx.y) * kRowsQ;
+}
+__device__ __forceinline__ int kv_tiles(const Params& p, int q0) {
+  const int k_end = p.causal ? min(p.Sk, q0 + kRowsQ) : p.Sk;
+  return (k_end + kRowsK - 1) / kRowsK;
+}
 
 // Online softmax of the tile at k0 on its raw Q Kᵀ accumulator s: scores
 // in log2 units (bias added, masks on edge tiles only), the running max m
@@ -941,7 +1010,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
                      const __grid_constant__ CUtensorMap mv,
                      const Params p) {
   extern __shared__ uint8_t smem_raw[];
-  Block<NP, 1> blk(smem_raw, p);
+  const int q0 = q_tile_start();
+  Block<NP, 1> blk(smem_raw, p, q0, 0, kv_tiles(p, q0), 1);
   if (threadIdx.x >= 32 * kConsumerWarps) {
     if (threadIdx.x == 32 * kConsumerWarps) blk.produce(&mq, &mq, &mk, &mv);
     return;
@@ -1001,7 +1071,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
     l_safe[i] = l[i] == 0.f ? 1.f : l[i];
   }
-  blk.store(p, o, l_safe);
+  blk.store(p.out, p.so, p.Sq, p.D, o, l_safe);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -1022,7 +1092,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
                         const __grid_constant__ CUtensorMap mv,
                         const Params p) {
   extern __shared__ uint8_t smem_raw[];
-  Block<NP, 2> blk(smem_raw, p);
+  const int q0 = q_tile_start();
+  Block<NP, 2> blk(smem_raw, p, q0, 0, kv_tiles(p, q0), 1);
   if (threadIdx.x >= 32 * kConsumerWarps) {
     if (threadIdx.x == 32 * kConsumerWarps) blk.produce(&mq, &mdo, &mk, &mv);
     return;
@@ -1113,7 +1184,149 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     blk.release(st);
   }
   const float one[2] = {1.f, 1.f};
-  blk.store(p, dq, one);
+  blk.store(p.out, p.so, p.Sq, p.D, dq, one);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dK, dV on tensor cores: grid (BH, ceil(Sk / 64)), kThreads.
+// ---------------------------------------------------------------------------
+// The forward's main loop on the other axis. The block owns 64 keys: K and
+// V arrive once by TMA and stay in shared memory; Q and dO tiles of 64 q
+// rows stream through the ring, each stage with its rows' lse (times
+// log2 e) and delta, which the producer warp's lanes write beside the TMA
+// loads. Per q tile, in transposed coordinates (a register's row is a key,
+// its column a q row, in the accumulator map at the top of the file):
+//   Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (wgmma_ss, both operands K-major),
+//   Pᵀ = exp(Sᵀ·scale + bias[key] - lse[q]), Zᵀ = Pᵀ∘M,
+//   dSᵀ = Pᵀ∘(dPᵀ∘M - delta[q])·scale, on the fragments,
+//   dV += Zᵀ dO and dK += dSᵀ Q (wgmma_rs: Zᵀ and dSᵀ rounded to bf16 in
+//   registers as the A operand, dO and Q read N-major).
+// The dropout mask is M(row = q, col = key), as in the reference. Under the
+// causal mask a block visits only the q tiles at or after its keys; the
+// first key tiles see the most q tiles, so the grid's own order starts the
+// heaviest first. At head_dim <= 64 the four accumulators take 128
+// registers a thread, so two blocks share an SM.
+template <int NP>
+constexpr int kDkvBlocksPerSm = NP == 1 ? 2 : 1;
+
+template <int NP>
+__global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm<NP>)
+    fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap mk,
+                         const __grid_constant__ CUtensorMap mv,
+                         const __grid_constant__ CUtensorMap mq,
+                         const __grid_constant__ CUtensorMap mdo,
+                         const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  const int k0 = blockIdx.y * kRowsK;
+  const int s0 = p.causal ? k0 : 0;  // the first q tile with a live pair
+  const int n_tiles = s0 < p.Sq ? (p.Sq - s0 + kRowsQ - 1) / kRowsQ : 0;
+  Block<NP, 2, 2> blk(smem_raw, p, k0, s0, n_tiles, 1 + 32);
+  if (threadIdx.x >= 32 * kConsumerWarps) {
+    blk.produce_dkv(&mk, &mv, &mq, &mdo, p);
+    return;
+  }
+  const float scale2 = p.sm_scale * kLog2e;
+  const uint8_t* k_s = blk.q_tile(0);
+  const uint8_t* v_s = blk.q_tile(1);
+  const int lane = blk.lane;
+  const int key[2] = {blk.row[0], blk.row[1]};  // the thread's keys
+
+  float bias2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    bias2[i] = p.bias != nullptr && key[i] < p.Sk
+                   ? p.bias[(size_t)blk.bh * p.Sk + key[i]] * kLog2e
+                   : 0.f;
+  float dk[NP][32], dv[NP][32];
+#pragma unroll
+  for (int np = 0; np < NP; ++np)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dk[np][r] = dv[np][r] = 0.f;
+
+  mbar_wait(blk.q_full, 0);
+  for (int it = 0; it < blk.n_tiles; ++it) {
+    const int st = it % kStages, q0 = s0 + it * kRowsQ;
+    mbar_wait(&blk.full[st], (it / kStages) & 1);
+    const uint8_t* q_s = blk.k_tile(st);
+    const uint8_t* do_s = blk.v_tile(st);
+    const float* lse2 = blk.stats(st);
+    const float* dlt = lse2 + kRowsQ;
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(s, kmajor_desc(k_s, kk), kmajor_desc(q_s, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4 * NP; ++kk)
+      wgmma_ss(dp, kmajor_desc(v_s, kk), kmajor_desc(do_s, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // masks only on the diagonal, the ragged last key tile or q tile
+    const bool edge = (p.causal && q0 < k0 + kRowsK - 1) ||
+                      k0 + kRowsK > p.Sk || q0 + kRowsQ > p.Sq;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int qc = 8 * j + 2 * (lane & 3) + c, qrow = q0 + qc;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = 4 * j + 2 * i + c;
+          float x = fmaf(s[r], scale2, bias2[i]);
+          bool live = true;
+          if (edge) {
+            if (p.causal && key[i] > qrow) x = kMasked2;
+            live = key[i] < p.Sk && qrow < p.Sq;
+          }
+          const float pv = exp2f(x - lse2[qc]);
+          float z = pv, dpm = dp[r];
+          if (p.drop.on) {
+            const float mk = p.drop.mask(qrow, key[i], blk.bh);
+            z *= mk;
+            dpm *= mk;
+          }
+          s[r] = live ? z : 0.f;
+          dp[r] = live ? pv * (dpm - dlt[qc]) * p.sm_scale : 0.f;
+        }
+      }
+    uint32_t za[4][4], dsa[4][4];
+    to_a_frags(s, za);
+    to_a_frags(dp, dsa);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      fence_regs(dk[np]);
+      fence_regs(dv[np]);
+    }
+
+    // dV += Zᵀ dO, dK += dSᵀ Q
+    wgmma_fence();
+#pragma unroll
+    for (int np = 0; np < NP; ++np)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dv[np], za[kk], nmajor_desc(do_s, np, kk));
+#pragma unroll
+    for (int np = 0; np < NP; ++np)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dk[np], dsa[kk], nmajor_desc(q_s, np, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep_regs(za);
+    keep_regs(dsa);
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      fence_regs(dk[np]);
+      fence_regs(dv[np]);
+    }
+    blk.release(st);
+  }
+  const float one[2] = {1.f, 1.f};
+  blk.store(p.out, p.so, p.Sk, p.D, dk, one);
+  blk.store(p.out2, p.so2, p.Sk, p.D, dv, one);
 }
 
 }  // namespace tc
@@ -1188,6 +1401,8 @@ tc::Params tc_params(const Args& a, void* out, const View& so, void* lse,
                      const void* delta, const void* bias) {
   return tc::Params{static_cast<__nv_bfloat16*>(out),
                     so,
+                    nullptr,
+                    View{0, 0, 0},
                     static_cast<float*>(lse),
                     static_cast<const float*>(delta),
                     static_cast<const float*>(bias),
@@ -1240,6 +1455,35 @@ cudaError_t launch_dq_tc(const Args& a, const void* q, const void* k,
            tc::kThreads, smem, a.stream>>>(
       mq, mdo, mk, mv,
       tc_params(a, dq, view(st, 4), const_cast<void*>(lse), delta, bias));
+  return cudaGetLastError();
+}
+
+template <int NP>
+cudaError_t launch_dkv_tc(const Args& a, const void* q, const void* k,
+                          const void* v, const void* bias, const void* dout,
+                          const void* lse, const void* delta, void* dk,
+                          void* dv, const long long* st) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = bf16_map(&mk, k, a, a.Sk, view(st, 1), tc::kRowsK)) ||
+      (e = bf16_map(&mv, v, a, a.Sk, view(st, 2), tc::kRowsK)))
+    return e;
+  if (a.Sq == 0) {  // no q tile is visited: dk = dv = 0
+    mq = mdo = mk;
+  } else if ((e = bf16_map(&mq, q, a, a.Sq, view(st, 0), tc::kRowsQ)) ||
+             (e = bf16_map(&mdo, dout, a, a.Sq, view(st, 3), tc::kRowsQ))) {
+    return e;
+  }
+  constexpr size_t smem = tc::Layout<NP, 2, 2>::kBytes;
+  auto kernel = tc::fa_bwd_dkv_tc_kernel<NP>;
+  if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
+
+  tc::Params prm = tc_params(a, dk, view(st, 4), const_cast<void*>(lse),
+                             delta, bias);
+  prm.out2 = static_cast<__nv_bfloat16*>(dv);
+  prm.so2 = view(st, 5);
+  kernel<<<dim3(a.B * a.H, (a.Sk + tc::kRowsK - 1) / tc::kRowsK),
+           tc::kThreads, smem, a.stream>>>(mk, mv, mq, mdo, prm);
   return cudaGetLastError();
 }
 
@@ -1331,9 +1575,9 @@ cudaError_t make_args(Args* a, int dtype, int causal, int dropout, int B,
 // min(int(p * 2^32), 2^32 - 1) and float32(1 / (1 - p)). `strides` holds
 // the (batch, head, row) element strides of each [B, H, S, D] operand in
 // the order of the pointer arguments, outputs last. Each function returns
-// the cudaError_t of its launch (0 = launched). bfloat16 forward and dQ
-// launch the tensor-core kernels, everything else the SIMT kernels; there
-// is no fallback from one to the other.
+// the cudaError_t of its launch (0 = launched). bfloat16 launches the
+// tensor-core kernels, float32 the SIMT kernels; there is no fallback from
+// one to the other.
 extern "C" int fa_forward(int dtype, int causal, int dropout, int B, int H,
                           int Sq, int Sk, int D, float sm_scale, int seed,
                           uint32_t thresh, float keep_scale, const void* q,
@@ -1365,12 +1609,13 @@ extern "C" int fa_bwd_dkv(int dtype, int causal, int dropout, int B, int H,
                                   sm_scale, seed, thresh, keep_scale, stream);
   if (e != cudaSuccess) return (int)e;
   if (B == 0) return 0;
-#define FA_DKV(T, DP) \
-  launch_dkv<T, DP>(a, q, k, v, bias, dout, lse, delta, dk, dv, strides)
-  if (dtype == 0)
-    return (int)(D <= 64 ? FA_DKV(float, 64) : FA_DKV(float, 128));
-  return (int)(D <= 64 ? FA_DKV(__nv_bfloat16, 64)
-                       : FA_DKV(__nv_bfloat16, 128));
+#define FA_DKV(KERNEL) \
+  KERNEL(a, q, k, v, bias, dout, lse, delta, dk, dv, strides)
+  if (dtype == 1)
+    return (int)(D <= 64 ? FA_DKV(launch_dkv_tc<1>)
+                         : FA_DKV(launch_dkv_tc<2>));
+  return (int)(D <= 64 ? FA_DKV((launch_dkv<float, 64>))
+                       : FA_DKV((launch_dkv<float, 128>)));
 #undef FA_DKV
 }
 

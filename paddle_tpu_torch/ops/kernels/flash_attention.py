@@ -22,10 +22,10 @@ flattened [BH, S, D] inputs:
   global (row, col, bh, seed) coordinates, bh = b·H + h, bit for bit, so
   results do not depend on tiling;
 - ``o``, ``dq``, ``dk``, ``dv`` in the input dtype, computed in float32.
-  On the card, the bfloat16 forward and dQ kernels round P and dS to
-  bfloat16 before their second product (tensor cores), so their results
-  are close to the plain version's but not bit-equal; the float32 kernels
-  and dK/dV keep P and dS in float32.
+  On the card, the bfloat16 kernels run on tensor cores and round P and
+  dS to bfloat16 before their second product, so their results are close
+  to the plain version's but not bit-equal; the float32 kernels keep P and
+  dS in float32.
 
 `flash_attention` is the public entry: it pads S to block multiples with
 a -1e30 bias on the padded keys (as the reference does), and its backward
@@ -322,6 +322,17 @@ def _check_rc(rc, name):
                            "error %d" % (name, rc))
 
 
+def _count(kernel, tensor_cores):
+    """One launch of `kernel` ("forward", "dkv" or "dq"), and of its
+    tensor-core design (the C functions launch it for every bfloat16
+    call, with no path back to the SIMT kernels)."""
+    name = {"forward": "fwd_launches", "dkv": "dkv_launches",
+            "dq": "dq_launches"}[kernel]
+    setattr(flash_attention, name, getattr(flash_attention, name) + 1)
+    if tensor_cores:
+        flash_attention.tc_launches[kernel] += 1
+
+
 def _check_grad_inputs(q, do, lse, delta):
     if do.device != q.device or do.shape != q.shape:
         raise ValueError("do must be %s on %s" % (tuple(q.shape), q.device))
@@ -347,8 +358,9 @@ def flash_attention_fwd(q, k, v, bias=None, seed=0, *, sm_scale,
     kw = dict(sm_scale=sm_scale, causal=causal, dropout_p=dropout_p)
     if _use_reference(q, impl):
         return flash_attention_fwd_reference(q, k, v, bias, seed, **kw)
+    tensor_cores = q.dtype == torch.bfloat16
     head, (qk, kk, vk) = _kernel_args(
-        q, k, v, bias, seed, tensor_cores=q.dtype == torch.bfloat16, **kw)
+        q, k, v, bias, seed, tensor_cores=tensor_cores, **kw)
     o = _empty_bshd(qk, qk.shape[2])
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     rc = _kernel_lib().fa_forward(
@@ -356,7 +368,7 @@ def flash_attention_fwd(q, k, v, bias=None, seed=0, *, sm_scale,
         o.data_ptr(), lse.data_ptr(), _strides(qk, kk, vk, o),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "forward")
-    flash_attention.fwd_launches += 1
+    _count("forward", tensor_cores)
     return _unpad(o, q.shape[-1]), lse
 
 
@@ -369,8 +381,9 @@ def flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta, *,
         return flash_attention_bwd_dkv_reference(q, k, v, bias, seed, do,
                                                  lse, delta, **kw)
     _check_grad_inputs(q, do, lse, delta)
-    head, (qk, kk, vk, dok) = _kernel_args(q, k, v, bias, seed, (do,),
-                                           tensor_cores=False, **kw)
+    tensor_cores = q.dtype == torch.bfloat16
+    head, (qk, kk, vk, dok) = _kernel_args(
+        q, k, v, bias, seed, (do,), tensor_cores=tensor_cores, **kw)
     dk, dv = _empty_bshd(kk, kk.shape[2]), _empty_bshd(vk, vk.shape[2])
     rc = _kernel_lib().fa_bwd_dkv(
         *head, qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), _ptr(bias),
@@ -378,8 +391,8 @@ def flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta, *,
         dv.data_ptr(), _strides(qk, kk, vk, dok, dk, dv),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "dkv")
-    flash_attention.dkv_launches += 1
-    return dk, dv
+    _count("dkv", tensor_cores)
+    return _unpad(dk, k.shape[-1]), _unpad(dv, v.shape[-1])
 
 
 def flash_attention_bwd_dq(q, k, v, bias, seed, do, lse, delta, *, sm_scale,
@@ -390,9 +403,9 @@ def flash_attention_bwd_dq(q, k, v, bias, seed, do, lse, delta, *, sm_scale,
         return flash_attention_bwd_dq_reference(q, k, v, bias, seed, do, lse,
                                                 delta, **kw)
     _check_grad_inputs(q, do, lse, delta)
+    tensor_cores = q.dtype == torch.bfloat16
     head, (qk, kk, vk, dok) = _kernel_args(
-        q, k, v, bias, seed, (do,), tensor_cores=q.dtype == torch.bfloat16,
-        **kw)
+        q, k, v, bias, seed, (do,), tensor_cores=tensor_cores, **kw)
     dq = _empty_bshd(qk, qk.shape[2])
     rc = _kernel_lib().fa_bwd_dq(
         *head, qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), _ptr(bias),
@@ -400,7 +413,7 @@ def flash_attention_bwd_dq(q, k, v, bias, seed, do, lse, delta, *, sm_scale,
         _strides(qk, kk, vk, dok, dq),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "dq")
-    flash_attention.dq_launches += 1
+    _count("dq", tensor_cores)
     return _unpad(dq, q.shape[-1])
 
 
@@ -512,7 +525,9 @@ def flash_attention(q, k, v, key_bias=None, causal=False, sm_scale=None,
     impl: "auto" (kernels on the card, plain version on the CPU),
     "kernel" (raises for CPU tensors) or "reference" (plain anywhere).
     ``flash_attention.fwd_launches``, ``.dkv_launches`` and
-    ``.dq_launches`` count the kernels' launches. q, k and v may be
+    ``.dq_launches`` count the kernels' launches, and
+    ``flash_attention.tc_launches`` (keys "forward", "dkv", "dq") those of
+    the tensor-core kernels (bfloat16) among them. q, k and v may be
     strided views (the trainer's heads of one qkv tensor); where S needs
     no padding they reach the kernels as they are, and the result is a
     view of a [B, Sq, H, D] tensor."""
@@ -539,3 +554,4 @@ def flash_attention(q, k, v, key_bias=None, causal=False, sm_scale=None,
 flash_attention.fwd_launches = 0
 flash_attention.dkv_launches = 0
 flash_attention.dq_launches = 0
+flash_attention.tc_launches = {"forward": 0, "dkv": 0, "dq": 0}

@@ -135,9 +135,11 @@ def _kernel_lib():
     lib = _build.load("ragged_paged_attention")
     if lib.rpa_forward.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rpa_forward.argtypes = [i32] + [ptr] * 9 + [i32] * 7 + [
+        lib.rpa_forward.argtypes = [i32] + [ptr] * 10 + [i32] * 7 + [
             ctypes.c_float, ptr]
         lib.rpa_forward.restype = i32
+        lib.rpa_workspace_floats.argtypes = [i32] * 8
+        lib.rpa_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -176,14 +178,22 @@ def _launch_kernel(q, k_pages, v_pages, block_tables, context_lens, q_lens,
     if D > _MAX_HEAD_DIM:
         raise ValueError("kernel takes head_dim <= %d, got %d"
                          % (_MAX_HEAD_DIM, D))
+    lib = _kernel_lib()
+    pps = block_tables.shape[1]
+    floats = lib.rpa_workspace_floats(kind, S, Q, Hq, Hkv, D, page_size, pps)
+    if floats < 0:
+        raise ValueError("the kernel cannot take q %s with pages %s and a "
+                         "%d-page table" % (tuple(q.shape),
+                                            tuple(k_pages.shape), pps))
     out = torch.empty_like(q)
+    work = torch.empty((floats,), dtype=torch.float32, device=dev)
     scale_ptr = (lambda t: t.data_ptr() if t is not None else None)
-    rc = _kernel_lib().rpa_forward(
+    rc = lib.rpa_forward(
         kind, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         scale_ptr(k_scale), scale_ptr(v_scale), block_tables.data_ptr(),
         context_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-        S, Q, Hq, Hkv, D, page_size, block_tables.shape[1], float(sm_scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        work.data_ptr(), S, Q, Hq, Hkv, D, page_size,
+        pps, float(sm_scale), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("ragged_paged_attention kernel launch failed: "
                            "CUDA error %d" % rc)
@@ -203,9 +213,10 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables,
     version for tensors on the CPU; "kernel" = the CUDA kernel (raises
     for CPU tensors); "reference" = the plain version anywhere.
 
-    ``ragged_paged_attention.launches`` counts kernel launches and
+    ``ragged_paged_attention.launches`` counts kernel calls and
     ``ragged_paged_attention.quant_launches`` the int8-page ones among
-    them; the plain version counts nothing."""
+    them; the plain version counts nothing. One call is two CUDA launches:
+    the page chunks, then their merge."""
     _check_args(q, k_pages, v_pages, block_tables, context_lens, q_lens,
                 k_scale, v_scale)
     if impl not in ("auto", "kernel", "reference"):

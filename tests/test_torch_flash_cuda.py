@@ -13,7 +13,8 @@ forward and dQ kernels run on tensor cores and round P and dS to bf16
 before their second product, so their results are no longer bit-equal to
 the plain version's (which keeps P and dS in float32); two runs of a
 kernel, and a kernel on strided views against the same call on contiguous
-copies, still are."""
+copies, still are. Every bfloat16 case runs the three tensor-core kernels
+(forward, dK/dV and dQ), which `flash_attention.tc_launches` counts."""
 import numpy as np
 import pytest
 import torch
@@ -52,6 +53,9 @@ CASES = {
                         0.0),
     "dropout_bf16_causal_512": (1, 4, 512, 512, 64, torch.bfloat16, True,
                                 False, 0.1),
+    # two 64-column panels with a key bias and dropout, S padded to 256
+    "bias_dropout_bf16_d128": (2, 2, 160, 160, 128, torch.bfloat16, False,
+                               True, 0.2),
 }
 #: cases padded to blocks other than the default 128
 BLOCK = {"ragged_200_bf16": 8}
@@ -97,11 +101,17 @@ def test_kernels_match_plain(dev, case):
                                dtype, pad_bias)
     before = (flash_attention.fwd_launches, flash_attention.dkv_launches,
               flash_attention.dq_launches)
+    tc_before = dict(flash_attention.tc_launches)
     block = BLOCK.get(case, 128)
     got = _run("kernel", q, k, v, w, bias, causal, p, block)
     after = (flash_attention.fwd_launches, flash_attention.dkv_launches,
              flash_attention.dq_launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    # bf16 runs every kernel on tensor cores, dK/dV included; fp32 none
+    tc = int(dtype == torch.bfloat16)
+    assert {name: n - tc_before[name] for name, n in
+            flash_attention.tc_launches.items()} == \
+        {"forward": tc, "dkv": tc, "dq": tc}
     want = _run("reference", q, k, v, w, bias, causal, p, block)
     for name, g, r in zip(("o", "dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == r.shape, name

@@ -7,7 +7,12 @@ int8 pages with per-slot scales.
 
 Tolerance: fp32, rtol 1e-5 and atol 1e-6. Both sides compute in float32
 on the CPU; they differ only in summation order (einsum vs the kernel's
-page-by-page online softmax)."""
+page-by-page online softmax).
+
+The long-context GQA case is the shape that tests/test_torch_rpa_cuda.py
+runs on the card against the plain version (the kernel's 128-position
+chunks: contexts up to 2,000 slots that end mid-chunk and mid-page), so
+the plain version is held against JAX there too."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,19 +26,20 @@ RTOL, ATOL = 1e-5, 1e-6
 PAGE = 8
 
 
-def _paged_setup(seed, seqs, Q, Hq, Hkv, D, npages, quant=False):
+def _paged_setup(seed, seqs, Q, Hq, Hkv, D, npages, quant=False,
+                 page=PAGE):
     """numpy inputs for `seqs` = [(ctx_len, q_len), ...]: each sequence's
     pages in random order, the pad entries pointing at page 0."""
     rng = np.random.default_rng(seed)
     S = len(seqs)
     P = S * npages + 3
-    k_pages = rng.standard_normal((P, PAGE, Hkv, D)).astype(np.float32)
-    v_pages = rng.standard_normal((P, PAGE, Hkv, D)).astype(np.float32)
+    k_pages = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
+    v_pages = rng.standard_normal((P, page, Hkv, D)).astype(np.float32)
     tables = np.zeros((S, npages), np.int32)
     perm = rng.permutation(P - 1) + 1
     nxt = 0
     for s, (ctx, _) in enumerate(seqs):
-        for j in range(-(-ctx // PAGE)):
+        for j in range(-(-ctx // page)):
             tables[s, j] = perm[nxt]
             nxt += 1
     out = dict(q=rng.standard_normal((S, Q, Hq, D)).astype(np.float32),
@@ -81,6 +87,12 @@ CASES = {
                           npages=2),
     "int8_pages": dict(seqs=[(16, 2), (5, 4), (32, 1)], Q=4, Hq=4, Hkv=2,
                        D=16, npages=4, quant=True),
+    # the card tests' long-context GQA shape (BERT-base head_dim, serving
+    # pages of 16): contexts across many 128-position chunks, ending
+    # mid-chunk and mid-page, prefill and decode rows, an inactive slot
+    "long_context_gqa": dict(seqs=[(1999, 4), (1025, 1), (130, 3),
+                                   (2000, 0), (777, 2)], Q=4, Hq=12, Hkv=4,
+                             D=64, npages=125, page=16),
 }
 
 

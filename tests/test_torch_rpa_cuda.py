@@ -6,7 +6,10 @@ package, so on a GPU machine without JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_rpa_cuda.py
 
 Tolerance: max abs error 2e-5 with rtol 1e-4 (float32 arithmetic on both
-sides, in another summation order), and exact zeros on inactive rows."""
+sides, in another summation order), and exact zeros on inactive rows.
+The kernel splits every sequence's keys into chunks of 128 positions and
+merges the chunks in order, so a sequence's result is bit-equal alone and
+inside a batch, and from run to run."""
 import numpy as np
 import pytest
 import torch
@@ -65,6 +68,14 @@ SHAPES = {
                          page=8, npages=2),
     "page_over_32_slots": dict(seqs=[(90, 30), (47, 1)], Q=30, Hq=2, Hkv=2,
                                D=32, page=48, npages=2),
+    # contexts over many chunks, ending mid-chunk and mid-page, with GQA
+    # (held against JAX on the CPU in test_torch_ragged_paged_attention.py)
+    "long_context_gqa": dict(seqs=[(1999, 4), (1025, 1), (130, 3),
+                                   (2000, 0), (777, 2)], Q=4, Hq=12, Hkv=4,
+                             D=64, page=16, npages=125),
+    # more packed rows (G 3 x Q 30 = 90) than one 64-row tile holds
+    "two_row_tiles": dict(seqs=[(300, 30), (129, 1), (128, 17)], Q=30,
+                          Hq=6, Hkv=2, D=64, page=16, npages=20),
 }
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "int8": torch.int8}
@@ -108,3 +119,36 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         ragged_paged_attention(q, kp, vp, tb, cl, ql,
                                k_scale=torch.ones(kp.shape[:2], device=dev),
                                v_scale=torch.ones(kp.shape[:2], device=dev))
+
+
+#: a batch of 8: long and short contexts, prefill and decode rows, an
+#: inactive slot; GQA at BERT-base head_dim
+BATCH = dict(seqs=[(1999, 4), (17, 4), (640, 1), (1025, 3), (0, 0),
+                   (129, 2), (777, 4), (1500, 1)], Hq=12, Hkv=4, D=64,
+             page=16, npages=125)
+
+
+@pytest.mark.parametrize("Q", [1, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_alone_bit_equal_to_batch(dev, dtype, Q):
+    spec = dict(BATCH, seqs=[(c, min(n, Q)) for c, n in BATCH["seqs"]])
+    args, kw = _inputs(dev, 21, Q=Q, dtype=DTYPES[dtype], **spec)
+    q, kp, vp, tables, ctx, ql = args
+    batched = ragged_paged_attention(*args, **kw)
+    for s in range(q.shape[0]):
+        alone = ragged_paged_attention(
+            q[s:s + 1].contiguous(), kp, vp, tables[s:s + 1].contiguous(),
+            ctx[s:s + 1].contiguous(), ql[s:s + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], batched[s]), "sequence %d" % s
+    torch.testing.assert_close(
+        batched, ragged_paged_attention_reference(*args, **kw), rtol=1e-4,
+        atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_two_runs_bit_equal(dev, dtype):
+    args, kw = _inputs(dev, 22, Q=4, dtype=DTYPES[dtype], **BATCH)
+    a = ragged_paged_attention(*args, **kw)
+    b = ragged_paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)

@@ -72,7 +72,9 @@ def main():
     kernels = [(e.key, _device_us(e), e.count) for e in kernels]
     kernels = [k for k in kernels if k[1] > 0]
     busy = sum(k[1] for k in kernels)
-    rpa = sum(k[1] for k in kernels if "rpa_kernel" in k[0])
+    # the attention kernel: rpa_kernel (one pass), or rpa_chunk_kernel and
+    # rpa_merge_kernel (split over pages)
+    rpa = sum(k[1] for k in kernels if "rpa_" in k[0])
     kernels.sort(key=lambda k: -k[1])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
