@@ -49,11 +49,22 @@ Phases, each printing one JSON line:
    kernels and one with the plain attention on the same params and batch:
    loss within 1e-2 relative and every gradient leaf within 2e-2 relative
    in norm;
-7. kernels — one line listing every ported kernel with its launches on
+7. the fluid static graph — the MNIST MLP of tests/test_mnist_mlp.py
+   (784-128-64-10, batch 64; synthetic data from seed 0, the startup
+   program's random_seed 1) through
+   `fluid.layers` -> `optimizer.minimize` -> `Executor.run`: the startup
+   program on `fluid.Executor()` with no place (every persistable must
+   land on cuda:0), then 30 SGD steps on the card and the same steps on
+   the CPU from the same numpy params (losses within 1e-4 relative,
+   accuracies equal, the card's last loss below half its first), then 20
+   Adam steps the same way; the median step time (host clock, ending in
+   a synchronize) beside the card's name and power limit. This path runs
+   none of the kernels: MNIST has no attention;
+8. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s);
-8. the last line, ``{"ok": true, "device": {...}}``, printed only when
+9. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -64,6 +75,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -105,6 +117,10 @@ FLASH_CASES = [
 FLASH_SEED = 1234
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 2e-2
+FLUID_BATCH, FLUID_SGD_STEPS, FLUID_ADAM_STEPS = 64, 30, 20
+FLUID_SEED = 0               # synthetic data
+FLUID_INIT_SEED = 1          # the startup program's random_seed
+FLUID_LOSS_RTOL = 1e-4      # fluid MLP losses, card vs CPU (fp32, no TF32)
 
 
 def emit(obj):
@@ -122,7 +138,8 @@ def check(cond, what):
 
 # -- phase 1 ------------------------------------------------------------------
 
-def phase_device(torch):
+def nvidia_smi_line():
+    """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -130,6 +147,11 @@ def phase_device(torch):
     line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     check(smi.returncode == 0 and line, "nvidia-smi failed: %s"
           % smi.stderr.strip())
+    return line
+
+
+def phase_device(torch):
+    line = nvidia_smi_line()
     print(line, flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": name, "nvidia_smi": line,
@@ -707,6 +729,108 @@ def phase_training(torch):
     return res
 
 
+# -- phase 7 ------------------------------------------------------------------
+
+def fluid_mnist_data(n=512):
+    """tests/test_mnist_mlp.py's separable synthetic MNIST, seeded."""
+    import numpy as np
+
+    rng = np.random.RandomState(FLUID_SEED)
+    x = rng.rand(n, 784).astype("float32") * 0.1
+    y = rng.randint(0, 10, size=(n, 1)).astype("int64")
+    for i in range(n):
+        x[i, y[i, 0] * 78:(y[i, 0] + 1) * 78] += 1.0
+    return x, y
+
+
+def build_fluid_mlp(fluid, kind):
+    """The MNIST MLP of tests/test_mnist_mlp.py in fresh programs, with
+    its optimizer: (main, startup, loss, accuracy)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = FLUID_INIT_SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data(name="img", shape=[784], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=img, size=128, act="relu")
+        h = fluid.layers.fc(input=h, size=64, act="relu")
+        logits = fluid.layers.fc(input=h, size=10, act=None)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        acc = fluid.layers.accuracy(input=fluid.layers.softmax(logits),
+                                    label=label)
+        opt = (fluid.optimizer.SGDOptimizer(learning_rate=0.5)
+               if kind == "sgd"
+               else fluid.optimizer.AdamOptimizer(learning_rate=1e-3))
+        opt.minimize(loss)
+    return main, startup, loss, acc
+
+
+def fluid_steps(torch, fluid, exe, main, scope, fetch, steps):
+    """`steps` feed/fetch runs over the synthetic batches: losses,
+    accuracies and host-clock ms a step (ending in a synchronize)."""
+    x, y = fluid_mnist_data()
+    losses, accs, step_ms = [], [], []
+    for step in range(steps):
+        i = (step * FLUID_BATCH) % (len(x) - FLUID_BATCH)
+        feed = {"img": x[i:i + FLUID_BATCH], "label": y[i:i + FLUID_BATCH]}
+        t0 = time.perf_counter()
+        loss, acc = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        if exe.device.type == "cuda":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss[0]))
+        accs.append(float(acc[0]))
+    return losses, accs, step_ms
+
+
+def phase_fluid(torch, name):
+    """The fluid static graph: the MNIST MLP through layers -> minimize
+    -> Executor.run, on the card (Executor() with no place) and on the
+    CPU from the same numpy params, for SGD and for Adam."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.core.scope import dump_numpy_state, \
+        load_numpy_state
+
+    res = {"phase": "fluid_static_graph",
+           "model": "MNIST MLP 784-128-64-10", "batch": FLUID_BATCH}
+    for kind, steps in (("sgd", FLUID_SGD_STEPS),
+                        ("adam", FLUID_ADAM_STEPS)):
+        main, startup, loss, acc = build_fluid_mlp(fluid, kind)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        off_card = [n for n in names
+                    if scope.find_var(n).device != torch.device("cuda", 0)]
+        check(not off_card, "fluid %s: persistables not on cuda:0: %s"
+              % (kind, off_card))
+        state = dump_numpy_state(scope, names)
+        card = fluid_steps(torch, fluid, exe, main, scope, [loss, acc],
+                           steps)
+        cpu_scope = fluid.Scope()
+        load_numpy_state(cpu_scope, state, "cpu")
+        cpu = fluid_steps(torch, fluid, fluid.Executor(fluid.CPUPlace()),
+                          main, cpu_scope, [loss, acc], steps)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+        res[kind] = {"steps": steps, "persistables": len(names),
+                     "losses": card[0], "losses_cpu": cpu[0],
+                     "max_loss_rel_err": rel, "accuracies": card[1],
+                     "step_ms": card[2],
+                     "median_step_ms": statistics.median(card[2]),
+                     "cpu_median_step_ms": statistics.median(cpu[2])}
+        check(all(math.isfinite(v) for v in card[0]),
+              "fluid %s: non-finite loss %s" % (kind, card[0]))
+        check(rel <= FLUID_LOSS_RTOL, "fluid %s: card vs CPU losses differ "
+              "by %g relative" % (kind, rel))
+        check(card[1] == cpu[1], "fluid %s: accuracies differ: %s vs %s"
+              % (kind, card[1], cpu[1]))
+        check(card[0][-1] < 0.5 * card[0][0], "fluid %s: loss %g -> %g did "
+              "not halve" % (kind, card[0][0], card[0][-1]))
+    res.update(device=name, nvidia_smi=nvidia_smi_line())
+    emit(res)
+    return res
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -784,6 +908,7 @@ def main():
     del model
     torch.cuda.empty_cache()
     train = phase_training(torch)
+    phase_fluid(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

@@ -4,12 +4,14 @@ Hopper (H100).
 Module paths mirror `paddle_tpu/` so each module names its counterpart.
 The port imports `torch` and numpy only: never `jax`, never `paddle_tpu`.
 Ported so far: the serving runtime (`paddle_tpu_torch.serving`) with its
-hand-written ragged paged attention kernel, and the transformer trainer
+hand-written ragged paged attention kernel, the transformer trainer
 (`paddle_tpu_torch.parallel.transformer`) with its hand-written flash
-attention forward and backward kernels (`csrc/`)."""
+attention forward and backward kernels (`csrc/`), and the core of the
+fluid static graph (`paddle_tpu_torch.fluid`: Program, op registry,
+backward, eager Executor, SGD and Adam)."""
 __version__ = "0.1.0"
 
-__all__ = ["serving", "parallel"]
+__all__ = ["serving", "parallel", "fluid"]
 
 
 def __getattr__(name):

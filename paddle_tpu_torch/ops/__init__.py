@@ -1,1 +1,18 @@
-"""Operators of the port (counterpart: `paddle_tpu/ops/`)."""
+"""Operators of the port (counterpart: `paddle_tpu/ops/`).
+
+Importing this package registers every ported operator: the static
+graph's op set of the fluid slice. `kernels/` holds the hand-written CUDA
+kernels and their plain PyTorch versions.
+"""
+from .registry import (  # noqa: F401
+    register_op, get_op, has_op, registered_ops, run_op, infer_outputs,
+    normalize_outs,
+)
+
+from . import math_ops  # noqa: F401
+from . import nn_ops  # noqa: F401
+from . import tensor_ops  # noqa: F401
+from . import rng_ops  # noqa: F401
+from . import optimizer_ops  # noqa: F401
+from . import metric_ops  # noqa: F401
+from . import fused_ops  # noqa: F401

@@ -1,14 +1,20 @@
-"""Serving flags of the port (counterpart: `paddle_tpu/utils/flags.py`).
+"""Flags of the port (counterpart: `paddle_tpu/utils/flags.py`).
 
-Only the ``FLAGS_tpu_serving_*`` surface the serving slice reads, with the
-same names and defaults as the JAX package, so one environment configures
-both. Flags ingest ``FLAGS_*`` environment variables at import."""
+Only the flags the ported slices read: the ``FLAGS_tpu_serving_*``
+surface of serving, and the executor's. Names and defaults are the JAX
+package's, so one environment configures both. Flags ingest ``FLAGS_*``
+environment variables at import."""
 from __future__ import annotations
 
 import os
 from typing import Dict
 
 _FLAGS: Dict[str, object] = {
+    # Executor.run: after each run, raise if a fetch or an updated
+    # persistable holds Inf or NaN (one host copy of each)
+    "FLAGS_check_nan_inf": False,
+    # Executor: prepared blocks kept per executor (LRU)
+    "FLAGS_tpu_compile_cache_size": 128,
     # tokens per KV-cache page (the allocation unit of the paged cache)
     "FLAGS_tpu_serving_page_size": 16,
     # total pages in the KV pool
@@ -68,6 +74,12 @@ _ingest_env()
 
 def set_flags(flags_dict):
     _FLAGS.update(flags_dict)
+
+
+def get_flags(flags):
+    if isinstance(flags, str):
+        flags = [flags]
+    return {f: _FLAGS.get(f) for f in flags}
 
 
 def get_flag(name, default=None):

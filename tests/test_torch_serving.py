@@ -274,8 +274,9 @@ def test_no_silent_cpu_fallback(monkeypatch):
 
 def test_port_imports_no_jax():
     """A fresh interpreter serves a tiny trace through the port, takes one
-    train step with flash attention, and has imported neither jax nor
-    anything of paddle_tpu."""
+    train step with flash attention, trains a tiny MLP through the fluid
+    static graph, and has imported neither jax nor anything of
+    paddle_tpu."""
     code = (
         "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
@@ -292,6 +293,25 @@ def test_port_imports_no_jax():
         "p, o, loss = step(p, tt.init_opt_state(p),\n"
         "                  *tt.demo_batch(cfg, 2), 0)\n"
         "assert math.isfinite(float(loss)), loss\n"
+        "import numpy as np\n"
+        "from paddle_tpu_torch import fluid\n"
+        "x = fluid.layers.data(name='x', shape=[8], dtype='float32')\n"
+        "y = fluid.layers.data(name='y', shape=[1], dtype='int64')\n"
+        "h = fluid.layers.fc(input=x, size=16, act='relu')\n"
+        "logits = fluid.layers.fc(input=h, size=4)\n"
+        "avg = fluid.layers.mean(\n"
+        "    fluid.layers.softmax_with_cross_entropy(logits, y))\n"
+        "acc = fluid.layers.accuracy(input=fluid.layers.softmax(logits),\n"
+        "                            label=y)\n"
+        "fluid.optimizer.AdamOptimizer(learning_rate=0.05).minimize(avg)\n"
+        "exe = fluid.Executor(fluid.CPUPlace())\n"
+        "exe.run(fluid.default_startup_program())\n"
+        "r = np.random.RandomState(0)\n"
+        "feed = {'x': r.randn(16, 8).astype('float32'),\n"
+        "        'y': r.randint(0, 4, (16, 1))}\n"
+        "l = [float(exe.run(feed=feed, fetch_list=[avg, acc])[0][0])\n"
+        "     for _ in range(10)]\n"
+        "assert l[-1] < l[0], l\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"
