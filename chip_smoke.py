@@ -34,7 +34,9 @@ Phases, each printing one JSON line:
    one, read in place: no copy inside the timed calls), (b) BERT's (S 128,
    fp32, a padding key bias), (c) S 100 (fp32, causal, the padding path),
    (d) fp32 with a key bias and dropout 0.1 at a fixed seed, (e) bf16 at
-   the trainer's widths with a key bias and dropout 0.1. Tolerances: fp32
+   the trainer's widths with a key bias and dropout 0.1, (f) the fluid
+   BERT path's long leg (B 2, H 12, S 4096, D 64, bf16, key bias,
+   dropout 0.1, q, k, v as views of one [B, S, 3H] projection). Tolerances: fp32
    forward 2e-5 and gradients 3e-4, bf16 2e-2. Each kernel's time beside
    its plain version's, the least time the card could take, its rate on
    the attending pairs (TFLOP/s), its design (bf16 on tensor cores,
@@ -60,11 +62,27 @@ Phases, each printing one JSON line:
    Adam steps the same way; the median step time (host clock, ending in
    a synchronize) beside the card's name and power limit. This path runs
    none of the kernels: MNIST has no attention;
-8. kernels — one line listing every ported kernel with its launches on
+8. fluid BERT — BERT-base pretraining (vocab 30522, hidden 768, 12
+   layers, 12 heads, FFN 3072; random weights from the startup program's
+   random_seed 1, bench.py's synthetic masked-LM feed) through
+   `bert_pretrain_loss` (scan encoder) -> `mixed_precision.decorate`
+   (bf16, O2) over Adam -> `minimize` -> `fuse_optimizer_ops` ->
+   `Executor.run`, as bench.py builds it. Leg a: S 128, batch 256, no
+   remat, composite attention. Leg b: S 4096, batch 2, scan remat, the
+   three flash kernels with the key bias and dropout in them. Each leg
+   runs 2 warm-up and 5 timed steps: every loss finite, the first within
+   0.5 of ln(30522) + ln(2); tokens/s, the median step ms, peak memory,
+   MFU, the busy share of one profiled step; the flash launch counts,
+   zeroed just before the timed steps, exact (leg a none; leg b 2L
+   forward, L dK/dV and L dQ a step, all on tensor cores). Leg c: the
+   S 4096 program at 2 layers, one step with the kernels and one with
+   their plain version from the same params: loss within 1e-2 and every
+   gradient within 2e-2 relative in norm;
+9. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
-   TFLOP/s);
-9. the last line, ``{"ok": true, "device": {...}}``, printed only when
+   TFLOP/s, and their launches and times on the fluid BERT path);
+10. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -113,6 +131,8 @@ FLASH_CASES = [
          causal=False, bias=True, p=0.1),
     dict(name="bias_dropout_bf16", B=8, H=12, S=512, D=64, dtype="bfloat16",
          causal=False, bias=True, p=0.1),
+    dict(name="bert_s4096_bf16", B=2, H=12, S=4096, D=64, dtype="bfloat16",
+         causal=False, bias=True, p=0.1, qkv_views=True),
 ]
 FLASH_SEED = 1234
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
@@ -121,6 +141,22 @@ FLUID_BATCH, FLUID_SGD_STEPS, FLUID_ADAM_STEPS = 64, 30, 20
 FLUID_SEED = 0               # synthetic data
 FLUID_INIT_SEED = 1          # the startup program's random_seed
 FLUID_LOSS_RTOL = 1e-4      # fluid MLP losses, card vs CPU (fp32, no TF32)
+#: fluid BERT legs (bench.py's BATCH/SEQ_LEN and LONGCTX_BATCH/_SEQ; scan
+#: remat on where bench.py turns it on)
+BERT_FLUID_LEGS = [
+    dict(name="a_s128", seq=128, batch=256, remat=False),
+    dict(name="b_s4096", seq=4096, batch=2, remat=True),
+]
+BERT_WARMUP, BERT_STEPS = 2, 5
+BERT_INIT_SEED = 1           # the startup and main programs' random_seed
+BERT_LR = 1e-4
+BERT_LOSS0_TOL = 0.5         # first loss against ln(vocab) + ln(2)
+BERT_CHECK = dict(seq=4096, batch=2, layers=2)
+#: kernels vs plain flash on one bf16 step: the tensor-core kernels round
+#: P and dS to bf16 before their second product, so gradients differ by
+#: about one bf16 step (2^-8) relative; 2e-2 in norm, as the trainer's
+#: check in phase 6
+BERT_CHECK_LOSS_RTOL, BERT_CHECK_GRAD_RTOL = 1e-2, 2e-2
 
 
 def emit(obj):
@@ -831,6 +867,218 @@ def phase_fluid(torch, name):
     return res
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+def build_fluid_bert(fluid, cfg, seq, remat, attention_impl="auto"):
+    """BERT pretraining as bench.py builds it, in fresh programs:
+    `bert_pretrain_loss` (scan encoder), bf16 AMP O2 over Adam(1e-4)
+    without loss scaling, `minimize`, `fuse_optimizer_ops`. Returns
+    (main, startup, total loss, names of the params' gradients)."""
+    from paddle_tpu_torch.fluid.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = BERT_INIT_SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        total, _, _, _ = bert.bert_pretrain_loss(
+            cfg, seq, scan_layers=True, scan_remat=remat,
+            attention_impl=attention_impl)
+        opt = mixed_precision.decorate(
+            fluid.optimizer.AdamOptimizer(learning_rate=BERT_LR),
+            use_dynamic_loss_scaling=False)
+        _, params_grads = opt.minimize(total)
+        fluid.fuse_optimizer_ops(main)
+    return main, startup, total, [g.name for _, g in params_grads]
+
+
+def bert_cfg(seq, layers=None):
+    """BERT-base (paddle_tpu/models/bert.py BertConfig.base), its
+    position table stretched to `seq` where longer than 512 (as bench.py
+    does for its long-context leg), its depth cut to `layers` if given."""
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig.base()
+    cfg.max_position_embeddings = max(cfg.max_position_embeddings, seq)
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    return cfg
+
+
+def bert_model_flops(cfg, batch, seq, n_pred):
+    """Model FLOPs of one pretraining step (forward and backward, no
+    recompute): per layer the qkv, output and two FFN products over the
+    B*S tokens and attention's two products over S*S pairs, then the
+    masked-LM transform and vocab head over the B*n_pred masked tokens
+    and the pooler and NSP head over the B [CLS] rows."""
+    h, f, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    tokens, masked = batch * seq, batch * n_pred
+    encoder = L * (2 * tokens * (4 * h * h + 2 * h * f)
+                   + 4 * batch * seq * seq * h)
+    heads = 2 * masked * h * (h + V) + 2 * batch * h * (h + 2)
+    return 3 * (encoder + heads)
+
+
+def device_busy_share(torch, fn):
+    """Run `fn` once under torch.profiler: (device busy us summed over
+    kernels, wall us, kernels launched)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    busy, count = 0.0, 0
+    for e in prof.key_averages():
+        if "cuda" in str(e.device_type).lower():
+            us = float(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0)))
+            if us > 0:
+                busy += us
+                count += e.count
+    return busy, wall, count
+
+
+def fluid_bert_leg(torch, fluid, leg):
+    """One leg of the fluid BERT path at full width on the card:
+    startup on `fluid.Executor()`, warm-up steps, then timed steps with
+    the flash launch counts zeroed just before them and read just after,
+    then one profiled step for the device's busy share."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = bert_cfg(leg["seq"])
+    main, startup, total, _ = build_fluid_bert(fluid, cfg, leg["seq"],
+                                               leg["remat"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.bert_feed(cfg, leg["batch"], leg["seq"])
+    n_pred = feed["mask_pos"].shape[1]
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[total],
+                             scope=scope)[0][0])
+
+    losses = [step() for _ in range(BERT_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+    fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
+    step_ms = []
+    for _ in range(BERT_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"forward": fa.fwd_launches, "dkv": fa.dkv_launches,
+                "dq": fa.dq_launches}
+    tc_launches = dict(fa.tc_launches)
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, kernels = device_busy_share(torch, step)
+    L = cfg.num_hidden_layers
+    flash = leg["seq"] >= fluid.get_flags(
+        "FLAGS_flash_attention_min_seq")["FLAGS_flash_attention_min_seq"]
+    # a step runs each layer's attention forward once, and once more in
+    # the backward's recompute under remat; dK/dV and dQ once
+    fwd_per_step = (2 if leg["remat"] else 1) * L if flash else 0
+    want = {"forward": fwd_per_step * BERT_STEPS,
+            "dkv": (L if flash else 0) * BERT_STEPS,
+            "dq": (L if flash else 0) * BERT_STEPS}
+    median_s = statistics.median(step_ms) / 1e3
+    flops = bert_model_flops(cfg, leg["batch"], leg["seq"], n_pred)
+    res = {"leg": leg["name"], "seq": leg["seq"], "batch": leg["batch"],
+           "layers": L, "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+           "masked_per_seq": n_pred, "scan_remat": leg["remat"],
+           "attention": "flash kernels" if flash else "composite",
+           "losses": losses, "step_ms": step_ms,
+           "median_step_ms": median_s * 1e3,
+           "tokens_per_sec": leg["batch"] * leg["seq"] / median_s,
+           "model_flops_per_step": flops,
+           "mfu_vs_bf16_peak": flops / median_s / BF16_FLOPS_PER_S,
+           "peak_mem_bytes": peak, "profiled_step": {
+               "wall_us": wall, "device_busy_us": busy,
+               "device_busy_share": busy / wall, "kernels": kernels},
+           "launches": launches, "launches_expected": want,
+           "tensor_core_launches": tc_launches}
+    first_want = math.log(cfg.vocab_size) + math.log(2)
+    check(all(math.isfinite(x) for x in losses),
+          "fluid bert %s: non-finite loss %s" % (leg["name"], losses))
+    check(abs(losses[0] - first_want) <= BERT_LOSS0_TOL,
+          "fluid bert %s: first loss %g, expected %g +- %g" % (
+              leg["name"], losses[0], first_want, BERT_LOSS0_TOL))
+    check(launches == want and tc_launches == want,
+          "fluid bert %s: flash launches %s (tensor cores %s), expected %s"
+          % (leg["name"], launches, tc_launches, want))
+    del exe, scope
+    torch.cuda.empty_cache()
+    return res
+
+
+def fluid_bert_kernels_vs_plain(torch, fluid):
+    """One step of the S 4096 program with the flash kernels and one with
+    their plain version (`attention_impl="reference"`), from the same
+    params and feed: the loss and every parameter's gradient."""
+    from paddle_tpu_torch.models import bert
+
+    c = BERT_CHECK
+    cfg = bert_cfg(c["seq"], c["layers"])
+    feed = bert.bert_feed(cfg, c["batch"], c["seq"])
+    out, state = {}, None
+    for impl in ("auto", "reference"):
+        main, startup, total, grads = build_fluid_bert(
+            fluid, cfg, c["seq"], True, attention_impl=impl)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        if state is None:
+            exe.run(startup, scope=scope)
+            state = {n: scope.find_var(n).clone()
+                     for n in scope.local_var_names()}
+        else:
+            for n, v in state.items():
+                scope.set_var(n, v.clone())
+        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
+                       scope=scope, return_numpy=False)
+        out[impl] = (float(vals[0].reshape(-1)[0]),
+                     dict(zip(grads, (v.float() for v in vals[1:]))))
+    lk, gk = out["auto"]
+    lp, gp = out["reference"]
+    grad_err = {n: float((gk[n] - gp[n]).norm()
+                         / gp[n].norm().clamp_min(1e-30)) for n in gp}
+    res = {"seq": c["seq"], "batch": c["batch"], "layers": c["layers"],
+           "loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "max_grad_rel_err": max(grad_err.values()),
+           "grad_rel_err": grad_err,
+           "tol": {"loss": BERT_CHECK_LOSS_RTOL,
+                   "grads": BERT_CHECK_GRAD_RTOL}}
+    check(math.isfinite(lk) and res["loss_rel_err"] <= BERT_CHECK_LOSS_RTOL
+          and res["max_grad_rel_err"] <= BERT_CHECK_GRAD_RTOL,
+          "fluid bert: kernels vs plain: loss rel err %g, max grad rel err "
+          "%g" % (res["loss_rel_err"], res["max_grad_rel_err"]))
+    return res
+
+
+def phase_fluid_bert(torch, name):
+    """BERT-base pretraining through the fluid static graph on the card:
+    leg a at S 128 (composite attention), leg b at S 4096 (the three
+    flash kernels, with the key bias and dropout inside them), then leg
+    c, the kernels against their plain version on one step."""
+    from paddle_tpu_torch import fluid
+
+    res = {"phase": "fluid_bert", "config": "BERT-base (BertConfig.base)",
+           "optimizer": "Adam 1e-4, bf16 AMP O2, fuse_optimizer_ops",
+           "legs": [fluid_bert_leg(torch, fluid, leg)
+                    for leg in BERT_FLUID_LEGS]}
+    res["kernels_vs_plain"] = fluid_bert_kernels_vs_plain(torch, fluid)
+    res.update(device=name, nvidia_smi=nvidia_smi_line())
+    emit(res)
+    return res
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -853,10 +1101,10 @@ def kernel_entry(name, replaces, launches, case, prefill):
                 "case", "ms", "plain_ms", "library_ms", "bound_ms")}}
 
 
-def flash_entry(kname, replaces, launches, case):
-    """A flash kernel's line at the trainer's shape (case a). library_ms
-    is scaled_dot_product_attention's forward for the forward kernel and
-    its backward (dq, dk and dv together) for the two backward kernels;
+def flash_times(kname, case):
+    """A flash kernel's numbers in one phase 5 case. library_ms is
+    scaled_dot_product_attention's forward for the forward kernel and its
+    backward (dq, dk and dv together) for the two backward kernels;
     `design` says how the kernel runs ("wgmma bf16" or "simt ...") and
     `tflops` is its rate on the attending pairs."""
     k = case["kernels"][kname]
@@ -865,13 +1113,22 @@ def flash_entry(kname, replaces, launches, case):
            "dkv": max(errs["dk"], errs["dv"]), "dq": errs["dq"]}[kname]
     lib = case["library_ms"]["forward" if kname == "forward"
                              else "backward"]
-    return {"name": "flash_attention_" + kname, "route": "cuda",
-            "source": FLASH_SOURCE, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": lib,
-            "design": k["route"], "tflops": k["tflops"],
+    return {"max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": lib, "design": k["route"], "tflops": k["tflops"],
             "at_case": case["case"]}
+
+
+def flash_entry(kname, replaces, launches, case, bert_launches, bert_case):
+    """A flash kernel's line: its launches on the trainer's path (phase 6)
+    and its numbers at the trainer's shape (case a); beside them, its
+    launches on the fluid BERT path at S 4096 (phase 8, leg b) and its
+    numbers at that shape."""
+    return dict({"name": "flash_attention_" + kname, "route": "cuda",
+                 "source": FLASH_SOURCE, "replaces": replaces,
+                 "launches": launches}, **flash_times(kname, case),
+                fluid_bert=dict(launches=bert_launches,
+                                **flash_times(kname, bert_case)))
 
 
 def main():
@@ -909,6 +1166,7 @@ def main():
     torch.cuda.empty_cache()
     train = phase_training(torch)
     phase_fluid(torch, name)
+    fluid_bert = phase_fluid_bert(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)
@@ -923,7 +1181,9 @@ def main():
                           cases["decode_int8"], cases["prefill_int8"]),
              max_abs_err=quant_err),
     ] + [flash_entry(kname, FLASH_TPU + ":" + line, train["launches"][kname],
-                     flash[FLASH_CASES[0]["name"]])
+                     flash[FLASH_CASES[0]["name"]],
+                     fluid_bert["legs"][1]["launches"][kname],
+                     flash["bert_s4096_bf16"])
          for kname, line in (("forward", "109"), ("dkv", "235"),
                              ("dq", "298"))]}
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,

@@ -8,10 +8,11 @@ hand-written ragged paged attention kernel, the transformer trainer
 (`paddle_tpu_torch.parallel.transformer`) with its hand-written flash
 attention forward and backward kernels (`csrc/`), and the core of the
 fluid static graph (`paddle_tpu_torch.fluid`: Program, op registry,
-backward, eager Executor, SGD and Adam)."""
+backward, eager Executor, SGD and Adam, Scan, bf16 AMP) with BERT
+pretraining on it (`paddle_tpu_torch.models.bert`)."""
 __version__ = "0.1.0"
 
-__all__ = ["serving", "parallel", "fluid"]
+__all__ = ["serving", "parallel", "fluid", "models"]
 
 
 def __getattr__(name):

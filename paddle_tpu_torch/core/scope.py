@@ -4,17 +4,17 @@
 Values are torch tensors on the executor's device: parameters, optimizer
 state and the other persistables. `load_numpy_state` and
 `dump_numpy_state` carry them across as numpy arrays, e.g. from the JAX
-package's scope after its startup program.
+package's scope after its startup program, bfloat16 (numpy has no such
+type: JAX hands back ``ml_dtypes.bfloat16``) bit for bit.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, Optional
 
 import numpy as np
-import torch
 
 from .place import resolve_device
-from .types import to_torch_dtype
+from .types import from_numpy, to_numpy
 
 
 class Scope:
@@ -90,23 +90,22 @@ def scope_guard(scope: Scope):
 
 def load_numpy_state(scope: Scope, state: Dict[str, np.ndarray],
                      device=None):
-    """Set each `name -> array` of `state` in `scope` as a tensor on
+    """Set each `name -> array` of `state` in `scope` as a new tensor on
     `device` (``None``: ``cuda:0``), in the dtype a var of the array's
-    dtype holds on the device."""
+    dtype holds on the device (`types.from_numpy`: bfloat16 bit for
+    bit)."""
     dev = resolve_device(device)
     for name, arr in state.items():
-        arr = np.array(arr)  # a copy: the scope never aliases the caller
-        scope.set_var(name, torch.as_tensor(
-            arr, dtype=to_torch_dtype(arr.dtype), device=dev))
+        scope.set_var(name, from_numpy(arr, dev))
 
 
 def dump_numpy_state(scope: Scope, names: Iterable[str]):
     """`{name: numpy array}` of the named scope values (copied to the
-    host)."""
+    host; bfloat16 as ``ml_dtypes.bfloat16``, bit for bit)."""
     out = {}
     for name in names:
         v = scope.find_var(name)
         if v is None:
             raise KeyError("var %r is absent from the scope" % name)
-        out[name] = v.detach().cpu().numpy()
+        out[name] = to_numpy(v)
     return out

@@ -131,6 +131,29 @@ def to_numpy_dtype(dtype) -> np.dtype:
     return _STR_TO_NP[normalize_dtype(dtype)]
 
 
+def from_numpy(arr, device) -> torch.Tensor:
+    """A numpy array as a new tensor on `device`, in the dtype a var of
+    its dtype holds there. A bfloat16 array (``ml_dtypes.bfloat16``, what
+    JAX hands back) crosses bit for bit through a uint16 view, never
+    through float32."""
+    arr = np.asarray(arr)
+    if arr.dtype == _BF16 and arr.dtype != np.float32:
+        return torch.tensor(arr.view(np.uint16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(arr, dtype=to_torch_dtype(arr.dtype), device=device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16 as ``ml_dtypes.bfloat16``,
+    bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    if _BF16 == np.float32:
+        raise RuntimeError("a bfloat16 tensor needs ml_dtypes on the host")
+    return t.view(torch.int16).numpy().view(_BF16)
+
+
 def to_torch_dtype(dtype) -> torch.dtype:
     """The torch dtype a var of `dtype` holds on the device (64-bit types
     narrowed to 32 bits, see the module docstring)."""

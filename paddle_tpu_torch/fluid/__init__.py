@@ -1,10 +1,11 @@
 """paddle_tpu_torch.fluid — the Fluid static-graph programming model on
 PyTorch (counterpart: `paddle_tpu/fluid/`).
 
-Ported so far: Program / Block / Operator / Variable, `layers.data`,
-`fc`, `softmax`, `softmax_with_cross_entropy`, `mean`, `accuracy` and
-`topk`, `append_backward`, the eager `Executor`, and the SGD and Adam
-optimizers. What is not ported yet is absent.
+Ported so far: Program / Block / Operator / Variable, the layers of the
+MNIST MLP and of BERT (`fluid.layers`, with `layers.Scan`),
+`append_backward`, the eager `Executor`, the SGD and Adam optimizers,
+`fuse_optimizer_ops`, and bf16 mixed precision
+(`contrib.mixed_precision`). What is not ported yet is absent.
 """
 from . import framework  # noqa: F401
 from .framework import (  # noqa: F401
@@ -19,9 +20,11 @@ from .backward import append_backward  # noqa: F401
 from . import layers  # noqa: F401
 from . import initializer  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import contrib  # noqa: F401
+from .fuse_optimizer import fuse_optimizer_ops  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from .initializer import (  # noqa: F401
-    Constant, Uniform, Normal, Xavier, MSRA,
+    Constant, Uniform, Normal, TruncatedNormal, Xavier, MSRA,
 )
 from ..utils.flags import get_flags, set_flags  # noqa: F401
 

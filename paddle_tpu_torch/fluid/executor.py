@@ -19,7 +19,8 @@ import torch
 
 from . import framework, lowering
 from ..core.scope import global_scope
-from ..core.types import to_numpy_dtype, to_torch_dtype
+from ..core.types import from_numpy, to_numpy, to_numpy_dtype, \
+    to_torch_dtype
 from ..utils.flags import get_flag
 
 _Prepared = collections.namedtuple("_Prepared", ["state_in", "fn"])
@@ -134,13 +135,12 @@ class Executor:
             arr = np.asarray(value)
             if v is not None and arr.dtype != to_numpy_dtype(v.dtype):
                 arr = arr.astype(to_numpy_dtype(v.dtype))
-            out[name] = torch.as_tensor(
-                arr, dtype=to_torch_dtype(arr.dtype), device=self.device)
+            out[name] = from_numpy(arr, self.device)
         return out
 
     @staticmethod
     def _fetch_to_numpy(v):
-        return v.detach().cpu().numpy()
+        return to_numpy(v)
 
     @staticmethod
     def _check_nan_inf(fetch_names, fetches, new_states):

@@ -311,6 +311,19 @@ class Program:
     def block(self, idx) -> Block:
         return self.blocks[idx]
 
+    def _create_block(self, parent_idx=None) -> Block:
+        """A new sub-block of the current block (or of `parent_idx`),
+        made current."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._version += 1
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
     @property
     def num_blocks(self):
         return len(self.blocks)
@@ -350,6 +363,9 @@ class Program:
             p.blocks.append(nb)
         p._is_test = for_test
         p._version = self._version
+        for attr in ("_amp", "_amp_lists", "_amp_dtype", "_amp_master_of"):
+            if hasattr(self, attr):
+                setattr(p, attr, getattr(self, attr))
         return p
 
     def __repr__(self):

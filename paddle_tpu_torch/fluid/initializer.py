@@ -1,7 +1,8 @@
 """Parameter initializers (counterpart: `paddle_tpu/fluid/initializer.py`).
 
 Each initializer appends ONE op to the startup program that materializes
-the parameter: `fill_constant`, `uniform_random` or `gaussian_random`.
+the parameter: `fill_constant`, `uniform_random`, `gaussian_random` or
+`truncated_gaussian_random`.
 """
 from __future__ import annotations
 
@@ -44,6 +45,17 @@ class NormalInitializer(Initializer):
     def __call__(self, var, block):
         block.append_op(
             type="gaussian_random", outputs={"Out": var},
+            attrs={"shape": list(var.shape), "dtype": var.dtype,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            type="truncated_gaussian_random", outputs={"Out": var},
             attrs={"shape": list(var.shape), "dtype": var.dtype,
                    "mean": self.loc, "std": self.scale, "seed": self.seed})
 
@@ -94,6 +106,7 @@ class MSRAInitializer(Initializer):
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
 

@@ -1,14 +1,22 @@
 """Neural-network layers of the slice (counterpart:
-`paddle_tpu/fluid/layers/nn.py`): `fc`, `softmax`, `mean`, `accuracy`
-and `topk`. Each builder creates its params through LayerHelper (init ops
-go to the startup program) and appends its compute op."""
+`paddle_tpu/fluid/layers/nn.py`): `fc`, `embedding`, `layer_norm`,
+`dropout`, the activations `tanh` and `gelu`, `softmax`,
+`matmul`, `elementwise_add` / `_mul` / `_div`, `reduce_sum`, `mean`,
+`slice`, `accuracy`, `topk` and `scaled_dot_product_attention`. Each
+builder creates its params through LayerHelper (init ops go to the
+startup program) and appends its compute op."""
 from __future__ import annotations
 
 import numpy as np
 
+from ..framework import Variable
+from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper, apply_op
 
-__all__ = ["fc", "softmax", "mean", "accuracy", "topk"]
+__all__ = ["fc", "embedding", "layer_norm", "dropout", "tanh",
+           "gelu", "softmax", "matmul", "elementwise_add", "elementwise_mul",
+           "elementwise_div", "reduce_sum", "mean", "slice", "accuracy",
+           "topk", "scaled_dot_product_attention"]
 
 
 def _single(op_type, inputs, attrs, dtype=None, helper=None):
@@ -40,6 +48,133 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                        helper=helper)
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """A [size[0], size[1]] table looked up by `input`'s ids (the
+    `lookup_table` op; sparse updates are not ported, so `is_sparse` only
+    rides along as an attr)."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(helper.param_attr, shape=list(size),
+                                dtype=dtype)
+    pad = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx)
+    return _single("lookup_table", {"W": [w], "Ids": [input]},
+                   {"padding_idx": pad, "is_sparse": is_sparse,
+                    "is_distributed": is_distributed},
+                   dtype=dtype, helper=helper)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    """`scale` / `shift` may be Variables: the scan body normalizes with
+    per-iteration slices of stacked [L, H] params instead of creating
+    its own."""
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    norm_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if isinstance(scale, Variable):
+        inputs["Scale"] = [scale]
+    elif scale:
+        inputs["Scale"] = [helper.create_parameter(
+            helper.param_attr, shape=norm_shape, dtype=input.dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if isinstance(shift, Variable):
+        inputs["Bias"] = [shift]
+    elif shift:
+        inputs["Bias"] = [helper.create_parameter(
+            helper.bias_attr, shape=norm_shape, dtype=input.dtype,
+            is_bias=True)]
+    outs = apply_op(helper, "layer_norm", inputs,
+                    {"begin_norm_axis": begin_norm_axis, "epsilon": epsilon},
+                    ["Y", "Mean", "Variance"], out_dtype=input.dtype)
+    return helper.append_activation(outs[0])
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    return apply_op("dropout", "dropout", {"X": [x]},
+                    {"dropout_prob": dropout_prob, "is_test": is_test,
+                     "seed": seed or 0,
+                     "dropout_implementation": dropout_implementation},
+                    ["Out", "Mask"], out_dtype=x.dtype)[0]
+
+
+def _make_act(op_type):
+    def f(x, name=None, **kwargs):
+        attrs = {k: v for k, v in kwargs.items() if k == "approximate"}
+        return _single(op_type, {"X": [x]}, attrs, dtype=x.dtype)
+
+    f.__name__ = op_type
+    return f
+
+
+tanh = _make_act("tanh")
+gelu = _make_act("gelu")
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    return _single("matmul", {"X": [x], "Y": [y]},
+                   {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+                    "alpha": float(alpha)}, dtype=x.dtype)
+
+
+def _make_elementwise(op_type):
+    def f(x, y, axis=-1, act=None, name=None):
+        out = _single(op_type, {"X": [x], "Y": [y]}, {"axis": axis},
+                      dtype=x.dtype)
+        if act:
+            out = _single(act, {"X": [out]}, {}, dtype=x.dtype)
+        return out
+
+    f.__name__ = op_type
+    return f
+
+
+elementwise_add = _make_elementwise("elementwise_add")
+elementwise_mul = _make_elementwise("elementwise_mul")
+elementwise_div = _make_elementwise("elementwise_div")
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    if dim is None:
+        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    return _single("reduce_sum", {"X": [input]}, attrs, dtype=input.dtype)
+
+
+def slice(input, axes, starts, ends):
+    return _single("slice", {"Input": [input]},
+                   {"axes": list(axes), "starts": list(starts),
+                    "ends": list(ends), "decrease_axis": []},
+                   dtype=input.dtype)
+
+
+def scaled_dot_product_attention(q, k, v, key_bias=None, causal=False,
+                                 sm_scale=None, attn_dropout_prob=0.0,
+                                 is_test=False, name=None,
+                                 flash_impl="auto"):
+    """Attention over [B, H, S, D] q/k/v with an optional [B, Sk] additive
+    key bias (the `scaled_dot_product_attention` op: the flash kernels on
+    the card at long keys, else the composite path). `flash_impl`
+    "reference" runs the flash kernels' plain version where the kernels
+    would run (a check, not a fallback)."""
+    ins = {"Q": [q], "K": [k], "V": [v]}
+    if key_bias is not None:
+        ins["KeyBias"] = [key_bias]
+    attrs = {"causal": causal,
+             "sm_scale": -1.0 if sm_scale is None else float(sm_scale),
+             "attn_dropout_prob": float(attn_dropout_prob),
+             "is_test": is_test}
+    if flash_impl != "auto":
+        attrs["flash_impl"] = flash_impl
+    return _single("scaled_dot_product_attention", ins, attrs,
+                   dtype=q.dtype)
 
 
 def softmax(input, use_cudnn=False, name=None, axis=-1):

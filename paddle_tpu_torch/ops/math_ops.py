@@ -1,6 +1,9 @@
 """Dense math operators of the slice (counterpart:
-`paddle_tpu/ops/math_ops.py`): `elementwise_add` with Paddle's `axis`
-broadcast rule, `mul` (x_num_col_dims flattening), `scale`, `mean`.
+`paddle_tpu/ops/math_ops.py`): `elementwise_add`, `_mul` and `_div` with
+Paddle's `axis` broadcast rule, `mul` (x_num_col_dims flattening),
+`matmul` (transpose_X/Y, alpha), `scale`, `mean`, `reduce_sum` and
+`cast`. The products are plain `torch.matmul`: the reference computes
+them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import numpy as np
 import torch
 
 from .registry import register_op
+from ..core.types import to_torch_dtype
 
 
 def _bcast_pair(x, y, axis):
@@ -32,6 +36,8 @@ def _register_elementwise(name, fn):
 
 
 _register_elementwise("add", torch.add)
+_register_elementwise("mul", torch.mul)
+_register_elementwise("div", torch.div)
 
 
 @register_op("mul")
@@ -44,6 +50,24 @@ def _mul(ins, attrs):
     y2 = y.reshape((int(np.prod(y.shape[:yn])), -1))
     out = x2 @ y2
     return {"Out": out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))}
+
+
+@register_op("matmul")
+def _matmul(ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    if x.ndim == 1:
+        x = x[None, :]
+    if y.ndim == 1:
+        y = y[:, None]
+    if attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
 
 
 def _scalar_of(x, v):
@@ -67,3 +91,20 @@ def _scale(ins, attrs):
 @register_op("mean")
 def _mean(ins, attrs):
     return {"Out": torch.mean(ins["X"][0]).reshape((1,))}
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ins, attrs):
+    x = ins["X"][0]
+    keep = attrs.get("keep_dim", False)
+    dim = attrs.get("dim", [0])
+    dim = [dim] if isinstance(dim, int) else list(dim)
+    if attrs.get("reduce_all", False) or not dim:
+        dim = range(x.ndim)
+    out = torch.sum(x, dim=tuple(d % x.ndim for d in dim), keepdim=keep)
+    return {"Out": out.reshape((1,)) if out.ndim == 0 else out}
+
+
+@register_op("cast")
+def _cast(ins, attrs):
+    return {"Out": ins["X"][0].to(to_torch_dtype(attrs["out_dtype"]))}

@@ -1,5 +1,6 @@
 """Optimizer update operators of the slice (counterpart:
-`paddle_tpu/ops/optimizer_ops.py`): `sgd` and `adam`.
+`paddle_tpu/ops/optimizer_ops.py`): `sgd`, `adam`, and `fused_adam`,
+adam over a group of parameters as `fluid.fuse_optimizer_ops` plants it.
 
 Param/Grad/<state> inputs, ParamOut/<state>Out outputs. Each update is
 functional: it returns new tensors and the lowering rebinds the names
@@ -45,3 +46,34 @@ def _adam(ins, attrs):
     return {"ParamOut": p_out.to(p.dtype), "Moment1Out": m1o,
             "Moment2Out": m2o, "Beta1PowOut": b1p * b1,
             "Beta2PowOut": b2p * b2}
+
+
+@register_op("fused_adam")
+def _fused_adam(ins, attrs):
+    """`adam` over a group of parameters with `torch._foreach_*` updates
+    (the reference concatenates the group into one vector; the arithmetic
+    is the same elementwise). Each parameter keeps its own beta powers,
+    so its step size is its own."""
+    ps, gs = ins["Param"], ins["Grad"]
+    b1ps, b2ps = ins["Beta1Pow"], ins["Beta2Pow"]
+    lr = _lr(ins)
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    gf = [g.to(torch.float32) for g in gs]
+    m1o = torch._foreach_mul(ins["Moment1"], b1)
+    torch._foreach_add_(m1o, gf, alpha=1 - b1)
+    m2o = torch._foreach_mul(ins["Moment2"], b2)
+    torch._foreach_addcmul_(m2o, gf, gf, value=1 - b2)
+    b1pf = torch.cat([b.reshape(1) for b in b1ps]).to(torch.float32)
+    b2pf = torch.cat([b.reshape(1) for b in b2ps]).to(torch.float32)
+    alphas = (lr * torch.sqrt(1 - b2pf * b2) / (1 - b1pf * b1)).unbind(0)
+    denom = torch._foreach_sqrt(m2o)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(m1o, denom)
+    torch._foreach_mul_(upd, alphas)
+    p_out = torch._foreach_sub([p.to(torch.float32) for p in ps], upd)
+    return {"ParamOut": [o.to(p.dtype) for o, p in zip(p_out, ps)],
+            "Moment1Out": m1o, "Moment2Out": m2o,
+            "Beta1PowOut": torch._foreach_mul(b1ps, b1),
+            "Beta2PowOut": torch._foreach_mul(b2ps, b2)}

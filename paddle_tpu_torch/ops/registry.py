@@ -6,7 +6,9 @@ an input slot to a list of tensors; the returned dict maps an output slot
 to a tensor or a list of them. Two attrs are supplied by the caller, not
 by the program: `attrs["_device"]`, the device an op that has no input
 tensor creates its output on, and, for an op registered `needs_rng`,
-`attrs["_rng_generator"]`, a `torch.Generator` on that device.
+`attrs["_rng_generator"]`, a `torch.Generator` on that device, and
+`attrs["_rng_seed"]`, the int it was seeded with (for a kernel that
+takes its seed from the host).
 
 Shape/dtype inference runs the same compute function on `meta` tensors
 (in place of `jax.eval_shape`), so no per-op InferShape code exists to
@@ -90,8 +92,9 @@ def run_op(type_: str, ins: Dict[str, list], attrs: dict) -> Dict[str, list]:
                              "attrs['_device']" % type_)
         attrs["_device"] = first.device
     if op.needs_rng and "_rng_generator" not in attrs:
+        attrs["_rng_seed"] = int(np.random.randint(0, 2**31 - 1)) << 32
         g = torch.Generator(device=attrs["_device"])
-        g.manual_seed(int(np.random.randint(0, 2**31 - 1)))
+        g.manual_seed(attrs["_rng_seed"])
         attrs["_rng_generator"] = g
     return normalize_outs(op.compute(ins, attrs))
 
@@ -128,7 +131,8 @@ def infer_outputs(type_: str, input_specs: Dict[str, list], attrs: dict):
                 for slot, specs in input_specs.items()}
     run_attrs = dict(attrs, _device=_META)
     if op.needs_rng:
-        run_attrs["_rng_generator"] = None  # meta tensors draw nothing
+        # meta tensors draw nothing
+        run_attrs.update(_rng_generator=None, _rng_seed=0)
     outs = normalize_outs(op.compute(meta_ins, run_attrs))
     return {
         slot: [(tuple(-1 if (dynamic and d == _DYN_SENTINEL) else int(d)

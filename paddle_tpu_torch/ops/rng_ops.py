@@ -1,5 +1,7 @@
 """Random initializer operators of the slice (counterpart:
-`paddle_tpu/ops/rng_ops.py`): `uniform_random` and `gaussian_random`.
+`paddle_tpu/ops/rng_ops.py`): `uniform_random`, `gaussian_random` and
+`truncated_gaussian_random` (a standard normal truncated to [-2, 2],
+then scaled and shifted, as the reference draws it).
 
 Each draws from `attrs["_rng_generator"]`, a `torch.Generator` seeded by
 the lowering from the program's seed and the op's index
@@ -31,4 +33,13 @@ def _uniform_random(ins, attrs):
 def _gaussian_random(ins, attrs):
     out = _draw(attrs).normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
                                generator=attrs["_rng_generator"])
+    return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+
+
+@register_op("truncated_gaussian_random", needs_rng=True)
+def _truncated_gaussian_random(ins, attrs):
+    out = torch.nn.init.trunc_normal_(
+        _draw(attrs), 0.0, 1.0, -2.0, 2.0,
+        generator=attrs["_rng_generator"])
+    out = out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
     return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}

@@ -1,5 +1,12 @@
 """Tensor creation / selection operators of the slice (counterpart:
-`paddle_tpu/ops/tensor_ops.py`): `fill_constant` and `top_k`.
+`paddle_tpu/ops/tensor_ops.py`): `fill_constant`, `top_k`, `assign`,
+`reshape2`, `transpose2`, `slice` and `take_along_axis`.
+
+`reshape2`, `transpose2` and `slice` return views where torch can make
+one, so a head split (`reshape2` then `transpose2` of a slice of the
+fused qkv projection) reaches the flash kernels without a copy; as in
+the reference, their `XShape` output is an empty [0, *x.shape] tensor.
+`take_along_axis`'s gradient is the scatter-add of `torch.gather`'s.
 """
 from __future__ import annotations
 
@@ -31,3 +38,50 @@ def _top_k(ins, attrs):
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return {"Out": vals[..., :k],
             "Indices": idx[..., :k].to(to_torch_dtype("int64"))}
+
+
+def _xshape(x):
+    return torch.empty((0,) + tuple(x.shape), dtype=x.dtype,
+                       device=x.device)
+
+
+@register_op("assign")
+def _assign(ins, attrs):
+    return {"Out": ins["X"][0]}
+
+
+@register_op("reshape2")
+def _reshape2(ins, attrs):
+    x = ins["X"][0]
+    shape = [int(d) for d in attrs["shape"]]
+    # Paddle's rule: 0 copies the input's dim at that position
+    shape = [x.shape[i] if d == 0 else d for i, d in enumerate(shape)]
+    return {"Out": x.reshape(shape), "XShape": _xshape(x)}
+
+
+@register_op("transpose2")
+def _transpose2(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": x.permute(*attrs["axis"]), "XShape": _xshape(x)}
+
+
+@register_op("slice")
+def _slice(ins, attrs):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.ndim
+    for a, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[a]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    out = x[tuple(idx)]
+    for a in sorted(attrs.get("decrease_axis", []), reverse=True):
+        out = out.squeeze(a)
+    return {"Out": out}
+
+
+@register_op("take_along_axis")
+def _take_along_axis(ins, attrs):
+    x, idx = ins["Input"][0], ins["Index"][0]
+    return {"Result": torch.take_along_dim(x, idx.long(),
+                                           dim=attrs.get("Axis", 0))}

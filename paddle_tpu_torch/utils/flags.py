@@ -1,7 +1,7 @@
 """Flags of the port (counterpart: `paddle_tpu/utils/flags.py`).
 
 Only the flags the ported slices read: the ``FLAGS_tpu_serving_*``
-surface of serving, and the executor's. Names and defaults are the JAX
+surface of serving, the executor's, and the attention gate. Names and defaults are the JAX
 package's, so one environment configures both. Flags ingest ``FLAGS_*``
 environment variables at import."""
 from __future__ import annotations
@@ -15,6 +15,10 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_check_nan_inf": False,
     # Executor: prepared blocks kept per executor (LRU)
     "FLAGS_tpu_compile_cache_size": 128,
+    # scaled_dot_product_attention takes the flash kernels on the card at
+    # or above this key length (the reference's value; the reference
+    # applies it on the TPU only)
+    "FLAGS_flash_attention_min_seq": 4096,
     # tokens per KV-cache page (the allocation unit of the paged cache)
     "FLAGS_tpu_serving_page_size": 16,
     # total pages in the KV pool

@@ -108,9 +108,10 @@ RNG_OPS = {
 
 
 def test_cases_cover_the_slice():
-    """Every registered op type of the port has a case here."""
+    """Every op type of the fluid slice is registered and has a case here
+    (tests/test_torch_bert_ops.py holds the rest of the registry)."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
-    assert types == set(treg.registered_ops()) and len(types) == 15
+    assert types <= set(treg.registered_ops()) and len(types) == 15
 
 
 def _inputs(name):

@@ -275,8 +275,8 @@ def test_no_silent_cpu_fallback(monkeypatch):
 def test_port_imports_no_jax():
     """A fresh interpreter serves a tiny trace through the port, takes one
     train step with flash attention, trains a tiny MLP through the fluid
-    static graph, and has imported neither jax nor anything of
-    paddle_tpu."""
+    static graph, takes a bf16 AMP step of a tiny scanned BERT, and has
+    imported neither jax nor anything of paddle_tpu."""
     code = (
         "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
@@ -312,6 +312,18 @@ def test_port_imports_no_jax():
         "l = [float(exe.run(feed=feed, fetch_list=[avg, acc])[0][0])\n"
         "     for _ in range(10)]\n"
         "assert l[-1] < l[0], l\n"
+        "from paddle_tpu_torch.fluid.contrib import mixed_precision\n"
+        "from paddle_tpu_torch.models import bert\n"
+        "c = bert.BertConfig.tiny()\n"
+        "with fluid.program_guard(fluid.Program(), fluid.Program()):\n"
+        "    t = bert.bert_pretrain_loss(c, 16, scan_layers=True,\n"
+        "                                scan_remat=True)[0]\n"
+        "    mixed_precision.decorate(fluid.optimizer.AdamOptimizer(\n"
+        "        1e-3)).minimize(t)\n"
+        "    fluid.fuse_optimizer_ops(fluid.default_main_program())\n"
+        "    exe.run(fluid.default_startup_program())\n"
+        "    b = exe.run(feed=bert.bert_feed(c, 2, 16), fetch_list=[t])\n"
+        "assert math.isfinite(float(b[0][0])), b\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"

@@ -3,13 +3,15 @@
 NVIDIA GPU.
 
     python3 tools/torch_fluid_profile.py [--opt sgd|adam] [--steps N]
-                                         [--out DIR]
+                                         [--bert LEG] [--out DIR]
 
 Builds the MNIST MLP of chip_smoke.py's fluid phase (784-128-64-10,
 batch 64, the optimizer given, default SGD) through `fluid.layers` ->
 `minimize` -> `Executor()` on the card, runs the startup program and
 three warm-up steps, then traces the next N steps (default 10) with
-`torch.profiler` (CPU and CUDA activity). Prints one JSON object: the
+`torch.profiler` (CPU and CUDA activity). With ``--bert a_s128`` or
+``--bert b_s4096`` it builds that leg of chip_smoke.py's fluid BERT
+phase instead (BERT-base, bf16 AMP O2, fused Adam). Prints one JSON object: the
 window's wall time a step, the device time a step summed over kernels
 (the device's busy share is that over the wall time), the kernels
 launched a step, the twelve kernels with the most device time and the
@@ -35,6 +37,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--opt", choices=("sgd", "adam"), default="sgd")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--bert", default=None,
+                    choices=[leg["name"] for leg in
+                             chip_smoke.BERT_FLUID_LEGS])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -43,19 +48,32 @@ def main():
 
     from paddle_tpu_torch import fluid
 
-    main_prog, startup, loss, acc = chip_smoke.build_fluid_mlp(fluid,
-                                                               args.opt)
+    if args.bert:
+        from paddle_tpu_torch.models import bert
+
+        leg = {leg["name"]: leg for leg in chip_smoke.BERT_FLUID_LEGS}[
+            args.bert]
+        cfg = chip_smoke.bert_cfg(leg["seq"])
+        main_prog, startup, loss, _ = chip_smoke.build_fluid_bert(
+            fluid, cfg, leg["seq"], leg["remat"])
+        feeds, fetch, b = [bert.bert_feed(cfg, leg["batch"],
+                                          leg["seq"])], [loss], leg["batch"]
+    else:
+        main_prog, startup, loss, acc = chip_smoke.build_fluid_mlp(
+            fluid, args.opt)
+        x, y = chip_smoke.fluid_mnist_data()
+        b = chip_smoke.FLUID_BATCH
+        feeds = [{"img": x[i * b:(i + 1) * b],
+                  "label": y[i * b:(i + 1) * b]}
+                 for i in range(len(x) // b)]
+        fetch = [loss, acc]
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    x, y = chip_smoke.fluid_mnist_data()
-    b = chip_smoke.FLUID_BATCH
-    feeds = [{"img": x[i * b:(i + 1) * b], "label": y[i * b:(i + 1) * b]}
-             for i in range(len(x) // b)]
 
     def step(i):
         return exe.run(main_prog, feed=feeds[i % len(feeds)],
-                       fetch_list=[loss, acc], scope=scope)
+                       fetch_list=fetch, scope=scope)
 
     for i in range(3):
         step(i)
@@ -79,9 +97,11 @@ def main():
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            args.out, "fluid_%s_trace.json" % args.opt))
+            args.out, "fluid_%s_trace.json" % (args.bert or args.opt)))
     print(json.dumps({
-        "opt": args.opt, "window_steps": n, "batch": b,
+        "model": "bert " + args.bert if args.bert else "mnist mlp",
+        "opt": "adam (bf16 AMP O2, fused)" if args.bert else args.opt,
+        "window_steps": n, "batch": b,
         "loss": float(out[0][0]), "wall_us_per_step": wall_us / n,
         "device_busy_us_per_step": busy / n,
         "device_busy_share": busy / wall_us if wall_us else None,
