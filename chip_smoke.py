@@ -78,11 +78,29 @@ Phases, each printing one JSON line:
    S 4096 program at 2 layers, one step with the kernels and one with
    their plain version from the same params: loss within 1e-2 and every
    gradient within 2e-2 relative in norm;
-9. kernels — one line listing every ported kernel with its launches on
+9. fluid ResNet50 — ImageNet training as bench.py builds it
+   (`build_resnet_train_program`: `models/resnet.py resnet(depth=50)`
+   with `scan_stages`, 224 x 224 NCHW images, 1000 classes,
+   softmax_with_cross_entropy then mean, `mixed_precision.decorate`
+   (bf16, O2, no loss scaling) over Momentum(0.1, 0.9), `minimize`,
+   `fuse_optimizer_ops`, random_seed 11; the feed from RandomState(0)).
+   Leg a: batch 128, 2 warm-up and 10 timed steps: every loss finite;
+   the median step ms, images/s, MFU on the model FLOPs counted from the
+   program's conv and fc shapes, peak memory, the busy share and kernels
+   of one profiled step, and the launches of the five attention kernels
+   (none: the path has no attention). Leg b: the port on the card
+   against the port on the CPU, fp32 (TF32 off), AMP off, 32 x 32,
+   batch 4, 10 classes, Momentum(3e-3), from one startup state with each
+   residual branch's last BN scale set to 0 (zero-gamma: from the plain
+   random start the model is chaotic under batch statistics, PERF.md):
+   3 steps and then one step of the program's for_test clone (running
+   statistics, no update); losses and every running statistic within
+   1e-3 relative;
+10. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, and their launches and times on the fluid BERT path);
-10. the last line, ``{"ok": true, "device": {...}}``, printed only when
+11. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -157,6 +175,13 @@ BERT_CHECK = dict(seq=4096, batch=2, layers=2)
 #: about one bf16 step (2^-8) relative; 2e-2 in norm, as the trainer's
 #: check in phase 6
 BERT_CHECK_LOSS_RTOL, BERT_CHECK_GRAD_RTOL = 1e-2, 2e-2
+#: fluid ResNet50 (bench.py `_resnet_feed` and
+#: `build_resnet_train_program`): leg a at full size, leg b card vs CPU
+RESNET_A = dict(img=224, classes=1000, batch=128, lr=0.1, amp=True)
+RESNET_B = dict(img=32, classes=10, batch=4, lr=3e-3, amp=False)
+RESNET_WARMUP, RESNET_STEPS, RESNET_B_STEPS = 2, 10, 3
+RESNET_INIT_SEED = 11        # the startup and main programs' random_seed
+RESNET_B_RTOL = 1e-3         # leg b: losses and running stats, card vs CPU
 
 
 def emit(obj):
@@ -1079,6 +1104,211 @@ def phase_fluid_bert(torch, name):
     return res
 
 
+# -- phase 9 ------------------------------------------------------------------
+
+def build_fluid_resnet(fluid, img, classes, lr, amp):
+    """ResNet50 training as bench.py's `build_resnet_train_program`
+    builds it, in fresh programs: `resnet(depth=50, scan_stages=True)`,
+    softmax_with_cross_entropy then mean, Momentum(lr, 0.9) (with `amp`
+    decorated bf16 O2 without loss scaling), `minimize`,
+    `fuse_optimizer_ops`. Returns (main, startup, loss)."""
+    from paddle_tpu_torch.fluid.contrib import mixed_precision
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = RESNET_INIT_SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        image = fluid.layers.data("image", shape=[3, img, img],
+                                  dtype="float32")
+        label = fluid.layers.data("label", shape=[1], dtype="int64")
+        logits = resnet.resnet(image, class_dim=classes, depth=50,
+                               scan_stages=True)
+        loss = fluid.layers.mean(
+            fluid.layers.loss.softmax_with_cross_entropy(logits, label))
+        opt = fluid.optimizer.MomentumOptimizer(lr, momentum=0.9)
+        if amp:
+            opt = mixed_precision.decorate(opt,
+                                           use_dynamic_loss_scaling=False)
+        opt.minimize(loss)
+        fluid.fuse_optimizer_ops(main)
+    return main, startup, loss
+
+
+def resnet_feed(batch, img, classes):
+    """bench.py's `_resnet_feed`: images and labels from RandomState(0)."""
+    import numpy as np
+
+    r = np.random.RandomState(0)
+    return {"image": r.randn(batch, 3, img, img).astype("float32"),
+            "label": r.randint(0, classes, (batch, 1)).astype("int64")}
+
+
+def resnet_model_flops(main, batch):
+    """Model FLOPs of one training step: 2 x the multiply-adds of every
+    conv2d (output elements x input channels a group x kernel area) and
+    fc (`mul`) of the forward, a scan's body counted once an iteration,
+    times 3 for the forward and the backward's two products."""
+    def block_macs(block):
+        macs = 0
+        for op in block.ops:
+            if op.type == "conv2d":
+                out = block._find_var_recursive(op.output("Output")[0])
+                w = block._find_var_recursive(op.input("Filter")[0])
+                macs += math.prod(out.shape[1:]) * math.prod(w.shape[1:])
+            elif op.type == "mul":
+                w = block._find_var_recursive(op.input("Y")[0])
+                macs += math.prod(w.shape)
+            elif op.type == "scan":
+                macs += op.attrs["n"] * block_macs(
+                    main.block(op.attrs["sub_block"]))
+        return macs
+
+    return 3 * 2 * block_macs(main.global_block()) * batch
+
+
+def attention_launches():
+    """The five attention kernels' launch counters, by kernel."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    return {"ragged_paged_attention": rpa.launches - rpa.quant_launches,
+            "ragged_paged_attention_int8": rpa.quant_launches,
+            "flash_attention_forward": fa.fwd_launches,
+            "flash_attention_dkv": fa.dkv_launches,
+            "flash_attention_dq": fa.dq_launches}
+
+
+def zero_attention_launches():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rpa
+
+    rpa.launches = rpa.quant_launches = 0
+    fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+    fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
+
+
+def fluid_resnet_leg_a(torch, fluid):
+    """Leg a: the bench.py workload at batch 128 on the card: startup,
+    warm-up steps, timed steps (the attention kernels' counts zeroed just
+    before them and read just after), one profiled step."""
+    c = RESNET_A
+    main, startup, loss = build_fluid_resnet(fluid, c["img"], c["classes"],
+                                             c["lr"], c["amp"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = resnet_feed(c["batch"], c["img"], c["classes"])
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0][0])
+
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(RESNET_WARMUP)]
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_attention_launches()
+    step_ms = []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = attention_launches()
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, kernels = device_busy_share(torch, step)
+    median_s = statistics.median(step_ms) / 1e3
+    flops = resnet_model_flops(main, c["batch"])
+    res = dict(c, depth=50, scan_stages=True, losses=losses,
+               first_loss=losses[0], last_loss=losses[-1],
+               warmup_s=warmup_s, step_ms=step_ms,
+               median_step_ms=median_s * 1e3,
+               images_per_sec=c["batch"] / median_s,
+               model_flops_per_step=flops,
+               gflop_per_image=flops / c["batch"] / 1e9,
+               mfu_vs_bf16_peak=flops / median_s / BF16_FLOPS_PER_S,
+               peak_mem_bytes=peak,
+               profiled_step={"wall_us": wall, "device_busy_us": busy,
+                              "device_busy_share": busy / wall,
+                              "kernels": kernels},
+               attention_launches=launches,
+               cudnn_benchmark=torch.backends.cudnn.benchmark)
+    check(all(math.isfinite(x) for x in losses),
+          "fluid resnet a: non-finite loss %s" % losses)
+    check(not any(launches.values()),
+          "fluid resnet a: attention kernels launched: %s" % launches)
+    del exe, scope
+    torch.cuda.empty_cache()
+    return res
+
+
+def fluid_resnet_leg_b(torch, fluid):
+    """Leg b: the same program at 32 x 32, fp32, AMP off, on the card and
+    on the CPU from one startup state (zero-gamma): the steps' losses, the
+    for_test clone's loss and every running statistic."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.scope import dump_numpy_state, \
+        load_numpy_state
+
+    c = RESNET_B
+    main, startup, loss = build_fluid_resnet(fluid, c["img"], c["classes"],
+                                             c["lr"], c["amp"])
+    test = main.clone(for_test=True)
+    feed = resnet_feed(c["batch"], c["img"], c["classes"])
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    stats = [n for n in names if n.endswith(("_bn_mean", "_bn_var"))]
+    scope = fluid.Scope()
+    exe = fluid.Executor()
+    exe.run(startup, scope=scope)
+    state = dump_numpy_state(scope, names)
+    state.update((n, np.zeros_like(v)) for n, v in state.items()
+                 if n.endswith("2c_bn_scale"))
+    out = {}
+    for where, place in (("card", None), ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        load_numpy_state(scope, state, exe.device)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0][0])
+                  for _ in range(RESNET_B_STEPS)]
+        losses.append(float(exe.run(test, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0][0]))
+        out[where] = (losses, dump_numpy_state(scope, stats))
+    card, cpu = out["card"], out["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    stat_err = {n: float(np.linalg.norm(card[1][n] - cpu[1][n])
+                         / max(np.linalg.norm(cpu[1][n]), 1e-30))
+                for n in stats}
+    res = dict(c, losses=card[0], losses_cpu=cpu[0],
+               loss_rel_err=loss_err, stats=len(stats),
+               max_stat_rel_err=max(stat_err.values()), tol=RESNET_B_RTOL)
+    check(all(math.isfinite(x) for x in card[0])
+          and loss_err <= RESNET_B_RTOL
+          and res["max_stat_rel_err"] <= RESNET_B_RTOL,
+          "fluid resnet b: card vs CPU: loss rel err %g, max running stat "
+          "rel err %g" % (loss_err, res["max_stat_rel_err"]))
+    return res
+
+
+def phase_fluid_resnet(torch, name):
+    """ResNet50 ImageNet training through the fluid static graph on the
+    card: leg a at full size (batch 128), leg b the card against the
+    CPU."""
+    from paddle_tpu_torch import fluid
+
+    res = {"phase": "fluid_resnet",
+           "config": "ResNet50 (models/resnet.py, scan_stages)",
+           "optimizer": "Momentum 0.1/0.9, bf16 AMP O2, "
+                        "fuse_optimizer_ops",
+           "leg_a": fluid_resnet_leg_a(torch, fluid),
+           "leg_b": fluid_resnet_leg_b(torch, fluid)}
+    res.update(device=name, nvidia_smi=nvidia_smi_line())
+    emit(res)
+    return res
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -1167,6 +1397,7 @@ def main():
     train = phase_training(torch)
     phase_fluid(torch, name)
     fluid_bert = phase_fluid_bert(torch, name)
+    phase_fluid_resnet(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

@@ -22,9 +22,14 @@ def resolve_device(device=None) -> torch.device:
                 "(device='cpu', or fluid.CPUPlace() for an Executor)")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        # fp32 matmuls run in full fp32, never TF32 (tolerances assume it)
+        # fp32 matmuls and convolutions run in full fp32, never TF32
+        # (tolerances assume it)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # cuDNN times its algorithms for each new convolution shape and
+        # keeps the fastest, as XLA autotunes the reference's convolutions;
+        # a prepared fluid block runs fixed shapes step after step
+        torch.backends.cudnn.benchmark = True
     return dev
 
 

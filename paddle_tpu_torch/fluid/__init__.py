@@ -2,10 +2,11 @@
 PyTorch (counterpart: `paddle_tpu/fluid/`).
 
 Ported so far: Program / Block / Operator / Variable, the layers of the
-MNIST MLP and of BERT (`fluid.layers`, with `layers.Scan`),
-`append_backward`, the eager `Executor`, the SGD and Adam optimizers,
-`fuse_optimizer_ops`, and bf16 mixed precision
-(`contrib.mixed_precision`). What is not ported yet is absent.
+MNIST MLP, BERT and ResNet (`fluid.layers`, with `layers.Scan`),
+`append_backward`, the eager `Executor`, the SGD, Momentum and Adam
+optimizers, weight decay (`regularizer`), `fuse_optimizer_ops`, and bf16
+mixed precision (`contrib.mixed_precision`). What is not ported yet is
+absent.
 """
 from . import framework  # noqa: F401
 from .framework import (  # noqa: F401
@@ -20,6 +21,7 @@ from .backward import append_backward  # noqa: F401
 from . import layers  # noqa: F401
 from . import initializer  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
 from . import contrib  # noqa: F401
 from .fuse_optimizer import fuse_optimizer_ops  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401

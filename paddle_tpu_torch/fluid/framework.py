@@ -284,6 +284,15 @@ _OPTIMIZER_OPS = frozenset({
     "lars_momentum", "dpsgd", "backward",
     "fused_sgd", "fused_momentum", "fused_adam",
 })
+# op types whose `is_test` attr a for_test clone sets
+_IS_TEST_OPS = frozenset({"dropout", "batch_norm"})
+
+
+def _touches_grad(op):
+    """Whether `op` reads or writes a gradient (weight decay's ops do):
+    a for_test clone, which has no backward section, drops it."""
+    return any(n.endswith(GRAD_SUFFIX) for n in op.input_arg_names
+               + op.output_arg_names)
 
 
 class Program:
@@ -336,8 +345,9 @@ class Program:
         return self.global_block().all_parameters()
 
     def clone(self, for_test=False) -> "Program":
-        """A copy; with `for_test`, without the backward section and the
-        optimizer updates (an evaluation program)."""
+        """A copy; with `for_test`, without the backward section, the ops
+        over gradients and the optimizer updates, and with dropout and
+        batch_norm in their `is_test` mode (an evaluation program)."""
         p = Program()
         p.random_seed = self.random_seed
         p.blocks = []
@@ -349,7 +359,8 @@ class Program:
                 nb.vars[name] = nv
             for op in b.ops:
                 if for_test and (op.type in _OPTIMIZER_OPS
-                                 or op.attrs.get("_is_backward", False)):
+                                 or op.attrs.get("_is_backward", False)
+                                 or _touches_grad(op)):
                     continue
                 nop = Operator(nb, op.type)
                 # keep the original creation site for error attribution
@@ -359,6 +370,8 @@ class Program:
                 nop.output_names = {k: list(v)
                                     for k, v in op.output_names.items()}
                 nop.attrs = dict(op.attrs)
+                if for_test and op.type in _IS_TEST_OPS:
+                    nop.attrs["is_test"] = True
                 nb.ops.append(nop)
             p.blocks.append(nb)
         p._is_test = for_test

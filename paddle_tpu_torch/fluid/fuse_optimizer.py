@@ -1,11 +1,10 @@
 """Coalesced optimizer updates (counterpart:
 `paddle_tpu/fluid/fuse_optimizer.py`): a program rewrite in which groups
-of same-configured `adam` ops collapse into one `fused_adam` op
-(`ops/optimizer_ops.py`). The reference also fuses sgd and momentum;
-the port fuses Adam only, the optimizer of its fluid BERT path. The update arithmetic is the
-same, elementwise; each parameter keeps its own beta powers. On the card
-the fused op issues `torch._foreach_*` kernels over the whole group
-instead of about twenty kernels a parameter.
+of same-configured `sgd`, `momentum` or `adam` ops collapse into one
+`fused_sgd`, `fused_momentum` or `fused_adam` op (`ops/optimizer_ops.py`).
+The update arithmetic is the same, elementwise; each parameter keeps its
+own beta powers. On the card the fused op issues `torch._foreach_*`
+kernels over the whole group instead of several kernels a parameter.
 """
 from __future__ import annotations
 
@@ -15,6 +14,9 @@ from . import lowering
 
 # op type -> (input slots to coalesce, output slots produced per member)
 _FUSABLE: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
+    "sgd": (("Param", "Grad"), ("ParamOut",)),
+    "momentum": (("Param", "Grad", "Velocity"),
+                 ("ParamOut", "VelocityOut")),
     "adam": (("Param", "Grad", "Moment1", "Moment2", "Beta1Pow",
               "Beta2Pow"),
              ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",

@@ -19,7 +19,8 @@ class Scan:
     initialized before the loop and rebound inside the body
     (``layers.assign(new_x, output=x)``); per-iteration parameters are
     stacked on a leading [n, ...] axis and sliced with
-    ``scan.slice_input(stacked)`` inside the body. ``remat=True``
+    ``scan.slice_input(stacked)`` inside the body; ``scan.iteration()``
+    gives the iteration's index. ``remat=True``
     recomputes each iteration's activations in the backward
     (`torch.utils.checkpoint`) instead of keeping them.
 
@@ -42,6 +43,20 @@ class Scan:
         self._sub = None
         self._xs_stacked: List[Variable] = []
         self._xs_slice: List[Variable] = []
+        self._iter_var: Optional[Variable] = None
+
+    def iteration(self) -> Variable:
+        """An int32 [1] var holding the current iteration's index inside
+        the body, e.g. the row of stacked [n, ...] state that the
+        iteration reads with `gather` and writes back with `scatter`
+        (the BN running statistics of a scanned ResNet stage)."""
+        if self._sub is None:
+            raise ValueError(
+                "iteration() must be called inside `with scan.block():`")
+        if self._iter_var is None:
+            self._iter_var = self._sub.create_var(
+                name=unique_name("scan_iter"), shape=(1,), dtype="int32")
+        return self._iter_var
 
     def slice_input(self, stacked: Variable) -> Variable:
         """Declare `stacked` [n, ...] as a per-iteration input; returns
@@ -70,6 +85,7 @@ class Scan:
         prog = self._main
         self._sub = prog._create_block()
         self._xs_stacked, self._xs_slice = [], []
+        self._iter_var = None
         try:
             yield self
         finally:
@@ -80,5 +96,5 @@ class Scan:
             attrs={"sub_block": sub.idx, "n": self.n, "remat": self.remat,
                    "xs_stacked": [v.name for v in self._xs_stacked],
                    "xs_slice": [v.name for v in self._xs_slice],
-                   # the reference's iteration var, not ported
-                   "iter_var": ""})
+                   "iter_var": self._iter_var.name
+                   if self._iter_var is not None else ""})

@@ -1,22 +1,25 @@
 """Neural-network layers of the slice (counterpart:
-`paddle_tpu/fluid/layers/nn.py`): `fc`, `embedding`, `layer_norm`,
-`dropout`, the activations `tanh` and `gelu`, `softmax`,
-`matmul`, `elementwise_add` / `_mul` / `_div`, `reduce_sum`, `mean`,
-`slice`, `accuracy`, `topk` and `scaled_dot_product_attention`. Each
-builder creates its params through LayerHelper (init ops go to the
-startup program) and appends its compute op."""
+`paddle_tpu/fluid/layers/nn.py`): `fc`, `embedding`, `conv2d`,
+`pool2d`, `batch_norm`, `layer_norm`, `dropout`, the activations
+`relu`, `tanh` and `gelu`, `softmax`, `matmul`, `elementwise_add` /
+`_mul` / `_div`, `reduce_sum`, `mean`, `slice`, `gather`, `scatter`,
+`accuracy`, `topk` and `scaled_dot_product_attention`. Each builder
+creates its params through LayerHelper (init ops go to the startup
+program) and appends its compute op."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..framework import Variable
-from ..initializer import ConstantInitializer
+from ..framework import Variable, unique_name
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper, apply_op
+from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "layer_norm", "dropout", "tanh",
-           "gelu", "softmax", "matmul", "elementwise_add", "elementwise_mul",
-           "elementwise_div", "reduce_sum", "mean", "slice", "accuracy",
-           "topk", "scaled_dot_product_attention"]
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "dropout", "relu", "tanh", "gelu", "softmax",
+           "matmul", "elementwise_add", "elementwise_mul",
+           "elementwise_div", "reduce_sum", "mean", "slice", "gather",
+           "scatter", "accuracy", "topk", "scaled_dot_product_attention"]
 
 
 def _single(op_type, inputs, attrs, dtype=None, helper=None):
@@ -66,6 +69,101 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                    dtype=dtype, helper=helper)
 
 
+def _pair(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    """A 2-D convolution over NCHW `input` with an OIHW filter created
+    here (initialized Normal(0, sqrt(2 / fan_in))), or, when
+    `param_attr` is a Variable, with that existing filter: the scanned
+    ResNet stage passes per-iteration slices of stacked [L, O, I, kh,
+    kw] filters."""
+    helper = LayerHelper("conv2d",
+                         param_attr=None if isinstance(param_attr, Variable)
+                         else param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    fan_in = (num_channels // groups) * filter_size[0] * filter_size[1]
+    if isinstance(param_attr, Variable):
+        if tuple(int(d) for d in param_attr.shape) != tuple(filter_shape):
+            raise ValueError(
+                "conv2d: provided filter var %r has shape %s, expected "
+                "%s (pass the per-iteration slice, not the stack)"
+                % (param_attr.name, tuple(param_attr.shape),
+                   tuple(filter_shape)))
+        w = param_attr
+    else:
+        w = helper.create_parameter(
+            helper.param_attr, shape=filter_shape, dtype=input.dtype,
+            default_initializer=NormalInitializer(
+                0.0, (2.0 / fan_in) ** 0.5))
+    pre_bias = apply_op(helper, "conv2d",
+                        {"Input": [input], "Filter": [w]},
+                        {"strides": _pair(stride), "paddings": _pair(padding),
+                         "dilations": _pair(dilation), "groups": groups},
+                        ["Output"], out_dtype=input.dtype)[0]
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True, data_format="NCHW"):
+    attrs = {"pooling_type": pool_type, "ksize": _pair(pool_size),
+             "strides": _pair(pool_stride), "paddings": _pair(pool_padding),
+             "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+             "exclusive": exclusive}
+    return _single("pool2d", {"X": [input]}, attrs, dtype=input.dtype)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    """Batch norm with a scale (initialized 1), a bias (0) and running
+    mean (0) and variance (1), the last two persistable and not
+    trainable: the op writes their new values back onto them."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    dtype = input.dtype if input.dtype != "float16" else "float32"
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    stats = []
+    for given, suffix, init in ((moving_mean_name, ".mean", 0.0),
+                                (moving_variance_name, ".var", 1.0)):
+        v = helper.create_parameter(
+            ParamAttr(name=given or unique_name(helper.name + suffix),
+                      trainable=False),
+            shape=[c], dtype=dtype,
+            default_initializer=ConstantInitializer(init))
+        stats.append(v)
+    mean, var = stats
+    saved_mean = helper.create_variable_for_type_inference(dtype)
+    saved_var = helper.create_variable_for_type_inference(dtype)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [var]},
+        outputs={"Y": [y], "MeanOut": [mean], "VarianceOut": [var],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -112,6 +210,7 @@ def _make_act(op_type):
     return f
 
 
+relu = _make_act("relu")
 tanh = _make_act("tanh")
 gelu = _make_act("gelu")
 
@@ -153,6 +252,17 @@ def slice(input, axes, starts, ends):
                    {"axes": list(axes), "starts": list(starts),
                     "ends": list(ends), "decrease_axis": []},
                    dtype=input.dtype)
+
+
+def gather(input, index, overwrite=True):
+    return _single("gather", {"X": [input], "Index": [index]}, {},
+                   dtype=input.dtype)
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    return _single("scatter",
+                   {"X": [input], "Ids": [index], "Updates": [updates]},
+                   {"overwrite": overwrite}, dtype=input.dtype)
 
 
 def scaled_dot_product_attention(q, k, v, key_bias=None, causal=False,

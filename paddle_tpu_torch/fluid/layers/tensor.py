@@ -1,14 +1,15 @@
 """Tensor layers of the slice (counterpart:
 `paddle_tpu/fluid/layers/tensor.py`): `data`, `assign`,
-`create_parameter`, `reshape`, `transpose`, `scale` and
-`take_along_axis`."""
+`create_parameter`, `create_global_var`, `reshape`, `transpose`, `scale`
+and `take_along_axis`."""
 from __future__ import annotations
 
 from .. import framework
+from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper, apply_op
 
-__all__ = ["data", "assign", "create_parameter", "reshape",
-           "transpose", "scale", "take_along_axis"]
+__all__ = ["data", "assign", "create_parameter", "create_global_var",
+           "reshape", "transpose", "scale", "take_along_axis"]
 
 
 def _single(op_type, inputs, attrs, dtype=None):
@@ -52,6 +53,18 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
         attr.name = name
     return helper.create_parameter(attr, list(shape), dtype, is_bias,
                                    default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    """A global-block var of `shape` that the startup program fills with
+    `value`."""
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(
+        name=name or framework.unique_name("global_var"),
+        shape=list(shape), dtype=dtype, persistable=persistable)
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
 
 
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):

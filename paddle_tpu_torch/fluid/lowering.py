@@ -15,8 +15,10 @@ then takes `torch.autograd.grad` of the loss and binds each `X@GRAD`
 
 `scan` (`layers.Scan`) runs its sub-block once per iteration over
 per-layer slices of stacked [n, ...] inputs, taken with one `unbind` each
-(so autograd stacks their gradients once); with `remat` each iteration
-runs under `torch.utils.checkpoint`. Random ops get a generator seeded
+(so autograd stacks their gradients once), with its iteration var (if
+the body asked for one) bound to the index as an int32 [1] tensor on the
+device; with `remat` each iteration runs under
+`torch.utils.checkpoint`. Random ops get a generator seeded
 from (the run's seed, op index); inside a scan the seed is folded with
 the scan op's index and the iteration first, as the reference folds its
 key, so every layer draws its own dropout mask and a recomputed
@@ -61,8 +63,10 @@ def _op_reads_writes(op):
     if "sub_block" not in op.attrs:
         return reads, writes
     blk = op.block.program.block(op.attrs["sub_block"])
-    # the scan's slices are made by the loop itself
+    # the scan's slices and its iteration var are made by the loop itself
     produced_local = set(op.attrs.get("xs_slice", []))
+    if op.attrs.get("iter_var"):
+        produced_local.add(op.attrs["iter_var"])
     for sop in blk.ops:
         sr, sw = _op_reads_writes(sop)
         reads.extend(n for n in sr if n not in produced_local)
@@ -170,19 +174,25 @@ def _exec_scan(op, env, seed, op_idx, device, amp):
             "with layers.assign(new_val, output=carried_var).")
     base = op_seed(seed, op_idx)
     xs_slice = list(op.attrs.get("xs_slice", []))
+    iter_name = op.attrs.get("iter_var")
+    n = int(op.attrs["n"])
+    iters = torch.arange(n, dtype=torch.int32, device=device).reshape(n, 1) \
+        if iter_name else None
     outer = dict(env)
 
     def body(it, carry, slices):
         e = dict(outer)
         e.update(zip(carry_names, carry))
         e.update(zip(xs_slice, slices))
+        if iter_name:
+            e[iter_name] = iters[it]
         _run_ops(sub.ops, e, op_seed(base, it), device, amp=amp)
         return tuple(e[n] for n in carry_names)
 
     stacked = [env[n].unbind(0) for n in op.attrs.get("xs_stacked", [])]
     remat = op.attrs.get("remat") and torch.is_grad_enabled()
     carry = tuple(env[n] for n in carry_names)
-    for it in range(int(op.attrs["n"])):
+    for it in range(n):
         slices = [x[it] for x in stacked]
         if remat:
             # the recompute runs every op of the iteration again (no

@@ -1,12 +1,13 @@
 """Optimizers of the slice (counterpart: `paddle_tpu/fluid/optimizer.py`):
-`Optimizer`, `SGDOptimizer` and `AdamOptimizer`.
+`Optimizer`, `SGDOptimizer`, `MomentumOptimizer` and `AdamOptimizer`.
 
 `minimize = append_backward + apply_gradients`: gradients come from the
-backward section (backward.py); each optimizer then appends its update op
-per parameter (ops/optimizer_ops.py). The learning rate and the
-accumulators (moments, beta powers) are persistable vars that the startup
-program fills with `fill_constant`. Gradient clipping and regularization
-are not ported yet and raise.
+backward section (backward.py); weight decay (`regularization`, or a
+ParamAttr's `regularizer`; regularizer.py) adds its term to them; each
+optimizer then appends its update op per parameter (ops/optimizer_ops.py).
+The learning rate and the accumulators (velocities, moments, beta powers)
+are persistable vars that the startup program fills with
+`fill_constant`. Gradient clipping is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -17,8 +18,10 @@ from .backward import append_backward
 from .framework import Variable, unique_name
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper, apply_op
+from .regularizer import L2Decay, append_regularization_ops
 
-__all__ = ["Optimizer", "SGDOptimizer", "AdamOptimizer", "SGD", "Adam"]
+__all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer", "SGD", "Momentum", "Adam"]
 
 
 def _not_ported(what):
@@ -29,8 +32,12 @@ class Optimizer:
     def __init__(self, learning_rate, parameter_list=None,
                  regularization=None, grad_clip=None, name=None,
                  parameters=None, weight_decay=None):
-        if regularization is not None or weight_decay is not None:
-            raise _not_ported("regularization (weight decay)")
+        if regularization is None and weight_decay is not None:
+            # `weight_decay` is the 2.0-API spelling: a regularizer, or a
+            # float meaning L2Decay of that coefficient
+            regularization = weight_decay if not isinstance(
+                weight_decay, (int, float)) else L2Decay(float(weight_decay))
+        self.regularization = regularization
         if grad_clip is not None:
             raise _not_ported("gradient clipping")
         self._learning_rate = learning_rate
@@ -104,10 +111,10 @@ class Optimizer:
     def apply_gradients(self, params_grads):
         params_grads = sorted(params_grads, key=lambda pg: pg[0].name)
         for p, _ in params_grads:
-            if getattr(p, "regularizer", None) is not None:
-                raise _not_ported("regularization (ParamAttr regularizer)")
             if getattr(p, "gradient_clip_attr", None) is not None:
                 raise _not_ported("gradient clipping")
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         block = framework.default_main_program().global_block()
         self._create_accumulators(block, [pg[0] for pg in params_grads])
         return [self._append_optimize_op(block, pg) for pg in params_grads]
@@ -128,6 +135,29 @@ class SGDOptimizer(Optimizer):
             inputs={"Param": [p], "Grad": [g],
                     "LearningRate": [self._create_param_lr(param_and_grad)]},
             outputs={"ParamOut": [p]})
+
+
+class MomentumOptimizer(Optimizer):
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov})
 
 
 class AdamOptimizer(Optimizer):
@@ -164,4 +194,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -1,8 +1,18 @@
 """Neural-network operators of the slice (counterpart:
-`paddle_tpu/ops/nn_ops.py`): `relu`, `tanh`, `gelu`, `softmax`,
+`paddle_tpu/ops/nn_ops.py`): `relu`, `tanh`, `gelu`, `sign`, `softmax`,
 `softmax_with_cross_entropy` (hard labels with `ignore_index`, or soft
-labels), `layer_norm`, `dropout`, the embedding lookups and
+labels), `conv2d` / `depthwise_conv2d`, `pool2d`, `batch_norm`,
+`layer_norm`, `dropout`, the embedding lookups and
 `scaled_dot_product_attention`.
+
+`conv2d` is `F.conv2d` (cuDNN on the card), NCHW input and OIHW filter.
+`pool2d` pads as the reference's `lax.reduce_window` does (the left
+padding, then on the right exactly what the last window needs, so
+`ceil_mode` windows end where the reference's do) and pools the padded
+tensor. `batch_norm` keeps Paddle's running-statistics convention, not
+PyTorch's: the biased batch variance, `mean_out = mean * momentum +
+batch_mean * (1 - momentum)`, `SavedVariance = 1/sqrt(var + eps)`, new
+tensors for every output and no gradient through the statistics.
 
 A hard label outside the classes gives the reference's answer without a
 host sync or a device-side assert: a negative label counts from the last
@@ -36,6 +46,11 @@ def _gelu(ins, attrs):
         "approximate", False) else "none")}
 
 
+@register_op("sign")
+def _sign(ins, attrs):
+    return {"Out": torch.sign(ins["X"][0])}
+
+
 @register_op("softmax")
 def _softmax(ins, attrs):
     return {"Out": torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))}
@@ -60,6 +75,130 @@ def _softmax_ce(ins, attrs):
         loss = loss.masked_fill(~valid, float("nan")).masked_fill(
             idx == attrs.get("ignore_index", -100), 0.0)
     return {"Softmax": softmax, "Loss": loss}
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+@register_op("conv2d")
+def _conv2d(ins, attrs):
+    """NCHW input, OIHW filter; `paddings` is [ph, pw] or [top, bottom,
+    left, right]. The result is in the promoted dtype of the two (under
+    AMP both are bf16)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    if len(pads) == 4 and (pads[0] != pads[1] or pads[2] != pads[3]):
+        x = F.pad(x, (pads[2], pads[3], pads[0], pads[1]))
+        pads = [0, 0]
+    elif len(pads) == 4:
+        pads = [pads[0], pads[2]]
+    return {"Output": F.conv2d(
+        x, w, None, stride=_pair(attrs.get("strides", [1, 1])),
+        padding=pads, dilation=_pair(attrs.get("dilations", [1, 1])),
+        groups=int(attrs.get("groups", 1)))}
+
+
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ins, attrs):
+    return _conv2d(ins, attrs)
+
+
+def _pool_pads(dims, ksize, strides, paddings, ceil_mode):
+    """The reference's (left, right) padding of each spatial dim: the
+    left is the attr, the right what the last window needs beyond the
+    input (`ceil_mode` counts one more window where a partial one
+    remains)."""
+    pads = []
+    for dim, k, s, p in zip(dims, ksize, strides, paddings):
+        span = dim + 2 * p - k
+        out = (-(-span // s) if ceil_mode else span // s) + 1
+        pads.append((p, max(0, (out - 1) * s + k - dim - p)))
+    return pads
+
+
+@register_op("pool2d")
+def _pool2d(ins, attrs):
+    """max or avg over NCHW windows; `global_pooling` (or adaptive to 1 x
+    1) reduces H and W; `adaptive` splits H and W into equal windows;
+    otherwise the padded input is pooled with no further padding, and
+    an `exclusive` average divides by the window's count of input
+    cells."""
+    x = ins["X"][0]
+    is_max = attrs.get("pooling_type", "max") == "max"
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    adaptive = attrs.get("adaptive", False)
+    if attrs.get("global_pooling", False) or (
+            adaptive and tuple(ksize) == (1, 1)):
+        return {"Out": torch.amax(x, dim=(2, 3), keepdim=True) if is_max
+                else torch.mean(x, dim=(2, 3), keepdim=True)}
+    if adaptive:
+        n, c, h, w = x.shape
+        oh, ow = ksize
+        if h % oh or w % ow:
+            raise ValueError("adaptive pool2d needs H and W divisible by "
+                             "the output size, got %s and %s"
+                             % ((h, w), (oh, ow)))
+        xr = x.reshape(n, c, oh, h // oh, ow, w // ow)
+        return {"Out": torch.amax(xr, dim=(3, 5)) if is_max
+                else torch.mean(xr, dim=(3, 5))}
+    strides = _pair(attrs.get("strides", ksize))
+    (pt, pb), (pl, pr) = _pool_pads(
+        x.shape[2:], ksize, strides, _pair(attrs.get("paddings", [0, 0])),
+        attrs.get("ceil_mode", False))
+    if is_max:
+        xp = F.pad(x, (pl, pr, pt, pb), value=float("-inf"))
+        return {"Out": F.max_pool2d(xp, ksize, strides)}
+    out = F.avg_pool2d(F.pad(x, (pl, pr, pt, pb)), ksize, strides,
+                       divisor_override=1)
+    if attrs.get("exclusive", True):
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        cnt = F.avg_pool2d(F.pad(ones, (pl, pr, pt, pb)), ksize, strides,
+                           divisor_override=1)
+        return {"Out": out / cnt}
+    return {"Out": out / float(ksize[0] * ksize[1])}
+
+
+@register_op("batch_norm")
+def _batch_norm(ins, attrs):
+    """Batch norm over every axis but the channel's (NCHW: 1; NHWC: the
+    last), in float32 whatever X's dtype; Y in X's dtype. Training uses
+    the batch's statistics and moves the running ones by Paddle's rule;
+    `is_test` or `use_global_stats` normalizes with the running ones and
+    passes them through. `fused_act` "relu" applies a relu to Y."""
+    x = ins["X"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    use_running = attrs.get("is_test", False) or attrs.get(
+        "use_global_stats", False)
+    xf = x.float()
+    if attrs.get("data_layout", "NCHW") != "NCHW":
+        xf = xf.movedim(-1, 1)
+    y, bmean, invstd = torch.native_batch_norm(
+        xf, ins["Scale"][0].float(), ins["Bias"][0].float(),
+        mean.float() if use_running else None,
+        var.float() if use_running else None, not use_running, 0.0, eps)
+    if attrs.get("data_layout", "NCHW") != "NCHW":
+        y = y.movedim(1, -1)
+    if attrs.get("fused_act") == "relu":
+        y = torch.relu(y)
+    with torch.no_grad():
+        if use_running:
+            saved = (mean, torch.reciprocal(torch.sqrt(var + eps)))
+            stats = (mean, var)
+        else:
+            # the biased variance the normalization used
+            bvar = torch.reciprocal(torch.square(invstd)) - eps
+            saved = (bmean, invstd)
+            stats = (mean * momentum + bmean.to(mean.dtype) * (1 - momentum),
+                     var * momentum + bvar.to(var.dtype) * (1 - momentum))
+    return {"Y": y.to(x.dtype), "MeanOut": stats[0],
+            "VarianceOut": stats[1], "SavedMean": saved[0],
+            "SavedVariance": saved[1]}
 
 
 @register_op("layer_norm")

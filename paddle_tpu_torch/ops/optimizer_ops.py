@@ -1,6 +1,7 @@
 """Optimizer update operators of the slice (counterpart:
-`paddle_tpu/ops/optimizer_ops.py`): `sgd`, `adam`, and `fused_adam`,
-adam over a group of parameters as `fluid.fuse_optimizer_ops` plants it.
+`paddle_tpu/ops/optimizer_ops.py`): `sgd`, `momentum` (with Nesterov),
+`adam`, and `fused_sgd`, `fused_momentum` and `fused_adam`, each over a
+group of parameters as `fluid.fuse_optimizer_ops` plants it.
 
 Param/Grad/<state> inputs, ParamOut/<state>Out outputs. Each update is
 functional: it returns new tensors and the lowering rebinds the names
@@ -25,6 +26,22 @@ def _sgd(ins, attrs):
     return {"ParamOut": p - lr * g.to(p.dtype)}
 
 
+@register_op("momentum")
+def _momentum(ins, attrs):
+    """v' = mu * v + g; p' = p - lr * v', or with Nesterov
+    p' = p - (g + mu * v') * lr (the gradient and lr in p's dtype)."""
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
+    lr = _lr(ins).to(p.dtype)
+    mu = attrs.get("mu", 0.9)
+    g = g.to(p.dtype)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": p_out, "VelocityOut": v_out}
+
+
 @register_op("adam")
 def _adam(ins, attrs):
     """The reference's Adam: alpha = lr * sqrt(1 - b2p * b2) /
@@ -46,6 +63,36 @@ def _adam(ins, attrs):
     return {"ParamOut": p_out.to(p.dtype), "Moment1Out": m1o,
             "Moment2Out": m2o, "Beta1PowOut": b1p * b1,
             "Beta2PowOut": b2p * b2}
+
+
+@register_op("fused_sgd")
+def _fused_sgd(ins, attrs):
+    """`sgd` over a group of parameters (`torch._foreach_*`)."""
+    ps = ins["Param"]
+    lr = _lr(ins).to(ps[0].dtype)
+    upd = torch._foreach_mul([g.to(p.dtype) for g, p in zip(ins["Grad"], ps)],
+                             lr)
+    return {"ParamOut": torch._foreach_sub(ps, upd)}
+
+
+@register_op("fused_momentum")
+def _fused_momentum(ins, attrs):
+    """`momentum` over a group of parameters (`torch._foreach_*`; the
+    reference concatenates the group into one vector, the arithmetic is
+    the same elementwise)."""
+    ps = ins["Param"]
+    lr = _lr(ins).to(ps[0].dtype)
+    mu = attrs.get("mu", 0.9)
+    gs = [g.to(p.dtype) for g, p in zip(ins["Grad"], ps)]
+    v_out = torch._foreach_mul(ins["Velocity"], mu)
+    torch._foreach_add_(v_out, gs)
+    if attrs.get("use_nesterov", False):
+        upd = torch._foreach_mul(v_out, mu)
+        torch._foreach_add_(upd, gs)
+    else:
+        upd = v_out
+    return {"ParamOut": torch._foreach_sub(ps, torch._foreach_mul(upd, lr)),
+            "VelocityOut": v_out}
 
 
 @register_op("fused_adam")

@@ -1,6 +1,7 @@
 """Tensor creation / selection operators of the slice (counterpart:
 `paddle_tpu/ops/tensor_ops.py`): `fill_constant`, `top_k`, `assign`,
-`reshape2`, `transpose2`, `slice` and `take_along_axis`.
+`reshape2`, `transpose2`, `slice`, `take_along_axis`, `gather` and
+`scatter`.
 
 `reshape2`, `transpose2` and `slice` return views where torch can make
 one, so a head split (`reshape2` then `transpose2` of a slice of the
@@ -85,3 +86,25 @@ def _take_along_axis(ins, attrs):
     x, idx = ins["Input"][0], ins["Index"][0]
     return {"Result": torch.take_along_dim(x, idx.long(),
                                            dim=attrs.get("Axis", 0))}
+
+
+@register_op("gather")
+def _gather(ins, attrs):
+    """The slices of X along `axis` at Index's positions, Index's shape
+    in place of that axis (`numpy.take`)."""
+    x, idx = ins["X"][0], ins["Index"][0]
+    axis = attrs.get("axis", 0) % x.ndim
+    out = torch.index_select(x, axis, idx.reshape(-1).long())
+    return {"Out": out.reshape(x.shape[:axis] + idx.shape
+                               + x.shape[axis + 1:])}
+
+
+@register_op("scatter")
+def _scatter(ins, attrs):
+    """X with the rows at Ids replaced by (`overwrite`) or increased by
+    the rows of Updates, as a new tensor."""
+    x, ids, updates = ins["X"][0], ins["Ids"][0], ins["Updates"][0]
+    ids = ids.reshape(-1).long()
+    if attrs.get("overwrite", True):
+        return {"Out": x.index_copy(0, ids, updates)}
+    return {"Out": x.index_add(0, ids, updates)}

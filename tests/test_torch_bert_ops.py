@@ -191,14 +191,20 @@ FLUID_SLICE_OPS = {
     "mul", "mean", "scale", "elementwise_add", "relu", "softmax",
     "softmax_with_cross_entropy", "top_k", "fill_constant", "accuracy",
     "sgd", "adam", "fc", "uniform_random", "gaussian_random"}
+#: the ResNet slice's op types, held by tests/test_torch_resnet_ops.py
+RESNET_SLICE_OPS = {
+    "conv2d", "depthwise_conv2d", "pool2d", "batch_norm", "sign", "gather",
+    "scatter", "momentum", "fused_sgd", "fused_momentum"}
 
 
 def test_cases_cover_the_registry():
-    """Every op type the port registers is held here or by
-    tests/test_torch_fluid_ops.py."""
+    """Every op type the port registers is held here, by
+    tests/test_torch_fluid_ops.py or by tests/test_torch_resnet_ops.py."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
-    assert types | FLUID_SLICE_OPS == set(treg.registered_ops())
+    assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS == \
+        set(treg.registered_ops())
     assert not types & FLUID_SLICE_OPS and len(types) == 21
+    assert not (types | FLUID_SLICE_OPS) & RESNET_SLICE_OPS
 
 
 def _inputs(name):

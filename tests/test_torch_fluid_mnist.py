@@ -262,10 +262,13 @@ def test_executor_flags(rng):
 
 
 def test_optimizer_options_not_ported_raise():
+    """Gradient clipping is not ported and raises; weight decay is
+    ported: a float `weight_decay` means L2Decay of that coefficient."""
     with pytest.raises(NotImplementedError, match="gradient clipping"):
         tfluid.optimizer.SGDOptimizer(0.1, grad_clip=object())
-    with pytest.raises(NotImplementedError, match="regularization"):
-        tfluid.optimizer.AdamOptimizer(weight_decay=1e-4)
+    reg = tfluid.optimizer.AdamOptimizer(weight_decay=1e-4).regularization
+    assert isinstance(reg, tfluid.regularizer.L2Decay)
+    assert reg._coeff == 1e-4
 
 
 def test_op_error_names_its_creation_site(rng):

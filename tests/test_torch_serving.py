@@ -324,6 +324,15 @@ def test_port_imports_no_jax():
         "    exe.run(fluid.default_startup_program())\n"
         "    b = exe.run(feed=bert.bert_feed(c, 2, 16), fetch_list=[t])\n"
         "assert math.isfinite(float(b[0][0])), b\n"
+    "from paddle_tpu_torch.models import resnet\n"
+    "with fluid.program_guard(fluid.Program(), fluid.Program()):\n"
+    "    rl, ra, _ = resnet.build_resnet_train(image_shape=(3, 16, 16),\n"
+    "        class_dim=4, lr=1e-3, scan_stages=True)\n"
+    "    exe.run(fluid.default_startup_program())\n"
+    "    f = {'image': r.randn(2, 3, 16, 16).astype('float32'),\n"
+    "         'label': r.randint(0, 4, (2, 1))}\n"
+    "    v = exe.run(feed=f, fetch_list=[rl, ra])\n"
+    "assert math.isfinite(float(v[0][0])), v\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"

@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 tools/torch_fluid_profile.py [--opt sgd|adam] [--steps N]
-                                         [--bert LEG] [--out DIR]
+                                         [--bert LEG | --resnet] [--out DIR]
 
 Builds the MNIST MLP of chip_smoke.py's fluid phase (784-128-64-10,
 batch 64, the optimizer given, default SGD) through `fluid.layers` ->
@@ -11,12 +11,18 @@ batch 64, the optimizer given, default SGD) through `fluid.layers` ->
 three warm-up steps, then traces the next N steps (default 10) with
 `torch.profiler` (CPU and CUDA activity). With ``--bert a_s128`` or
 ``--bert b_s4096`` it builds that leg of chip_smoke.py's fluid BERT
-phase instead (BERT-base, bf16 AMP O2, fused Adam). Prints one JSON object: the
-window's wall time a step, the device time a step summed over kernels
-(the device's busy share is that over the wall time), the kernels
-launched a step, the twelve kernels with the most device time and the
-twelve host operators with the most self time. With --out, the Chrome
-trace of the window is written there.
+phase instead (BERT-base, bf16 AMP O2, fused Adam); with ``--resnet``
+leg a of its fluid ResNet50 phase (batch 128, 224 x 224, bf16 AMP O2,
+fused Momentum). Prints one JSON object: the window's wall time a step,
+the device time a step summed over kernels (the device's busy share is
+that over the wall time), the kernels launched a step, the device time a
+step by kernel family (convolutions, layout transposes, batch norm,
+pooling, elementwise and casts, the optimizer's foreach kernels,
+reductions, GEMMs; a kernel matches the first family whose word its
+name holds, the rest is "other"; each with its three largest kernels),
+the twelve kernels with the most device time and the twelve host
+operators with the most self time. With --out, the Chrome trace of the
+window is written there.
 """
 import argparse
 import json
@@ -29,6 +35,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import chip_smoke  # noqa: E402  (the same model, data and batch)
 
+#: kernel family -> words of its kernels' names (lower case), first match
+FAMILIES = (
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("convolutions", ("conv", "dgrad", "wgrad", "fprop", "xmma",
+                      "implicit_gemm", "winograd")),
+    ("batch norm", ("batch_norm",)),
+    ("pooling", ("pool",)),
+    ("optimizer foreach", ("foreach", "multi_tensor")),
+    ("reductions", ("reduce",)),
+    ("gemm", ("gemm", "nvjet", "cutlass")),
+    ("elementwise and casts", ("elementwise", "copy", "cast", "fill")),
+)
+
+
+def _family(name):
+    low = name.lower()
+    return next((fam for fam, words in FAMILIES
+                 if any(w in low for w in words)), "other")
+
 
 def main():
     import torch
@@ -40,6 +65,7 @@ def main():
     ap.add_argument("--bert", default=None,
                     choices=[leg["name"] for leg in
                              chip_smoke.BERT_FLUID_LEGS])
+    ap.add_argument("--resnet", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -48,7 +74,13 @@ def main():
 
     from paddle_tpu_torch import fluid
 
-    if args.bert:
+    if args.resnet:
+        c = chip_smoke.RESNET_A
+        main_prog, startup, loss = chip_smoke.build_fluid_resnet(
+            fluid, c["img"], c["classes"], c["lr"], c["amp"])
+        feeds, fetch, b = [chip_smoke.resnet_feed(
+            c["batch"], c["img"], c["classes"])], [loss], c["batch"]
+    elif args.bert:
         from paddle_tpu_torch.models import bert
 
         leg = {leg["name"]: leg for leg in chip_smoke.BERT_FLUID_LEGS}[
@@ -94,18 +126,35 @@ def main():
                   key=lambda k: -k[1])
     busy = sum(k[1] for k in kernels)
     n = args.steps
+    families = {}
+    for name, us, calls in kernels:  # most device time first
+        fam = families.setdefault(_family(name), {"device_us": 0.0,
+                                                  "calls": 0, "top": []})
+        fam["device_us"] += us / n
+        fam["calls"] += calls / n
+        if len(fam["top"]) < 3:
+            fam["top"].append(name[:80])
+    for fam in families.values():
+        fam["share"] = fam["device_us"] * n / busy if busy else None
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            args.out, "fluid_%s_trace.json" % (args.bert or args.opt)))
+            args.out, "fluid_%s_trace.json" % (
+                "resnet" if args.resnet else args.bert or args.opt)))
+    if args.resnet:
+        model, opt = "resnet50", "momentum (bf16 AMP O2, fused)"
+    elif args.bert:
+        model, opt = "bert " + args.bert, "adam (bf16 AMP O2, fused)"
+    else:
+        model, opt = "mnist mlp", args.opt
     print(json.dumps({
-        "model": "bert " + args.bert if args.bert else "mnist mlp",
-        "opt": "adam (bf16 AMP O2, fused)" if args.bert else args.opt,
+        "model": model, "opt": opt,
         "window_steps": n, "batch": b,
         "loss": float(out[0][0]), "wall_us_per_step": wall_us / n,
         "device_busy_us_per_step": busy / n,
         "device_busy_share": busy / wall_us if wall_us else None,
         "kernels_per_step": sum(k[2] for k in kernels) / n,
+        "kernel_families_per_step": families,
         "top_kernels": [{"name": k[0][:100], "device_us": k[1],
                          "calls": k[2]} for k in kernels[:12]],
         "top_host_ops": [{"name": k[0][:100], "self_cpu_us": k[1],
