@@ -96,16 +96,39 @@ Phases, each printing one JSON line:
    3 steps and then one step of the program's for_test clone (running
    statistics, no update); losses and every running statistic within
    1e-3 relative;
-10. kernels — one line listing every ported kernel with its launches on
+10. fluid Transformer — Transformer-big WMT en-de
+   (`TransformerConfig.big`: d_model 1024, 16 heads, FFN 4096, 6 + 6
+   layers, dropout 0.1, vocabularies of 32,000; random weights from the
+   programs' random_seed 13) through the unrolled
+   `build_transformer_train` (label smoothing 0.1, soft-label
+   cross-entropy, the masked mean, noam with warmup 4000 over
+   Adam(0.9, 0.997, 1e-9)) under bf16 AMP O2 with `fuse_optimizer_ops`.
+   Leg a: batch 32 at source and target length 128 (4,096 target tokens;
+   per-sentence lengths 16-128, ids from RandomState(0)), 2 warm-up and
+   10 timed steps: every loss finite; the median step ms, target
+   tokens/s, MFU on the program's `mul` and `matmul` FLOPs, peak memory,
+   the busy share and kernels of one profiled step. Leg b:
+   `beam_search_decode` over leg a's scope, the 32 sentences, beam 4,
+   alpha 0.6, at most 128 new tokens: shapes [32, 4, 129] and [32, 4],
+   bos first, the beams sorted by score; decode ms, steps and generated
+   tokens/s. Neither leg launches any of the five attention kernels (the
+   counts are zeroed before each and read after). Leg c: the card
+   against the CPU in fp32, 2 + 2 layers at the same widths, S 32, batch
+   4, dropout 0, from one startup state: 3 noam-Adam steps' losses within
+   1e-4 relative, then beam 4 over 16 steps: sequences equal (but where
+   the CPU's top-k margin fell below 1e-5 at some step) and scores within
+   1e-4; and the `while_loop` and cond-in-while programs equal;
+11. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, and their launches and times on the fluid BERT path);
-11. the last line, ``{"ok": true, "device": {...}}``, printed only when
+12. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
 repository around it.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -182,6 +205,22 @@ RESNET_B = dict(img=32, classes=10, batch=4, lr=3e-3, amp=False)
 RESNET_WARMUP, RESNET_STEPS, RESNET_B_STEPS = 2, 10, 3
 RESNET_INIT_SEED = 11        # the startup and main programs' random_seed
 RESNET_B_RTOL = 1e-3         # leg b: losses and running stats, card vs CPU
+#: fluid Transformer (models/transformer.py TransformerConfig.big): leg a
+#: trains at Paddle's per-card batch of its Transformer-big recipe in
+#: tokens (32 x 128 target tokens), leg b decodes leg a's scope, leg c
+#: holds the card against the CPU in fp32
+TRANSFORMER_A = dict(batch=32, seq=128)
+TRANSFORMER_B = dict(sentences=32, beam=4, max_out_len=128, bos=0, eos=1,
+                     alpha=0.6)
+#: leg c: a sentence whose CPU top-k margin falls below `margin` at some
+#: step may pick other beams on the card (a tie in float32); only its
+#: sequence check is waived
+TRANSFORMER_C = dict(layers=2, seq=32, batch=4, steps=3, beam=4,
+                     max_out_len=16, tol=1e-4, margin=1e-5)
+TRANSFORMER_WARMUP_STEPS, TRANSFORMER_STEPS = 2, 10
+TRANSFORMER_INIT_SEED = 13   # the startup and main programs' random_seed
+TRANSFORMER_WARMUP = 4000    # noam warmup steps
+TRANSFORMER_LR = 2.0         # noam's scale (Paddle's Transformer recipe)
 
 
 def emit(obj):
@@ -1309,6 +1348,342 @@ def phase_fluid_resnet(torch, name):
     return res
 
 
+# -- phase 10 -----------------------------------------------------------------
+
+@contextlib.contextmanager
+def amp_adam(fluid):
+    """Inside, `fluid.optimizer.AdamOptimizer` is bf16 AMP O2 (fp32
+    masters, no loss scaling) over Adam: `build_transformer_train` makes
+    its own optimizer, so AMP is put around the one it makes."""
+    from paddle_tpu_torch.fluid.contrib import mixed_precision
+
+    real = fluid.optimizer.AdamOptimizer
+    fluid.optimizer.AdamOptimizer = lambda **kw: mixed_precision.decorate(
+        real(**kw), use_dynamic_loss_scaling=False)
+    try:
+        yield
+    finally:
+        fluid.optimizer.AdamOptimizer = real
+
+
+def build_fluid_transformer(fluid, cfg, seq, amp):
+    """The unrolled `build_transformer_train` in fresh programs: label
+    smoothing 0.1, noam (warmup 4000, scale TRANSFORMER_LR) over
+    Adam(0.9, 0.997, 1e-9); with `amp` under bf16 AMP O2 and then
+    `fuse_optimizer_ops`. Returns (main, startup, loss)."""
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = TRANSFORMER_INIT_SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        with amp_adam(fluid) if amp else contextlib.nullcontext():
+            loss, _ = transformer.build_transformer_train(
+                cfg, src_len=seq, tgt_len=seq, lr=TRANSFORMER_LR,
+                warmup=TRANSFORMER_WARMUP, label_smooth_eps=0.1)
+        if amp:
+            fluid.fuse_optimizer_ops(main)
+    return main, startup, loss
+
+
+def transformer_feed(cfg, batch, seq, min_len=16):
+    """WMT-like synthetic batches from RandomState(0): per-sentence
+    lengths min_len..seq for source and target, ids in [2, V), padding
+    id 1 with mask 0; the decoder reads bos (0) and the target shifted
+    right, and predicts the target."""
+    import numpy as np
+
+    r = np.random.RandomState(0)
+
+    def side(vocab):
+        lens = r.randint(min_len, seq + 1, size=batch)
+        mask = (np.arange(seq)[None] < lens[:, None]).astype("float32")
+        ids = np.where(mask > 0, r.randint(2, vocab, (batch, seq)), 1)
+        return ids.astype("int64"), mask
+
+    src, src_mask = side(cfg.src_vocab)
+    lbl, tgt_mask = side(cfg.tgt_vocab)
+    tgt = np.concatenate([np.zeros((batch, 1), "int64"), lbl[:, :-1]], 1)
+    return {"src_ids": src, "tgt_ids": tgt, "lbl_ids": lbl,
+            "src_mask": src_mask, "tgt_mask": tgt_mask}
+
+
+def transformer_model_flops(main, batch):
+    """Model FLOPs of one training step: 2 x the multiply-adds of every
+    `mul` (the projections, FFNs and vocab head) and `matmul` (attention's
+    two products) of the forward, times 3 for the forward and the
+    backward's two products."""
+    block = main.global_block()
+
+    def shape(name):
+        return [batch if d < 0 else d
+                for d in block._find_var_recursive(name).shape]
+
+    macs = 0
+    for op in block.ops:
+        if op.type == "backward":
+            break
+        if op.type == "mul":
+            x, w = shape(op.input("X")[0]), shape(op.input("Y")[0])
+            macs += math.prod(x[:op.attrs.get("x_num_col_dims", 1)]) \
+                * math.prod(w)
+        elif op.type == "matmul":
+            x = shape(op.input("X")[0])
+            k = x[-2] if op.attrs.get("transpose_X") else x[-1]
+            macs += math.prod(shape(op.output("Out")[0])) * k
+    return 3 * 2 * macs
+
+
+def fluid_transformer_leg_a(torch, fluid):
+    """Leg a: Transformer-big training under bf16 AMP O2 at full width
+    on the card: startup, warm-up steps, timed steps with the attention
+    kernels' counts zeroed just before them and read just after, one
+    profiled step. Returns (result, trained scope, feed)."""
+    from paddle_tpu_torch.models import transformer
+
+    c = TRANSFORMER_A
+    cfg = transformer.TransformerConfig.big()
+    main, startup, loss = build_fluid_transformer(fluid, cfg, c["seq"],
+                                                  amp=True)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = transformer_feed(cfg, c["batch"], c["seq"])
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[loss],
+                             scope=scope)[0][0])
+
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(TRANSFORMER_WARMUP_STEPS)]
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_attention_launches()
+    step_ms = []
+    for _ in range(TRANSFORMER_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = attention_launches()
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, kernels = device_busy_share(torch, step)
+    median_s = statistics.median(step_ms) / 1e3
+    flops = transformer_model_flops(main, c["batch"])
+    tokens = c["batch"] * c["seq"]
+    res = dict(c, d_model=cfg.d_model, heads=cfg.n_head, d_ff=cfg.d_ff,
+               layers=cfg.n_layer, vocab=cfg.tgt_vocab,
+               dropout=cfg.dropout, label_smoothing=0.1,
+               noam_warmup=TRANSFORMER_WARMUP, lr_scale=TRANSFORMER_LR,
+               losses=losses, warmup_s=warmup_s, step_ms=step_ms,
+               median_step_ms=median_s * 1e3,
+               target_tokens_per_step=tokens,
+               unpadded_target_tokens=int(feed["tgt_mask"].sum()),
+               tokens_per_sec=tokens / median_s,
+               model_flops_per_step=flops,
+               mfu_vs_bf16_peak=flops / median_s / BF16_FLOPS_PER_S,
+               peak_mem_bytes=peak,
+               profiled_step={"wall_us": wall, "device_busy_us": busy,
+                              "device_busy_share": busy / wall,
+                              "kernels": kernels},
+               attention_launches=launches,
+               lr_decay_counter=int(scope.find_var(
+                   "@LR_DECAY_COUNTER@").reshape(-1)[0]))
+    check(all(math.isfinite(x) for x in losses),
+          "fluid transformer a: non-finite loss %s" % losses)
+    check(not any(launches.values()),
+          "fluid transformer a: attention kernels launched: %s" % launches)
+    return res, scope, feed
+
+
+def fluid_transformer_leg_b(torch, scope, feed):
+    """Leg b: beam search over leg a's trained scope, the first
+    TRANSFORMER_B["sentences"] source sentences, with the attention
+    kernels' counts zeroed just before and read just after."""
+    from paddle_tpu_torch.models import transformer
+
+    c = TRANSFORMER_B
+    cfg = transformer.TransformerConfig.big()
+    n = c["sentences"]
+    zero_attention_launches()
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, scores = transformer.beam_search_decode(
+        scope, feed["src_ids"][:n], feed["src_mask"][:n], cfg,
+        beam_size=c["beam"], max_out_len=c["max_out_len"],
+        bos_id=c["bos"], eos_id=c["eos"], alpha=c["alpha"], stats=stats)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = attention_launches()
+    # the raw log-probabilities (score times the length penalty) come
+    # out of the top-k sorted, best beam first
+    lengths = (seqs[:, :, 1:] != c["eos"]).sum(-1).float() + 1.0
+    raw = scores * ((5.0 + lengths) / 6.0) ** c["alpha"]
+    sorted_ok = bool((raw[:, :-1] >= raw[:, 1:] - 1e-4 * raw.abs()[:, 1:]
+                      ).all())
+    generated = n * c["beam"] * stats["steps"]
+    res = dict(c, decode_ms=decode_s * 1e3, steps=stats["steps"],
+               generated_tokens=generated,
+               generated_tokens_per_sec=generated / decode_s,
+               finished_beams=int((seqs == c["eos"]).any(-1).sum()),
+               seqs_shape=list(seqs.shape), scores_shape=list(scores.shape),
+               best_scores=scores[:, 0].tolist(), beams_sorted=sorted_ok,
+               attention_launches=launches)
+    check(list(seqs.shape) == [n, c["beam"], c["max_out_len"] + 1]
+          and list(scores.shape) == [n, c["beam"]],
+          "fluid transformer b: shapes %s %s" % (seqs.shape, scores.shape))
+    check(bool((seqs[:, :, 0] == c["bos"]).all()),
+          "fluid transformer b: a sequence does not start with bos")
+    check(bool(torch.isfinite(scores).all()) and sorted_ok,
+          "fluid transformer b: scores not finite or beams not sorted")
+    check(not any(launches.values()),
+          "fluid transformer b: attention kernels launched: %s" % launches)
+    return res
+
+
+def cf_while_loop(fluid):
+    """tests/test_control_flow.py's while_loop: 5! by a functional
+    while."""
+    L = fluid.layers
+    i = L.fill_constant([1], "int64", 1)
+    limit = L.fill_constant([1], "int64", 6)
+    fact = L.fill_constant([1], "int64", 1)
+
+    def body(i, fact):
+        return (L.elementwise_add(i, L.fill_constant([1], "int64", 1)),
+                L.elementwise_mul(fact, i))
+
+    i, fact = L.while_loop(lambda i, fact: L.less_than(i, limit), body,
+                           [i, fact])
+    return [fact, i]
+
+
+def cf_cond_in_while(fluid):
+    """tests/test_control_flow.py's cond inside a while: the branch
+    updates the loop's accumulator (3 if i is odd, else 1)."""
+    L = fluid.layers
+    i = L.fill_constant([1], "int64", 0)
+    six = L.fill_constant([1], "int64", 6)
+    acc = L.fill_constant([1], "float32", 0.0)
+    cond_var = L.less_than(i, six)
+    w = L.While(cond_var)
+    with w.block():
+        is_odd = L.equal(L.elementwise_mod(i, L.fill_constant(
+            [1], "int64", 2)), L.fill_constant([1], "int64", 1))
+
+        def add(v):
+            def branch():
+                L.assign(L.elementwise_add(
+                    acc, L.fill_constant([1], "float32", v)), output=acc)
+                return L.fill_constant([1], "float32", 0.0)
+            return branch
+
+        L.cond(is_odd, add(3.0), add(1.0))
+        L.increment(i, value=1)
+        L.less_than(i, six, cond=cond_var)
+    return [acc, i]
+
+
+def fluid_transformer_leg_c(torch, fluid):
+    """Leg c: the card against the CPU in fp32 (AMP off, TF32 off) at
+    Transformer-big widths, 2 + 2 layers, dropout 0, from one startup
+    state: noam-Adam steps, then beam search from each trained scope;
+    then the two control-flow programs."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.scope import dump_numpy_state, \
+        load_numpy_state
+    from paddle_tpu_torch.models import transformer
+
+    c = TRANSFORMER_C
+    cfg = transformer.TransformerConfig.big()
+    cfg.n_layer, cfg.dropout = c["layers"], 0.0
+    main, startup, loss = build_fluid_transformer(fluid, cfg, c["seq"],
+                                                  amp=False)
+    feed = transformer_feed(cfg, c["batch"], c["seq"], min_len=c["seq"] // 2)
+    scope = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope)
+    state = dump_numpy_state(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    out = {}
+    for where, place, dev in (("card", None, None),
+                              ("cpu", fluid.CPUPlace(), "cpu")):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        load_numpy_state(scope, state, exe.device)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope)[0][0])
+                  for _ in range(c["steps"])]
+        stats = {}
+        seqs, scores = transformer.beam_search_decode(
+            scope, feed["src_ids"], feed["src_mask"], cfg,
+            beam_size=c["beam"], max_out_len=c["max_out_len"], device=dev,
+            stats=stats)
+        out[where] = (losses, seqs.cpu().numpy(), scores.cpu().numpy(),
+                      stats["min_topk_margin"].cpu().numpy())
+    card, cpu = out["card"], out["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    margin = cpu[3]
+    waived = [int(b) for b in np.nonzero(margin < c["margin"])[0]]
+    seq_diff = [b for b in range(c["batch"])
+                if not np.array_equal(card[1][b], cpu[1][b])]
+    score_err = float(np.max(np.abs(card[2] - cpu[2])
+                             / np.maximum(np.abs(cpu[2]), 1e-30)))
+    flow = {}
+    for fname, build in (("while_loop", cf_while_loop),
+                         ("cond_in_while", cf_cond_in_while)):
+        vals = []
+        for place in (None, fluid.CPUPlace()):
+            m, s = fluid.Program(), fluid.Program()
+            with fluid.program_guard(m, s), fluid.unique_name.guard():
+                fetch = build(fluid)
+            exe = fluid.Executor(place)
+            sc = fluid.Scope()
+            exe.run(s, scope=sc)
+            vals.append([v.tolist() for v in exe.run(m, fetch_list=fetch,
+                                                     scope=sc)])
+        flow[fname] = {"card": vals[0], "cpu": vals[1]}
+        check(vals[0] == vals[1], "fluid transformer c: %s card %s vs "
+              "CPU %s" % (fname, vals[0], vals[1]))
+    res = dict(c, d_model=cfg.d_model, losses=card[0], losses_cpu=cpu[0],
+               loss_rel_err=loss_err, decode_score_rel_err=score_err,
+               cpu_min_topk_margin=margin.tolist(),
+               sequences_waived=waived, sequences_differ=seq_diff,
+               control_flow=flow)
+    check(all(math.isfinite(x) for x in card[0])
+          and loss_err <= c["tol"],
+          "fluid transformer c: card vs CPU loss rel err %g" % loss_err)
+    check(not set(seq_diff) - set(waived),
+          "fluid transformer c: sequences differ for sentences %s (CPU "
+          "top-k margins %s)" % (seq_diff, margin.tolist()))
+    check(score_err <= c["tol"],
+          "fluid transformer c: decode scores rel err %g" % score_err)
+    return res
+
+
+def phase_fluid_transformer(torch, name):
+    """Transformer-big WMT en-de through the fluid static graph on the
+    card: leg a training at full width, leg b beam search over its
+    trained scope, leg c the card against the CPU."""
+    from paddle_tpu_torch import fluid
+
+    leg_a, scope, feed = fluid_transformer_leg_a(torch, fluid)
+    leg_b = fluid_transformer_leg_b(torch, scope, feed)
+    del scope
+    torch.cuda.empty_cache()
+    res = {"phase": "fluid_transformer",
+           "config": "Transformer big (models/transformer.py "
+                     "TransformerConfig.big)",
+           "optimizer": "noam + Adam(0.9, 0.997, 1e-9), bf16 AMP O2, "
+                        "fuse_optimizer_ops",
+           "leg_a": leg_a, "leg_b": leg_b,
+           "leg_c": fluid_transformer_leg_c(torch, fluid)}
+    res.update(device=name, nvidia_smi=nvidia_smi_line())
+    emit(res)
+    return res
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -1398,6 +1773,7 @@ def main():
     phase_fluid(torch, name)
     fluid_bert = phase_fluid_bert(torch, name)
     phase_fluid_resnet(torch, name)
+    phase_fluid_transformer(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

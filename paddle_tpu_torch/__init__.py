@@ -8,8 +8,9 @@ hand-written ragged paged attention kernel, the transformer trainer
 (`paddle_tpu_torch.parallel.transformer`) with its hand-written flash
 attention forward and backward kernels (`csrc/`), and the core of the
 fluid static graph (`paddle_tpu_torch.fluid`: Program, op registry,
-backward, eager Executor, SGD and Adam, Scan, bf16 AMP) with BERT
-pretraining on it (`paddle_tpu_torch.models.bert`)."""
+backward, eager Executor, SGD, Momentum and Adam, Scan, control flow,
+learning-rate schedules, bf16 AMP) with BERT pretraining, ResNet and
+the WMT Transformer on it (`paddle_tpu_torch.models`)."""
 __version__ = "0.1.0"
 
 __all__ = ["serving", "parallel", "fluid", "models"]

@@ -1,12 +1,14 @@
 """paddle_tpu_torch.fluid — the Fluid static-graph programming model on
 PyTorch (counterpart: `paddle_tpu/fluid/`).
 
-Ported so far: Program / Block / Operator / Variable, the layers of the
-MNIST MLP, BERT and ResNet (`fluid.layers`, with `layers.Scan`),
-`append_backward`, the eager `Executor`, the SGD, Momentum and Adam
-optimizers, weight decay (`regularizer`), `fuse_optimizer_ops`, and bf16
-mixed precision (`contrib.mixed_precision`). What is not ported yet is
-absent.
+Ported so far: Program / Block / Operator / Variable (with its
+operators), the layers of the MNIST MLP, BERT, ResNet and the WMT
+Transformer (`fluid.layers`, with `layers.Scan`, the control flow
+`While`, `while_loop`, `cond`, `switch_case` and `case`, the
+learning-rate schedules and `rnn_decode`), `append_backward`, the eager
+`Executor`, the SGD, Momentum and Adam optimizers, weight decay
+(`regularizer`), `fuse_optimizer_ops`, and bf16 mixed precision
+(`contrib.mixed_precision`). What is not ported yet is absent.
 """
 from . import framework  # noqa: F401
 from .framework import (  # noqa: F401

@@ -99,6 +99,74 @@ class Variable:
 
     __str__ = __repr__
 
+    # -- operator sugar (reference: framework.py:227-291) -------------------
+    def _binary(self, other, op, reverse=False):
+        from .layers import math_op_patch
+
+        return math_op_patch.binary(self, other, op, reverse)
+
+    def __add__(self, o):
+        return self._binary(o, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "elementwise_sub")
+
+    def __rsub__(self, o):
+        return self._binary(o, "elementwise_sub", reverse=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "elementwise_div")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elementwise_div", reverse=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "elementwise_pow")
+
+    def __mod__(self, o):
+        return self._binary(o, "elementwise_mod")
+
+    def __floordiv__(self, o):
+        return self._binary(o, "elementwise_floordiv")
+
+    def __neg__(self):
+        from .layers import tensor as _t
+
+        return _t.scale(self, scale=-1.0)
+
+    def __matmul__(self, o):
+        from .layers import nn as _nn
+
+        return _nn.matmul(self, o)
+
+    def __lt__(self, o):
+        return self._binary(o, "less_than")
+
+    def __le__(self, o):
+        return self._binary(o, "less_equal")
+
+    def __gt__(self, o):
+        return self._binary(o, "greater_than")
+
+    def __ge__(self, o):
+        return self._binary(o, "greater_equal")
+
+    def __eq__(self, o):
+        # identity, not an op: vars are dict keys and list members
+        if isinstance(o, Variable) or np.isscalar(o):
+            return id(self) == id(o) if isinstance(o, Variable) else False
+        return NotImplemented
+
+    def __hash__(self):
+        return id(self)
+
 
 class Parameter(Variable):
     """Trainable persistable variable (reference: framework.py:5080)."""
@@ -239,6 +307,13 @@ class Block:
                     v.op = op
                     if stop_gradient:
                         v.stop_gradient = True
+        return op
+
+    def _prepend_op(self, **kwargs) -> Operator:
+        """`append_op`, then move the op to the front of the block (the
+        learning-rate schedules' step counter increments first)."""
+        op = self.append_op(**kwargs)
+        self.ops.insert(0, self.ops.pop())
         return op
 
     def _infer_op_shapes(self, op, inputs, outputs):

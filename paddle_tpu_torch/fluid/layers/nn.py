@@ -3,7 +3,12 @@
 `pool2d`, `batch_norm`, `layer_norm`, `dropout`, the activations
 `relu`, `tanh` and `gelu`, `softmax`, `matmul`, `elementwise_add` /
 `_mul` / `_div`, `reduce_sum`, `mean`, `slice`, `gather`, `scatter`,
-`accuracy`, `topk` and `scaled_dot_product_attention`. Each builder
+`accuracy`, `topk`, `scaled_dot_product_attention`, and for the
+Transformer `one_hot`, `label_smooth`, `unsqueeze`, `squeeze`, `stack`,
+`where`, `elementwise_sub` / `_max` / `_min` / `_pow` / `_mod` /
+`_floordiv`, the activations `exp`, `floor` and `cos` (the learning
+rate schedules'), and for `rnn_decode` `sigmoid`, `log_softmax`, `split`
+and `expand`. Each builder
 creates its params through LayerHelper (init ops go to the startup
 program) and appends its compute op."""
 from __future__ import annotations
@@ -19,7 +24,12 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "dropout", "relu", "tanh", "gelu", "softmax",
            "matmul", "elementwise_add", "elementwise_mul",
            "elementwise_div", "reduce_sum", "mean", "slice", "gather",
-           "scatter", "accuracy", "topk", "scaled_dot_product_attention"]
+           "scatter", "accuracy", "topk", "scaled_dot_product_attention",
+           "one_hot", "label_smooth", "unsqueeze", "squeeze", "stack",
+           "where", "elementwise_sub", "elementwise_max", "elementwise_min",
+           "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
+           "exp", "floor", "cos", "sigmoid", "log_softmax", "split",
+           "expand"]
 
 
 def _single(op_type, inputs, attrs, dtype=None, helper=None):
@@ -213,6 +223,10 @@ def _make_act(op_type):
 relu = _make_act("relu")
 tanh = _make_act("tanh")
 gelu = _make_act("gelu")
+sigmoid = _make_act("sigmoid")
+exp = _make_act("exp")
+floor = _make_act("floor")
+cos = _make_act("cos")
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
@@ -234,8 +248,14 @@ def _make_elementwise(op_type):
 
 
 elementwise_add = _make_elementwise("elementwise_add")
+elementwise_sub = _make_elementwise("elementwise_sub")
 elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
+elementwise_max = _make_elementwise("elementwise_max")
+elementwise_min = _make_elementwise("elementwise_min")
+elementwise_pow = _make_elementwise("elementwise_pow")
+elementwise_mod = _make_elementwise("elementwise_mod")
+elementwise_floordiv = _make_elementwise("elementwise_floordiv")
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):
@@ -309,3 +329,64 @@ def topk(input, k=1, name=None):
     outs = apply_op("top_k", "top_k", {"X": [input]}, {"k": k},
                     ["Out", "Indices"], out_dtype=input.dtype)
     return outs[0], outs[1]
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    """[..., 1] int ids -> [..., depth] float32 rows."""
+    return _single("one_hot", {"X": [input]}, {"depth": depth},
+                   dtype="float32")
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    ins = {"X": [label]}
+    if prior_dist is not None:
+        ins["PriorDist"] = [prior_dist]
+    return _single("label_smooth", ins, {"epsilon": float(epsilon)},
+                   dtype=dtype)
+
+
+def unsqueeze(input, axes, name=None):
+    return apply_op("unsqueeze2", "unsqueeze2", {"X": [input]},
+                    {"axes": list(axes)}, ["Out", "XShape"],
+                    out_dtype=input.dtype)[0]
+
+
+def squeeze(input, axes, name=None):
+    return apply_op("squeeze2", "squeeze2", {"X": [input]},
+                    {"axes": list(axes)}, ["Out", "XShape"],
+                    out_dtype=input.dtype)[0]
+
+
+def stack(x, axis=0, name=None):
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    return apply_op("stack", "stack", {"X": list(xs)}, {"axis": axis},
+                    ["Y"], out_dtype=xs[0].dtype)[0]
+
+
+def where(condition, x=None, y=None, name=None):
+    return _single("where", {"Condition": [condition], "X": [x], "Y": [y]},
+                   {}, dtype=x.dtype)
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _single("log_softmax", {"X": [input]}, {"axis": axis},
+                   dtype=input.dtype)
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """`input` split along `dim` into that many equal parts, or parts of
+    the sizes listed; returns the list of vars."""
+    if isinstance(num_or_sections, int):
+        n = num_or_sections
+        attrs = {"num": n, "sections": [], "axis": dim}
+    else:
+        n = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    return apply_op("split", "split", {"X": [input]}, attrs, {"Out": n},
+                    out_dtype=input.dtype)
+
+
+def expand(x, expand_times, name=None):
+    return _single("expand", {"X": [x]},
+                   {"expand_times": list(expand_times)}, dtype=x.dtype)

@@ -1,15 +1,20 @@
 """Tensor layers of the slice (counterpart:
-`paddle_tpu/fluid/layers/tensor.py`): `data`, `assign`,
-`create_parameter`, `create_global_var`, `reshape`, `transpose`, `scale`
-and `take_along_axis`."""
+`paddle_tpu/fluid/layers/tensor.py`): `data`, `fill_constant`,
+`fill_constant_batch_size_like`, `cast`, `assign` (of a var, or of a
+numpy array as `assign_value`), `create_parameter`, `create_global_var`,
+`reshape`, `transpose`, `scale`, `take_along_axis` and `cumsum`."""
 from __future__ import annotations
 
+import numpy as np
+
 from .. import framework
+from ...core.types import normalize_dtype
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper, apply_op
 
-__all__ = ["data", "assign", "create_parameter", "create_global_var",
-           "reshape", "transpose", "scale", "take_along_axis"]
+__all__ = ["data", "fill_constant", "fill_constant_batch_size_like", "cast",
+           "assign", "create_parameter", "create_global_var", "reshape",
+           "transpose", "scale", "take_along_axis", "cumsum"]
 
 
 def _single(op_type, inputs, attrs, dtype=None):
@@ -31,10 +36,53 @@ def data(name, shape, dtype="float32", lod_level=0, append_batch_size=True,
         lod_level=lod_level)
 
 
+def fill_constant(shape, dtype, value, force_cpu=False, out=None,
+                  name=None):
+    """A `shape` var of `dtype` filled with `value` (no gradient)."""
+    dtype = normalize_dtype(dtype)
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype,
+                            "value": float(value)})
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """`fill_constant` whose dim `output_dim_idx` follows `input`'s dim
+    `input_dim_idx` at run time."""
+    return _single("fill_constant_batch_size_like", {"Input": [input]},
+                   {"shape": list(shape), "dtype": normalize_dtype(dtype),
+                    "value": float(value), "input_dim_idx": input_dim_idx,
+                    "output_dim_idx": output_dim_idx}, dtype=dtype)
+
+
+def cast(x, dtype):
+    dtype = normalize_dtype(dtype)
+    return _single("cast", {"X": [x]}, {"out_dtype": dtype}, dtype=dtype)
+
+
 def assign(input, output=None):
-    """`output = input` (the `assign` op). Inside a scan body,
-    ``assign(new_x, output=x)`` rebinds the loop carry `x`. Numpy inputs
-    (`assign_value`) are not ported."""
+    """`output = input` (the `assign` op). Inside a loop body,
+    ``assign(new_x, output=x)`` rebinds the carry `x`. A numpy array
+    becomes an `assign_value` op holding its values in the program."""
+    if isinstance(input, np.ndarray):
+        attrs = {"shape": list(input.shape),
+                 "dtype": normalize_dtype(input.dtype)}
+        key = ("fp32_values" if input.dtype in (np.float32, np.float64)
+               else "int32_values" if input.dtype == np.int32
+               else "int64_values")
+        attrs[key] = input.astype(
+            "float64" if "fp" in key else input.dtype).flatten().tolist()
+        helper = LayerHelper("assign_value")
+        out = output or helper.create_variable_for_type_inference(
+            normalize_dtype(input.dtype))
+        helper.append_op(type="assign_value", outputs={"Out": [out]},
+                         attrs=attrs)
+        return out
     helper = LayerHelper("assign")
     out = output or helper.create_variable_for_type_inference(input.dtype)
     helper.append_op(type="assign", inputs={"X": [input]},
@@ -96,3 +144,9 @@ def take_along_axis(input, index, axis, name=None):
                     {"Input": [input], "Index": [index]},
                     {"Axis": int(axis)}, ["Result"],
                     out_dtype=input.dtype)[0]
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False):
+    return _single("cumsum", {"X": [x]},
+                   {"axis": axis, "exclusive": exclusive, "reverse": reverse},
+                   dtype=x.dtype)

@@ -1,8 +1,8 @@
 """Block execution: a Program block -> one Python function that runs its
 ops eagerly, op by op (counterpart: `paddle_tpu/fluid/lowering.py`, its
-core with the `scan` loop and the bf16 AMP cast policy, without the
+core with the control-flow ops and the bf16 AMP cast policy, without the
 data-parallel, sharding, sparse, fp8, gradient-merge and loss-scaling
-branches and the other control flow).
+branches).
 
 The reference traces the op list into one jitted XLA computation; the
 port issues each op's torch compute function in order on the executor's
@@ -12,6 +12,15 @@ Autodiff: `append_backward` plants a single `backward` pseudo-op. The
 function runs the forward segment on leaf tensors that require grad,
 then takes `torch.autograd.grad` of the loss and binds each `X@GRAD`
 (replacing the reference's `jax.vjp`).
+
+Control flow: `while` is a Python loop that reads its condition on the
+host before each iteration, the counterpart of `lax.while_loop` (and,
+like it, not reverse-differentiable: a gradient through it raises);
+`cond`, `switch_case` and `conditional_block` read their predicate or
+index on the host and run only the branch it picks (autograd
+differentiates it, as JAX does the taken branch of `lax.cond`). The
+carry of a loop, and what a branch sets, are the sub-block's writes to
+vars that pre-exist in the enclosing environment.
 
 `scan` (`layers.Scan`) runs its sub-block once per iteration over
 per-layer slices of stacked [n, ...] inputs, taken with one `unbind` each
@@ -53,29 +62,41 @@ from ..core.types import to_torch_dtype
 _SKIP_OPS = frozenset({"feed", "fetch", "nop"})
 
 
+def _sub_block_idxs(op):
+    """The sub-blocks of a control-flow op: a scan's or while's body, a
+    cond's two branches, a switch_case's branches."""
+    idxs = [op.attrs[a] for a in ("sub_block", "sub_block_t", "sub_block_f")
+            if a in op.attrs]
+    idxs.extend(op.attrs.get("sub_blocks", []))
+    return idxs
+
+
 def _op_reads_writes(op):
     """(reads, writes) of an op, looking through a control-flow op's
-    sub-block (a var read only inside a scan body is still block-level
-    state). Sub-block writes to persistable vars also count as reads:
-    the carry needs their incoming value."""
+    sub-blocks (a var read only inside a loop body or a branch, however
+    deeply nested, is still block-level state). Sub-block writes to
+    persistable vars also count as reads: the carry needs their incoming
+    value."""
     reads = list(op.input_arg_names)
     writes = list(op.output_arg_names)
-    if "sub_block" not in op.attrs:
-        return reads, writes
-    blk = op.block.program.block(op.attrs["sub_block"])
-    # the scan's slices and its iteration var are made by the loop itself
-    produced_local = set(op.attrs.get("xs_slice", []))
-    if op.attrs.get("iter_var"):
-        produced_local.add(op.attrs["iter_var"])
-    for sop in blk.ops:
-        sr, sw = _op_reads_writes(sop)
-        reads.extend(n for n in sr if n not in produced_local)
-        for n in sw:
-            v = blk._find_var_recursive(n)
-            if v is not None and v.persistable and n not in produced_local:
-                reads.append(n)
-            produced_local.add(n)
-            writes.append(n)
+    prog = op.block.program
+    for bi in _sub_block_idxs(op):
+        blk = prog.block(bi)
+        # the scan's slices and its iteration var are made by the loop
+        # itself
+        produced_local = set(op.attrs.get("xs_slice", []))
+        if op.attrs.get("iter_var"):
+            produced_local.add(op.attrs["iter_var"])
+        for sop in blk.ops:
+            sr, sw = _op_reads_writes(sop)
+            reads.extend(n for n in sr if n not in produced_local)
+            for n in sw:
+                v = blk._find_var_recursive(n)
+                if v is not None and v.persistable \
+                        and n not in produced_local:
+                    reads.append(n)
+                produced_local.add(n)
+                writes.append(n)
     return reads, writes
 
 
@@ -116,8 +137,8 @@ def _exec_op(op, env, seed, op_idx, device, amp=None):
     t = op.type
     if t in _SKIP_OPS:
         return
-    if t == "scan":
-        return _exec_scan(op, env, seed, op_idx, device, amp)
+    if t in _CONTROL_FLOW:
+        return _CONTROL_FLOW[t](op, env, seed, op_idx, device, amp)
     opdef = ops_lib.get_op(t)
     ins = {}
     for slot, names in op.input_names.items():
@@ -204,6 +225,168 @@ def _exec_scan(op, env, seed, op_idx, device, amp):
         else:
             carry = body(it, carry, slices)
     env.update(zip(carry_names, carry))
+
+
+class _NoReverseThroughWhile(torch.autograd.Function):
+    """Identity on a while loop's carried tensors whose backward raises:
+    the reference's `lax.while_loop` is not reverse-differentiable, so a
+    gradient that would flow back through the loop is an error there, and
+    here, rather than a silent zero."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise ValueError(
+            "Reverse-mode differentiation does not work for a fluid While "
+            "loop (the reference lowers it to lax.while_loop); use "
+            "layers.Scan for a differentiable fixed-trip loop")
+
+
+def _exec_while(op, env, seed, op_idx, device, amp):
+    """`while` op (reference: `_exec_while`, a `lax.while_loop`): a
+    Python loop that reads the condition on the host before every
+    iteration (one synchronization each), runs the body over the carry
+    (the body's writes to pre-existing vars), and folds the iteration
+    into the random seed so each iteration draws its own dropout masks.
+    Carried float tensors that take part in autograd come out through
+    `_NoReverseThroughWhile`."""
+    sub = op.block.program.block(op.attrs["sub_block"])
+    cond_name = op.attrs["cond_name"]
+    carry_names = _sub_block_carry(sub, env)
+    if cond_name not in carry_names:
+        raise RuntimeError(
+            "while: the loop body never rebinds condition var %r — the "
+            "loop would not terminate" % cond_name)
+    base = op_seed(seed, op_idx)
+    cond_pos = carry_names.index(cond_name)
+    carry = [env[n] for n in carry_names]
+    it = 0
+    while bool(carry[cond_pos].all()):
+        e = dict(env)
+        e.update(zip(carry_names, carry))
+        _run_ops(sub.ops, e, op_seed(base, it), device, amp=amp)
+        carry = [e[n] for n in carry_names]
+        it += 1
+    tracked = [i for i, v in enumerate(carry)
+               if torch.is_grad_enabled() and v.requires_grad]
+    if tracked:
+        outs = _NoReverseThroughWhile.apply(*(carry[i] for i in tracked))
+        for i, v in zip(tracked, outs):
+            carry[i] = v
+    env.update(zip(carry_names, carry))
+
+
+def _branch_out_names(op, env, blocks):
+    """The names a branch op sets: its declared outputs, then every
+    write (nested ones too) of any of its branches to a var that
+    pre-exists in `env` (a branch that assigns an enclosing loop's var).
+    A branch that does not write such a name leaves env's value."""
+    names = list(op.attrs["out_names"])
+    seen = set(names)
+    for blk in blocks:
+        for sop in blk.ops:
+            for n in _op_reads_writes(sop)[1]:
+                if n in env and n not in seen:
+                    names.append(n)
+                    seen.add(n)
+    return names
+
+
+def _run_branch(block, env, seed, out_names, device, amp):
+    """Run one branch over a copy of `env`; its values of `out_names`."""
+    e = dict(env)
+    _run_ops(block.ops, e, seed, device, amp=amp)
+    return [e[n] for n in out_names]
+
+
+def _pred(env, name):
+    """A branch or loop predicate, read on the host: all of it true."""
+    return bool(env[name].all())
+
+
+def _exec_cond(op, env, seed, op_idx, device, amp):
+    """`cond` op (reference: `_exec_cond`, a `lax.cond`): the predicate
+    is read on the host and only the branch it picks runs; autograd
+    differentiates that branch, as JAX differentiates the taken one."""
+    prog = op.block.program
+    blk_t = prog.block(op.attrs["sub_block_t"])
+    blk_f = prog.block(op.attrs["sub_block_f"])
+    out_names = _branch_out_names(op, env, [blk_t, blk_f])
+    blk = blk_t if _pred(env, op.attrs["cond_name"]) else blk_f
+    env.update(zip(out_names, _run_branch(
+        blk, env, op_seed(seed, op_idx), out_names, device, amp)))
+
+
+def _meta_outputs(block, env, names):
+    """Shape and dtype of `names` after `block` ran over `env`, found by
+    running its ops on meta tensors (no data, no device work)."""
+    meta = torch.device("meta")
+    e = {n: v.to(meta) if isinstance(v, torch.Tensor) else v
+         for n, v in env.items()}
+    for op in block.ops:
+        if op.type in _SKIP_OPS:
+            continue
+        ins = {slot: [e[n] for n in names_] for slot, names_
+               in op.input_names.items() if names_}
+        attrs = dict(op.attrs, _device=meta, _rng_generator=None,
+                     _rng_seed=0)
+        outs = ops_lib.normalize_outs(ops_lib.get_op(op.type).compute(
+            ins, attrs))
+        for slot, names_ in op.output_names.items():
+            e.update(zip(names_, outs.get(slot, [])))
+    return [e[n] for n in names]
+
+
+def _exec_conditional_block(op, env, seed, op_idx, device, amp):
+    """`conditional_block` op (reference: `_exec_conditional_block`): the
+    sub-block runs iff Cond holds (read on the host; no Cond input means
+    true). On the skip path every output keeps env's value, and an output
+    first created inside the block is zeros of its shape and dtype, like
+    the reference's unexecuted branch."""
+    blk = op.block.program.block(op.attrs["sub_block"])
+    out_names = _branch_out_names(op, env, [blk]) \
+        if "out_names" in op.attrs else _sub_block_carry(blk, env)
+    conds = op.input_names.get("Cond", [])
+    if not conds or _pred(env, conds[0]):
+        outs = _run_branch(blk, env, op_seed(seed, op_idx), out_names,
+                           device, amp)
+    else:
+        new = [n for n in out_names if n not in env]
+        shapes = dict(zip(new, _meta_outputs(blk, env, new)))
+        outs = [env[n] if n in env else torch.zeros(
+            shapes[n].shape, dtype=shapes[n].dtype, device=device)
+            for n in out_names]
+    env.update(zip(out_names, outs))
+
+
+def _exec_switch_case(op, env, seed, op_idx, device, amp):
+    """`switch_case` op (reference: `_exec_switch_case`, a `lax.switch`):
+    the index is read on the host; the branch whose key it equals runs,
+    the default (the last block) when none does."""
+    prog = op.block.program
+    blocks = [prog.block(b) for b in op.attrs["sub_blocks"]]
+    out_names = _branch_out_names(op, env, blocks)
+    index = env[op.attrs["index_name"]]
+    if index.numel() != 1:
+        raise ValueError("switch_case: the index must hold one value, got "
+                         "shape %s" % (tuple(index.shape),))
+    idx = int(index.reshape(()))
+    keys = list(op.attrs["keys"])
+    blk = blocks[keys.index(idx)] if idx in keys else blocks[-1]
+    env.update(zip(out_names, _run_branch(
+        blk, env, op_seed(seed, op_idx), out_names, device, amp)))
+
+
+_CONTROL_FLOW = {
+    "scan": _exec_scan,
+    "while": _exec_while,
+    "cond": _exec_cond,
+    "conditional_block": _exec_conditional_block,
+    "switch_case": _exec_switch_case,
+}
 
 
 class _AmpTracePolicy:

@@ -16,3 +16,4 @@ from . import rng_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
+from . import beam_search_ops  # noqa: F401

@@ -1,9 +1,12 @@
 """Dense math operators of the slice (counterpart:
-`paddle_tpu/ops/math_ops.py`): `elementwise_add`, `_mul` and `_div` with
-Paddle's `axis` broadcast rule, `mul` (x_num_col_dims flattening),
-`matmul` (transpose_X/Y, alpha), `scale`, `mean`, `reduce_sum` and
-`cast`. The products are plain `torch.matmul`: the reference computes
-them outside any Pallas kernel.
+`paddle_tpu/ops/math_ops.py`): `elementwise_add`, `_sub`, `_mul`,
+`_div`, `_max`, `_min`, `_pow`, `_mod` and `_floordiv` with Paddle's
+`axis` broadcast rule, `mul` (x_num_col_dims flattening), `matmul`
+(transpose_X/Y, alpha), `scale`, `mean`, `reduce_sum`, `cast`, the
+comparisons (`equal` ... `greater_equal`, numpy broadcasting, bool out)
+and `logical_and` / `_or` / `_xor` / `_not`. The products are plain
+`torch.matmul`: the reference computes them outside any Pallas kernel.
+`_mod` and `_floordiv` round toward minus infinity, as numpy does.
 """
 from __future__ import annotations
 
@@ -36,8 +39,14 @@ def _register_elementwise(name, fn):
 
 
 _register_elementwise("add", torch.add)
+_register_elementwise("sub", torch.sub)
 _register_elementwise("mul", torch.mul)
 _register_elementwise("div", torch.div)
+_register_elementwise("max", torch.maximum)
+_register_elementwise("min", torch.minimum)
+_register_elementwise("pow", torch.pow)
+_register_elementwise("mod", torch.remainder)
+_register_elementwise("floordiv", torch.floor_divide)
 
 
 @register_op("mul")
@@ -108,3 +117,25 @@ def _reduce_sum(ins, attrs):
 @register_op("cast")
 def _cast(ins, attrs):
     return {"Out": ins["X"][0].to(to_torch_dtype(attrs["out_dtype"]))}
+
+
+def _register_cmp(name, fn):
+    @register_op(name)
+    def _cmp(ins, attrs, _fn=fn):
+        return {"Out": _fn(ins["X"][0], ins["Y"][0])}
+
+
+_register_cmp("equal", torch.eq)
+_register_cmp("not_equal", torch.ne)
+_register_cmp("less_than", torch.lt)
+_register_cmp("less_equal", torch.le)
+_register_cmp("greater_than", torch.gt)
+_register_cmp("greater_equal", torch.ge)
+_register_cmp("logical_and", torch.logical_and)
+_register_cmp("logical_or", torch.logical_or)
+_register_cmp("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not")
+def _lnot(ins, attrs):
+    return {"Out": torch.logical_not(ins["X"][0])}

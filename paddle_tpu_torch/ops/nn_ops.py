@@ -1,7 +1,7 @@
 """Neural-network operators of the slice (counterpart:
-`paddle_tpu/ops/nn_ops.py`): `relu`, `tanh`, `gelu`, `sign`, `softmax`,
-`softmax_with_cross_entropy` (hard labels with `ignore_index`, or soft
-labels), `conv2d` / `depthwise_conv2d`, `pool2d`, `batch_norm`,
+`paddle_tpu/ops/nn_ops.py`): `relu`, `sigmoid`, `tanh`, `gelu`, `sign`,
+`exp`, `floor`, `cos`, `softmax`, `log_softmax`, `softmax_with_cross_entropy` (hard labels with
+`ignore_index`, or soft labels), `one_hot`, `label_smooth`, `conv2d` / `depthwise_conv2d`, `pool2d`, `batch_norm`,
 `layer_norm`, `dropout`, the embedding lookups and
 `scaled_dot_product_attention`.
 
@@ -35,6 +35,11 @@ def _relu(ins, attrs):
     return {"Out": torch.relu(ins["X"][0])}
 
 
+@register_op("sigmoid")
+def _sigmoid(ins, attrs):
+    return {"Out": torch.sigmoid(ins["X"][0])}
+
+
 @register_op("tanh")
 def _tanh(ins, attrs):
     return {"Out": torch.tanh(ins["X"][0])}
@@ -51,9 +56,52 @@ def _sign(ins, attrs):
     return {"Out": torch.sign(ins["X"][0])}
 
 
+@register_op("exp")
+def _exp(ins, attrs):
+    return {"Out": torch.exp(ins["X"][0])}
+
+
+@register_op("floor")
+def _floor(ins, attrs):
+    return {"Out": torch.floor(ins["X"][0])}
+
+
+@register_op("cos")
+def _cos(ins, attrs):
+    return {"Out": torch.cos(ins["X"][0])}
+
+
+@register_op("one_hot")
+def _one_hot(ins, attrs):
+    """[..., 1] ids -> [..., depth] float32 rows; an id outside
+    [0, depth) gives a row of zeros (as `jax.nn.one_hot`)."""
+    x = ins["X"][0]
+    ids = x.reshape(x.shape[:-1]).to(torch.int32)
+    classes = torch.arange(attrs["depth"], dtype=torch.int32,
+                           device=x.device)
+    return {"Out": (ids.unsqueeze(-1) == classes).to(torch.float32)}
+
+
+@register_op("label_smooth")
+def _label_smooth(ins, attrs):
+    """(1 - epsilon) * X + epsilon * PriorDist, or epsilon / classes
+    without a prior."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    if ins.get("PriorDist"):
+        return {"Out": (1 - eps) * x + eps * ins["PriorDist"][0]}
+    return {"Out": (1 - eps) * x + eps / x.shape[-1]}
+
+
 @register_op("softmax")
 def _softmax(ins, attrs):
     return {"Out": torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))}
+
+
+@register_op("log_softmax")
+def _log_softmax(ins, attrs):
+    return {"Out": torch.log_softmax(ins["X"][0],
+                                     dim=attrs.get("axis", -1))}
 
 
 @register_op("softmax_with_cross_entropy")

@@ -195,16 +195,30 @@ FLUID_SLICE_OPS = {
 RESNET_SLICE_OPS = {
     "conv2d", "depthwise_conv2d", "pool2d", "batch_norm", "sign", "gather",
     "scatter", "momentum", "fused_sgd", "fused_momentum"}
+#: the Transformer slice's op types, held by
+#: tests/test_torch_transformer_ops.py
+TRANSFORMER_SLICE_OPS = {
+    "elementwise_sub", "elementwise_max", "elementwise_min",
+    "elementwise_pow", "elementwise_mod", "elementwise_floordiv", "equal",
+    "not_equal", "less_than", "less_equal", "greater_than", "greater_equal",
+    "logical_and", "logical_or", "logical_xor", "logical_not",
+    "fill_constant_batch_size_like", "assign_value", "squeeze2",
+    "unsqueeze2", "stack", "increment", "one_hot", "label_smooth", "exp",
+    "floor", "cos", "where", "sigmoid", "log_softmax", "split", "expand",
+    "cumsum", "beam_search", "gather_tree", "beam_search_decode"}
 
 
 def test_cases_cover_the_registry():
     """Every op type the port registers is held here, by
-    tests/test_torch_fluid_ops.py or by tests/test_torch_resnet_ops.py."""
+    tests/test_torch_fluid_ops.py, tests/test_torch_resnet_ops.py or
+    tests/test_torch_transformer_ops.py."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
-    assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS == \
-        set(treg.registered_ops())
+    assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS \
+        | TRANSFORMER_SLICE_OPS == set(treg.registered_ops())
     assert not types & FLUID_SLICE_OPS and len(types) == 21
     assert not (types | FLUID_SLICE_OPS) & RESNET_SLICE_OPS
+    assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS) \
+        & TRANSFORMER_SLICE_OPS and len(TRANSFORMER_SLICE_OPS) == 36
 
 
 def _inputs(name):

@@ -93,15 +93,30 @@ def _batches(rng, steps):
         yield {"img": x[i:i + BATCH], "label": y[i:i + BATCH]}
 
 
+@pytest.fixture
+def one_torch_thread():
+    """PyTorch's CPU kernels on one thread for the test, then the count
+    it had: the port's float32 sums (and so 30 SGD steps at lr 0.5) vary
+    with the number of threads that split them, by more than the rtol."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("kind,steps", [("sgd", 30), ("adam", 20)])
-def test_train_parity_with_reference(rng, kind, steps):
+def test_train_parity_with_reference(rng, kind, steps, one_torch_thread):
     """Per-step losses within rtol 1e-5, accuracy, Correct and Total
     equal, fetched with the reference's dtypes and shapes; every
-    persistable within rtol 1e-4 after the last step."""
+    persistable within rtol 1e-4 after the last step. The startup's
+    random_seed is fixed (chip_smoke.py's, 1): at 0 the reference draws
+    it from numpy's global generator, whose state depends on the tests
+    that ran before in the same process."""
     ravg, racc = build_mlp(rfluid)
     _optimizer(rfluid, kind).minimize(ravg)
     tavg, tacc = build_mlp(tfluid)
     _optimizer(tfluid, kind).minimize(tavg)
+    rfluid.default_startup_program().random_seed = 1
     rexe, texe, names = _transplant()
     r_losses, t_losses = [], []
     for feed in _batches(rng, steps):

@@ -275,8 +275,10 @@ def test_no_silent_cpu_fallback(monkeypatch):
 def test_port_imports_no_jax():
     """A fresh interpreter serves a tiny trace through the port, takes one
     train step with flash attention, trains a tiny MLP through the fluid
-    static graph, takes a bf16 AMP step of a tiny scanned BERT, and has
-    imported neither jax nor anything of paddle_tpu."""
+    static graph, takes a bf16 AMP step of a tiny scanned BERT, a step of
+    a small ResNet, and two noam-Adam steps of a tiny Transformer, which
+    it then decodes with beam search, and has imported neither jax nor
+    anything of paddle_tpu."""
     code = (
         "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
@@ -333,6 +335,22 @@ def test_port_imports_no_jax():
     "         'label': r.randint(0, 4, (2, 1))}\n"
     "    v = exe.run(feed=f, fetch_list=[rl, ra])\n"
     "assert math.isfinite(float(v[0][0])), v\n"
+    "from paddle_tpu_torch.models import transformer as wmt\n"
+    "tc = wmt.TransformerConfig.tiny()\n"
+    "with fluid.program_guard(fluid.Program(), fluid.Program()):\n"
+    "    tl, _ = wmt.build_transformer_train(tc, src_len=8, tgt_len=8,\n"
+    "                                        scan_layers=True)\n"
+    "    sc = fluid.Scope()\n"
+    "    exe.run(fluid.default_startup_program(), scope=sc)\n"
+    "    ids = r.randint(2, tc.src_vocab, (2, 8))\n"
+    "    f = {'src_ids': ids, 'tgt_ids': ids, 'lbl_ids': ids,\n"
+    "         'src_mask': np.ones((2, 8), 'float32'),\n"
+    "         'tgt_mask': np.ones((2, 8), 'float32')}\n"
+    "    w = [exe.run(feed=f, fetch_list=[tl], scope=sc) for _ in (0, 1)]\n"
+    "    seqs, scores = wmt.beam_search_decode(sc, ids, f['src_mask'], tc,\n"
+    "        beam_size=2, max_out_len=4, device='cpu')\n"
+    "assert math.isfinite(float(w[1][0][0])), w\n"
+    "assert tuple(seqs.shape) == (2, 2, 5), seqs.shape\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"
