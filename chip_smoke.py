@@ -20,9 +20,11 @@ Phases, each printing one JSON line:
 4. main paths — the serving engine at BERT-base widths (vocab 30522,
    embed 768, 12 layers, 12 heads, ffn 3072, max_seq 512; random weights
    from seed 0) serves a synthetic multi-tenant trace with system
-   prompts, once over bfloat16 pages and once over int8 pages. The launch
+   prompts, once over bfloat16 pages and once over int8 pages, every
+   bucket captured as a CUDA graph by `warmup` and replayed. The launch
    counts are set to 0 just before each path and read just after: every
-   dispatch must have launched the kernel once per layer. Then one
+   dispatch must have launched the kernel once per layer (a replay
+   counts the launches its capture recorded). Then one
    prefill and three decode buckets run through `forward` with the kernel
    and with the plain version on equal pages: last-row logits within
    1e-3, next tokens equal wherever the top-two margin exceeds that;
@@ -41,7 +43,11 @@ Phases, each printing one JSON line:
    its plain version's, the least time the card could take, its rate on
    the attending pairs (TFLOP/s), its design (bf16 on tensor cores,
    "wgmma bf16"; fp32 "simt"), and `scaled_dot_product_attention`'s
-   forward and backward as a yardstick;
+   forward and backward as a yardstick; then the dropout kernel against
+   its plain version at fluid BERT leg a's shapes (the hidden dropout,
+   bf16 [256, 128, 768], and the attention probabilities, fp32 [256, 12,
+   128, 128], p 0.1): the Mask exactly, Out within one unit in the last
+   place, beside its bytes bound and `torch.native_dropout`;
 6. the training path — `parallel.transformer` at the default `SPMDConfig`
    (vocab 32000, d_model 768, 12 heads, d_ff 3072, seq 512, 12 layers,
    bf16 compute, remat; random weights from seed 0), batch 8: one warm-up
@@ -61,7 +67,9 @@ Phases, each printing one JSON line:
    accuracies equal, the card's last loss below half its first), then 20
    Adam steps the same way; the median step time (host clock, ending in
    a synchronize) beside the card's name and power limit. This path runs
-   none of the kernels: MNIST has no attention;
+   none of the kernels: MNIST has no attention. Phases 7 to 10 run with
+   `FLAGS_cuda_graphs` on, as a user does: each block's first step is
+   eager, its second is captured, the rest replay;
 8. fluid BERT — BERT-base pretraining (vocab 30522, hidden 768, 12
    layers, 12 heads, FFN 3072; random weights from the startup program's
    random_seed 1, bench.py's synthetic masked-LM feed) through
@@ -72,9 +80,11 @@ Phases, each printing one JSON line:
    three flash kernels with the key bias and dropout in them. Each leg
    runs 2 warm-up and 5 timed steps: every loss finite, the first within
    0.5 of ln(30522) + ln(2); tokens/s, the median step ms, peak memory,
-   MFU, the busy share of one profiled step; the flash launch counts,
-   zeroed just before the timed steps, exact (leg a none; leg b 2L
-   forward, L dK/dV and L dQ a step, all on tensor cores). Leg c: the
+   MFU, the busy share of one profiled step; the flash and dropout
+   launch counts, zeroed just before the timed steps, exact (leg a no
+   flash, 1 + 3L dropouts a step; leg b 2L forward, L dK/dV and L dQ a
+   step, all on tensor cores, and 1 + 4L dropouts); the step captured.
+   Leg c: the
    S 4096 program at 2 layers, one step with the kernels and one with
    their plain version from the same params: loss within 1e-2 and every
    gradient within 2e-2 relative in norm;
@@ -117,12 +127,30 @@ Phases, each printing one JSON line:
    4, dropout 0, from one startup state: 3 noam-Adam steps' losses within
    1e-4 relative, then beam 4 over 16 steps: sequences equal (but where
    the CPU's top-k margin fell below 1e-5 at some step) and scores within
-   1e-4; and the `while_loop` and cond-in-while programs equal;
-11. kernels — one line listing every ported kernel with its launches on
+   1e-4; and the `while_loop` and cond-in-while programs equal, each run
+   eagerly by design (their `while` reads its condition on the host) and
+   naming that reason;
+11. graphs — each captured path against the same steps run eagerly
+   (`FLAGS_cuda_graphs` off) from the same start state: MNIST SGD and
+   Adam (8 steps), BERT legs a and b, ResNet50 leg a and Transformer
+   leg a (5 steps each), each eager run made three times. Wherever the
+   eager runs are bit-equal (a fetch or a final persistable), the graph
+   run must equal them bit for bit; elsewhere (atomics in a backward
+   kernel) it must lie within twice the largest difference between two
+   eager runs, and the leg says which case held. Each leg reports
+   graph (replay) and eager median step ms, the busy share and kernels
+   of one profiled replay, the capture ms, the graph pool bytes and the
+   wrapper-counted launches of a replay. The bf16 serving trace runs
+   with captured and with eager buckets: equal token streams, tokens/s
+   of each, one profiled decode replay, capture ms and pool bytes. Each
+   leg prints its own line (`graphs_leg`), the phase a closing one;
+12. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
-   TFLOP/s, and their launches and times on the fluid BERT path);
-12. the last line, ``{"ok": true, "device": {...}}``, printed only when
+   TFLOP/s, and their launches and times on the fluid BERT path; the
+   dropout kernel with its launches on fluid BERT leg a); launches made
+   by graph replays count;
+13. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -159,6 +187,8 @@ RPA_SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 RPA_TPU = "paddle_tpu/ops/pallas/ragged_paged_attention.py"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py"
+DROPOUT_SOURCE = "paddle_tpu_torch/csrc/dropout.cu"
+DROPOUT_REF = "paddle_tpu/ops/nn_ops.py:421"
 #: dtype -> (forward tol, gradient tol), atol = rtol
 FLASH_TOL = {"float32": (2e-5, 3e-4), "bfloat16": (2e-2, 2e-2)}
 FLASH_CASES = [
@@ -176,6 +206,16 @@ FLASH_CASES = [
          causal=False, bias=True, p=0.1, qkv_views=True),
 ]
 FLASH_SEED = 1234
+#: the dropout kernel at fluid BERT leg a's shapes (S 128, batch 256): the
+#: hidden dropout under bf16 AMP and the composite attention's dropout on
+#: its float32 probabilities
+DROPOUT_CASES = [
+    dict(name="bert_hidden_bf16", shape=[256, 128, 768], dtype="bfloat16",
+         p=0.1),
+    dict(name="bert_probs_f32", shape=[256, 12, 128, 128], dtype="float32",
+         p=0.1),
+]
+DROPOUT_SEED = 4321 << 20
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 2e-2
 FLUID_BATCH, FLUID_SGD_STEPS, FLUID_ADAM_STEPS = 64, 30, 20
@@ -221,6 +261,11 @@ TRANSFORMER_WARMUP_STEPS, TRANSFORMER_STEPS = 2, 10
 TRANSFORMER_INIT_SEED = 13   # the startup and main programs' random_seed
 TRANSFORMER_WARMUP = 4000    # noam warmup steps
 TRANSFORMER_LR = 2.0         # noam's scale (Paddle's Transformer recipe)
+#: phase 11: steps a leg runs with capture on (the first eager, the second
+#: captured, the rest replays), then eagerly GRAPH_EAGER_RUNS times: the
+#: eager runs' spread is the yardstick where they are not bit-equal
+GRAPH_STEPS = {"mnist": 8, "large": 5}
+GRAPH_EAGER_RUNS = 3
 
 
 def emit(obj):
@@ -496,6 +541,8 @@ def run_main_path(torch, serving, model, kv_dtype, trace):
     torch.cuda.synchronize()
     launches, quant = rpa.launches, rpa.quant_launches
     st = engine.stats()
+    modes = sorted({v["mode"] for v in
+                    engine._compiler.bucket_info().values()})
     dispatches = st["prefill_dispatches"] + st["decode_dispatches"]
     want_tokens = sum(tr.max_new_tokens for tr in trace)
     res = {
@@ -517,7 +564,8 @@ def run_main_path(torch, serving, model, kv_dtype, trace):
         "launches_expected": model.config.layers * dispatches,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "kv_pool_bytes": st["kv_pool_bytes"],
-        "warmup_buckets": warm["buckets"]}
+        "warmup_buckets": warm["buckets"], "bucket_modes": modes,
+        "capture_ms": sum(c["capture_ms"] or 0 for c in warm["compiled"])}
     emit(res)
     check(summary["finished"] == len(trace)
           and summary["tokens_generated"] == want_tokens,
@@ -526,8 +574,11 @@ def run_main_path(torch, serving, model, kv_dtype, trace):
     check(launches == model.config.layers * dispatches and launches > 0,
           "%s path: %d kernel launches for %d dispatches"
           % (kv_dtype, launches, dispatches))
+    check(modes == ["graph"], "%s path: buckets ran %s, not captured"
+          % (kv_dtype, modes))
     check(quant == (launches if kv_dtype == "int8" else 0),
           "%s path: %d int8 launches of %d" % (kv_dtype, quant, launches))
+    engine.close()
     del engine
     torch.cuda.empty_cache()
     return res
@@ -739,6 +790,58 @@ def phase_flash_cases(torch, timer):
         emit(res)
         check(ok, "flash case %s: the kernels disagree with the plain "
               "version (max abs errors %s)" % (case["name"], errs))
+        results[case["name"]] = res
+    return results
+
+
+def ulps(torch, a, b):
+    """Largest distance in units in the last place between two float
+    tensors of one dtype (same-sign values; zeros are exact)."""
+    itype = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.float16: torch.int16}[a.dtype]
+    return int((a.view(itype).long() - b.view(itype).long()).abs().max())
+
+
+def phase_dropout_cases(torch, timer):
+    """The dropout kernel against its plain version (the same hash in
+    torch integer ops) at fluid BERT leg a's two shapes: the Mask
+    exactly, Out within one unit in the last place; each time beside the
+    bytes bound (x read once, Out and the uint8 Mask written once) and
+    `torch.native_dropout` as the yardstick."""
+    from paddle_tpu_torch.core.rng import seed_tensor
+    from paddle_tpu_torch.ops.kernels import dropout, dropout_reference
+
+    results = {}
+    g = torch.Generator().manual_seed(3)
+    for case in DROPOUT_CASES:
+        dtype = getattr(torch, case["dtype"])
+        x = torch.randn(case["shape"], generator=g).to(DEV, dtype)
+        seed = seed_tensor(DROPOUT_SEED, DEV)
+        out, mask = dropout(x, seed, case["p"])
+        ref_out, ref_mask = dropout_reference(x, seed, case["p"])
+        torch.cuda.synchronize()
+        mask_equal = bool(torch.equal(mask, ref_mask))
+        err_ulps = ulps(torch, out, ref_out)
+        nbytes = x.numel() * (2 * x.element_size() + 1)
+        res = {"phase": "dropout_case", "case": case["name"],
+               "shape": case["shape"], "dtype": case["dtype"],
+               "p": case["p"], "mask_equal": mask_equal,
+               "max_ulps": err_ulps,
+               "max_abs_err": float((out.float() - ref_out.float()).abs()
+                                    .max()),
+               "keep_rate": float(mask.float().mean()),
+               "ms": timer(lambda: dropout(x, seed, case["p"]), 20),
+               "plain_ms": timer(lambda: dropout_reference(
+                   x, seed, case["p"]), 5),
+               "library_ms": timer(lambda: torch.native_dropout(
+                   x, case["p"], True), 20),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        emit(res)
+        check(mask_equal and err_ulps <= 1,
+              "dropout case %s: the kernel disagrees with the plain "
+              "version (mask equal %s, %d ulps)" % (case["name"],
+                                                    mask_equal, err_ulps))
         results[case["name"]] = res
     return results
 
@@ -1012,7 +1115,8 @@ def fluid_bert_leg(torch, fluid, leg):
     the flash launch counts zeroed just before them and read just after,
     then one profiled step for the device's busy share."""
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import dropout, \
+        flash_attention as fa
 
     cfg = bert_cfg(leg["seq"])
     main, startup, total, _ = build_fluid_bert(fluid, cfg, leg["seq"],
@@ -1032,6 +1136,7 @@ def fluid_bert_leg(torch, fluid, leg):
     torch.cuda.reset_peak_memory_stats()
     fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
     fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
+    dropout.launches = 0
     step_ms = []
     for _ in range(BERT_STEPS):
         t0 = time.perf_counter()
@@ -1041,6 +1146,8 @@ def fluid_bert_leg(torch, fluid, leg):
     launches = {"forward": fa.fwd_launches, "dkv": fa.dkv_launches,
                 "dq": fa.dq_launches}
     tc_launches = dict(fa.tc_launches)
+    drop_launches = dropout.launches
+    entry = exe.last_entry.info()
     peak = torch.cuda.max_memory_allocated()
     busy, wall, kernels = device_busy_share(torch, step)
     L = cfg.num_hidden_layers
@@ -1052,6 +1159,10 @@ def fluid_bert_leg(torch, fluid, leg):
     want = {"forward": fwd_per_step * BERT_STEPS,
             "dkv": (L if flash else 0) * BERT_STEPS,
             "dq": (L if flash else 0) * BERT_STEPS}
+    # the embeddings' dropout and two a layer, again in remat's
+    # recompute; the composite attention's dropout on the probabilities
+    drop_per_step = 1 + 2 * L * (2 if leg["remat"] else 1) \
+        + (0 if flash else L)
     median_s = statistics.median(step_ms) / 1e3
     flops = bert_model_flops(cfg, leg["batch"], leg["seq"], n_pred)
     res = {"leg": leg["name"], "seq": leg["seq"], "batch": leg["batch"],
@@ -1067,7 +1178,10 @@ def fluid_bert_leg(torch, fluid, leg):
                "wall_us": wall, "device_busy_us": busy,
                "device_busy_share": busy / wall, "kernels": kernels},
            "launches": launches, "launches_expected": want,
-           "tensor_core_launches": tc_launches}
+           "tensor_core_launches": tc_launches,
+           "dropout_launches": drop_launches,
+           "dropout_launches_expected": drop_per_step * BERT_STEPS,
+           "entry": entry}
     first_want = math.log(cfg.vocab_size) + math.log(2)
     check(all(math.isfinite(x) for x in losses),
           "fluid bert %s: non-finite loss %s" % (leg["name"], losses))
@@ -1077,6 +1191,12 @@ def fluid_bert_leg(torch, fluid, leg):
     check(launches == want and tc_launches == want,
           "fluid bert %s: flash launches %s (tensor cores %s), expected %s"
           % (leg["name"], launches, tc_launches, want))
+    check(drop_launches == drop_per_step * BERT_STEPS,
+          "fluid bert %s: %d dropout launches, expected %d" % (
+              leg["name"], drop_launches, drop_per_step * BERT_STEPS))
+    check(entry["mode"] == "graph" and entry["phase"] == "captured",
+          "fluid bert %s: the step is %s, not captured" % (
+              leg["name"], entry))
     del exe, scope
     torch.cuda.empty_cache()
     return res
@@ -1633,7 +1753,7 @@ def fluid_transformer_leg_c(torch, fluid):
     flow = {}
     for fname, build in (("while_loop", cf_while_loop),
                          ("cond_in_while", cf_cond_in_while)):
-        vals = []
+        vals, entry = [], None
         for place in (None, fluid.CPUPlace()):
             m, s = fluid.Program(), fluid.Program()
             with fluid.program_guard(m, s), fluid.unique_name.guard():
@@ -1643,9 +1763,15 @@ def fluid_transformer_leg_c(torch, fluid):
             exe.run(s, scope=sc)
             vals.append([v.tolist() for v in exe.run(m, fetch_list=fetch,
                                                      scope=sc)])
-        flow[fname] = {"card": vals[0], "cpu": vals[1]}
+            entry = entry or exe.last_entry
+        flow[fname] = {"card": vals[0], "cpu": vals[1], "mode": entry.mode,
+                       "reason": entry.reason}
         check(vals[0] == vals[1], "fluid transformer c: %s card %s vs "
               "CPU %s" % (fname, vals[0], vals[1]))
+        # host control flow runs eagerly by design, and says why
+        check(entry.mode == "eager" and "'while'" in entry.reason,
+              "fluid transformer c: %s is %s (%s), not eager for its "
+              "while" % (fname, entry.mode, entry.reason))
     res = dict(c, d_model=cfg.d_model, losses=card[0], losses_cpu=cpu[0],
                loss_rel_err=loss_err, decode_score_rel_err=score_err,
                cpu_min_topk_margin=margin.tolist(),
@@ -1682,6 +1808,248 @@ def phase_fluid_transformer(torch, name):
     res.update(device=name, nvidia_smi=nvidia_smi_line())
     emit(res)
     return res
+
+
+# -- phase 11 -----------------------------------------------------------------
+
+def graph_flag(fluid, on):
+    fluid.set_flags({"FLAGS_cuda_graphs": bool(on)})
+
+
+def fluid_run(torch, fluid, main, state, feeds, fetch, graphs):
+    """`len(feeds)` runs of `main` from a copy of `state` (name -> tensor
+    on the card), capture on or off, the program's seed counter put back
+    after: fetches (numpy) and host-clock ms a step (ending in a
+    synchronize), the final persistables (tensors), the entry's info, and
+    the executor and scope (for a profiled step after)."""
+    graph_flag(fluid, graphs)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    counter = main._seed_counter
+    fetches, step_ms = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        fetches.append(exe.run(main, feed=feed, fetch_list=fetch,
+                               scope=scope))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    main._seed_counter = counter
+    graph_flag(fluid, True)
+    return {"fetches": fetches, "step_ms": step_ms,
+            "final": {n: scope.find_var(n).clone() for n in state},
+            "info": exe.last_entry.info(), "exe": exe, "scope": scope}
+
+
+def run_tensors(torch, run):
+    """(name, tensor) of a run's every fetch and final persistable."""
+    for i, step in enumerate(run["fetches"]):
+        for j, v in enumerate(step):
+            yield "fetch%d.%d" % (i, j), torch.from_numpy(
+                v.astype("float32") if v.dtype.kind == "V" else v)
+    yield from run["final"].items()
+
+
+def max_abs_diff(a, b):
+    return float((a.double() - b.double()).abs().max()) if a.numel() \
+        else 0.0
+
+
+def graph_vs_eager(torch, graph, eagers):
+    """Per tensor: where the eager runs are bit-equal to each other the
+    graph run must equal them bit for bit; elsewhere (atomics in some
+    backward kernels sum in another order each run) it must be within
+    twice the eager-to-eager difference, the largest between any two
+    eager runs. Returns (case, worst graph-eager difference, tensors held
+    exactly, tensors held within 2x, the first violations)."""
+    g = dict(run_tensors(torch, graph))
+    runs = [dict(run_tensors(torch, e)) for e in eagers]
+    exact = within = 0
+    worst, bad = 0.0, []
+    for n, ta in runs[0].items():
+        others = [r[n] for r in runs[1:]]
+        d_ge = max_abs_diff(g[n], ta)
+        worst = max(worst, d_ge)
+        if all(torch.equal(ta, tb) for tb in others):
+            exact += 1
+            if not torch.equal(g[n], ta):
+                bad.append((n, d_ge, 0.0))
+        else:
+            within += 1
+            d_ee = max(max_abs_diff(x, y) for i, x in enumerate(
+                [ta] + others) for y in others[i:])
+            if d_ge > 2 * d_ee:
+                bad.append((n, d_ge, d_ee))
+    case = "bit-equal" if within == 0 else \
+        "bit-equal where eager is, else within 2x eager-to-eager"
+    return case, worst, exact, within, bad[:5]
+
+
+def graph_leg(torch, fluid, name, main, startup, feeds, fetch):
+    """One leg of phase 11: the startup once, then the same steps from
+    its state with capture on, eagerly, and eagerly again; the check of
+    graph against eager; step ms of replays and of eager steps; the busy
+    share and kernels of one profiled replay; the capture's ms and pool
+    bytes."""
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    state = {n: scope.find_var(n).clone() for n in sorted(
+        v.name for v in main.list_vars() if v.persistable)}
+    del exe, scope
+    graph = fluid_run(torch, fluid, main, state, feeds, fetch, True)
+    counter = main._seed_counter
+    busy, wall, kernels = device_busy_share(
+        torch, lambda: graph["exe"].run(main, feed=feeds[-1],
+                                        fetch_list=fetch,
+                                        scope=graph["scope"]))
+    main._seed_counter = counter  # the eager runs draw the same seeds
+    info = graph["exe"].last_entry.info()
+    graph["exe"].close()
+    del graph["exe"], graph["scope"]
+    eagers = []
+    for _ in range(GRAPH_EAGER_RUNS):
+        eagers.append(fluid_run(torch, fluid, main, state, feeds, fetch,
+                                False))
+        eagers[-1]["exe"].close()
+    eager = eagers[0]
+    case, worst, exact, within, bad = graph_vs_eager(torch, graph, eagers)
+    res = {"leg": name, "steps": len(feeds), "mode": info["mode"],
+           "reason": info["reason"], "eager_mode": eager["info"]["mode"],
+           "graph_step_ms": graph["step_ms"],
+           "eager_step_ms": eager["step_ms"],
+           "graph_median_ms": statistics.median(graph["step_ms"][2:]),
+           "eager_median_ms": statistics.median(eager["step_ms"][1:]),
+           "replay": {"wall_us": wall, "device_busy_us": busy,
+                      "device_busy_share": busy / wall, "kernels": kernels},
+           "capture_ms": info.get("capture_ms"),
+           "pool_bytes": info.get("pool_bytes"),
+           "launches_per_replay": info.get("launches"),
+           "case": case, "max_abs_graph_vs_eager": worst,
+           "tensors_exact": exact, "tensors_within_2x": within,
+           "violations": bad}
+    del graph, eager, eagers, state
+    torch.cuda.empty_cache()
+    emit(dict(res, phase="graphs_leg"))
+    check(info["mode"] == "graph" and info["phase"] == "captured",
+          "graphs %s: the step is %s (%s), not captured" % (
+              name, info["mode"], info["reason"]))
+    check(res["eager_mode"] == "eager",
+          "graphs %s: FLAGS_cuda_graphs off did not run eagerly" % name)
+    check(not bad, "graphs %s: graph vs eager outside the rule: %s"
+          % (name, bad))
+    return res
+
+
+def graph_legs(torch, fluid):
+    """The fluid legs of phase 11: (name, main, startup, feeds, fetch)."""
+    from paddle_tpu_torch.models import bert, transformer
+
+    x, y = fluid_mnist_data()
+    mnist = [{"img": x[i:i + FLUID_BATCH], "label": y[i:i + FLUID_BATCH]}
+             for i in range(0, GRAPH_STEPS["mnist"] * FLUID_BATCH,
+                            FLUID_BATCH)]
+    for kind in ("sgd", "adam"):
+        main, startup, loss, acc = build_fluid_mlp(fluid, kind)
+        yield "mnist_" + kind, main, startup, mnist, [loss, acc]
+    for leg in BERT_FLUID_LEGS:
+        cfg = bert_cfg(leg["seq"])
+        main, startup, total, _ = build_fluid_bert(fluid, cfg, leg["seq"],
+                                                   leg["remat"])
+        feed = bert.bert_feed(cfg, leg["batch"], leg["seq"])
+        yield "bert_" + leg["name"], main, startup, \
+            [feed] * GRAPH_STEPS["large"], [total]
+    c = RESNET_A
+    main, startup, loss = build_fluid_resnet(fluid, c["img"], c["classes"],
+                                             c["lr"], c["amp"])
+    yield "resnet50_a", main, startup, \
+        [resnet_feed(c["batch"], c["img"], c["classes"])] \
+        * GRAPH_STEPS["large"], [loss]
+    cfg = transformer.TransformerConfig.big()
+    main, startup, loss = build_fluid_transformer(
+        fluid, cfg, TRANSFORMER_A["seq"], amp=True)
+    yield "transformer_a", main, startup, [transformer_feed(
+        cfg, TRANSFORMER_A["batch"], TRANSFORMER_A["seq"])] \
+        * GRAPH_STEPS["large"], [loss]
+
+
+def graph_serving(torch, serving):
+    """The bf16 serving trace of phase 4 with every bucket captured and
+    with capture off: equal token streams; tokens/s of each; the busy
+    share and kernels of one profiled decode replay; capture ms and pool
+    bytes summed over the buckets."""
+    from paddle_tpu_torch import fluid
+
+    trace = serving.synthetic_trace(**BF16_TRACE)
+    model = serving.TinyDecoderLM(serving.TinyLMConfig(**BERT_BASE))
+    out = {}
+    for on in (True, False):
+        graph_flag(fluid, on)
+        engine = serving.Engine(model, config=serving.EngineConfig(
+            kv_dtype="bfloat16", **POOL), seed=0, device=DEV)
+        engine.warmup()
+        reqs = [engine.submit(tr.prompt, max_new_tokens=tr.max_new_tokens)
+                for tr in trace]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = engine.stats()
+        info = engine._compiler.bucket_info()
+        out[on] = {"streams": [list(r.output_tokens) for r in reqs],
+                   "tokens_per_sec": st["tokens_generated"] / wall,
+                   "wall_s": wall,
+                   "mean_decode_ms": st["decode_ms_total"]
+                   / max(1, st["decode_dispatches"]),
+                   "modes": sorted({v["mode"] for v in info.values()})}
+        if on:
+            decode = max(b for b in info if b[1] == 1)
+            g = engine._compiler._buckets[decode].graph
+            busy, wall_us, kernels = device_busy_share(torch, g.replay)
+            out[on].update(
+                capture_ms=sum(v["capture_ms"] for v in info.values()),
+                pool_bytes=sum(v["pool_bytes"] for v in info.values()),
+                buckets=len(info), replay_bucket=list(decode),
+                replay={"wall_us": wall_us, "device_busy_us": busy,
+                        "device_busy_share": busy / wall_us,
+                        "kernels": kernels})
+        engine.close()
+        del engine
+    graph_flag(fluid, True)
+    del model
+    torch.cuda.empty_cache()
+    g, e = out[True], out[False]
+    res = {"leg": "serving_bf16", "mode": "graph" if g["modes"] == [
+        "graph"] else g["modes"], "graph_tokens_per_sec": g["tokens_per_sec"],
+        "eager_tokens_per_sec": e["tokens_per_sec"],
+        "graph_mean_decode_ms": g["mean_decode_ms"],
+        "eager_mean_decode_ms": e["mean_decode_ms"],
+        "replay_bucket": g["replay_bucket"], "replay": g["replay"],
+        "capture_ms": g["capture_ms"], "pool_bytes": g["pool_bytes"],
+        "buckets": g["buckets"], "streams_equal": g["streams"] == e[
+            "streams"], "case": "token streams equal"}
+    emit(dict(res, phase="graphs_leg"))
+    check(g["modes"] == ["graph"] and e["modes"] == ["eager"],
+          "graphs serving: bucket modes %s / %s" % (g["modes"], e["modes"]))
+    check(res["streams_equal"], "graphs serving: token streams differ "
+          "between captured and eager buckets")
+    return res
+
+
+def phase_graphs(torch, name):
+    """Phase 11: every captured path against the same steps run eagerly
+    from the same start state."""
+    from paddle_tpu_torch import fluid, serving
+
+    legs = [graph_leg(torch, fluid, *leg) for leg in graph_legs(torch,
+                                                                fluid)]
+    legs.append(graph_serving(torch, serving))
+    res = {"phase": "graphs", "legs": [leg["leg"] for leg in legs],
+           "device": name, "nvidia_smi": nvidia_smi_line()}
+    emit(res)
+    return dict(res, legs=legs)
 
 
 def leaves(tree, prefix=""):
@@ -1736,6 +2104,21 @@ def flash_entry(kname, replaces, launches, case, bert_launches, bert_case):
                                 **flash_times(kname, bert_case)))
 
 
+def dropout_entry(launches, cases):
+    """The dropout kernel's line: its launches on fluid BERT leg a's timed
+    steps and its numbers at the hidden dropout's shape, with the
+    attention probabilities' case beside. It stands in for the
+    reference's dropout op, which XLA lowers (no Pallas kernel)."""
+    main, other = cases["bert_hidden_bf16"], cases["bert_probs_f32"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict({"name": "dropout", "route": "cuda",
+                 "source": DROPOUT_SOURCE, "replaces": DROPOUT_REF,
+                 "launches": launches, "max_abs_err": max(
+                     main["max_abs_err"], other["max_abs_err"])},
+                **{k: main[k] for k in keys}, at_case=main["case"],
+                probs={k: other[k] for k in keys + ("case",)})
+
+
 def main():
     import torch
 
@@ -1758,6 +2141,7 @@ def main():
     timer = Timer(torch)
     cases = phase_kernel_cases(torch, timer)
     flash = phase_flash_cases(torch, timer)
+    drop = phase_dropout_cases(torch, timer)
 
     from paddle_tpu_torch import serving
 
@@ -1774,6 +2158,7 @@ def main():
     fluid_bert = phase_fluid_bert(torch, name)
     phase_fluid_resnet(torch, name)
     phase_fluid_transformer(torch, name)
+    phase_graphs(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)
@@ -1792,7 +2177,8 @@ def main():
                      fluid_bert["legs"][1]["launches"][kname],
                      flash["bert_s4096_bf16"])
          for kname, line in (("forward", "109"), ("dkv", "235"),
-                             ("dq", "298"))]}
+                             ("dq", "298"))]
+        + [dropout_entry(fluid_bert["legs"][0]["dropout_launches"], drop)]}
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                              3)})
     emit(kernels)

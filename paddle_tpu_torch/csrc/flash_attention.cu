@@ -127,14 +127,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
+// The int32 seed lives on the device and is read once a thread
+// (`seed()`), so a captured CUDA graph draws new masks at every replay.
 struct Dropout {
   bool on;
-  uint32_t seed, thresh;
+  const uint32_t* seed_ptr;
+  uint32_t thresh;
   float keep_scale;
+
+  __device__ __forceinline__ uint32_t seed() const {
+    return on ? __ldg(seed_ptr) : 0u;
+  }
 
   // The reference's `_dropout_mask` for one element.
   __device__ __forceinline__ float mask(uint32_t row, uint32_t col,
-                                        uint32_t bh) const {
+                                        uint32_t bh, uint32_t seed) const {
     uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u);
     x = x ^ (bh * 0xC2B2AE3Du) ^ seed;
     x = x ^ (x >> 16);
@@ -237,6 +244,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kDc = DP / 16;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const uint32_t seed = drop.seed();
   const int q0 = blockIdx.y * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   q = at(q, sq, b, h);
@@ -288,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
         const int col = k0 + tx + 16 * j;
         const float p = col < Sk ? expf(s[i][j] - m_next) : 0.f;
         psum += p;
-        s[i][j] = drop.on ? p * drop.mask(row, col, bh) : p;
+        s[i][j] = drop.on ? p * drop.mask(row, col, bh, seed) : p;
       }
       l[i] = alpha * l[i] + row_sum(psum);
       m[i] = m_next;
@@ -353,6 +361,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kDc = DP / 16;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const uint32_t seed = drop.seed();
   const int k0 = blockIdx.y * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   q = at(q, sq, b, h);
@@ -401,7 +410,7 @@ __global__ void __launch_bounds__(kThreads)
           float dpm = dp[i][j];
           z = p;
           if (drop.on) {
-            const float mk = drop.mask(row, col, bh);
+            const float mk = drop.mask(row, col, bh, seed);
             z = p * mk;
             dpm = dpm * mk;
           }
@@ -472,6 +481,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kDc = DP / 16;
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const uint32_t seed = drop.seed();
   const int q0 = blockIdx.y * kTile;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   q = at(q, sq, b, h);
@@ -516,7 +526,7 @@ __global__ void __launch_bounds__(kThreads)
           const float x = score(s[i][j], sm_scale, bias, row, col, causal);
           const float p = expf(x - lse_s[r]);
           float dpm = dp[i][j];
-          if (drop.on) dpm = dpm * drop.mask(row, col, bh);
+          if (drop.on) dpm = dpm * drop.mask(row, col, bh, seed);
           ds = p * (dpm - delta_s[r]) * sm_scale;
         }
         ds_s[(tx + 16 * j) * kLd + r] = ds;
@@ -773,6 +783,7 @@ struct Block {
   uint64_t* empty;
   int bh, b, h, t0, s0, n_tiles;
   int lane, row[2];  // consumers: lane, the thread's two rows
+  uint32_t seed;     // the dropout seed
 
   // `arrivals`: arrivals that complete a stage's full barrier (the
   // producer's expect_tx, and one a lane where the producer warp also
@@ -786,6 +797,7 @@ struct Block {
     full = q_full + 1;
     empty = full + kStages;
     bh = blockIdx.x;
+    seed = p.drop.seed();
     b = bh / p.H;
     h = bh % p.H;
     lane = threadIdx.x % 32;
@@ -978,7 +990,7 @@ __device__ __forceinline__ void online_softmax(
         l[i] += pv;
         if (p.drop.on)
           pv *= p.drop.mask(blk.row[i], k0 + 8 * j + 2 * (lane & 3) + c,
-                            blk.bh);
+                            blk.bh, blk.seed);
         s[4 * j + 2 * i + c] = pv;
       }
 }
@@ -1159,7 +1171,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
             live = col < p.Sk && blk.row[i] < p.Sq;
           }
           float dpm = dp[r];
-          if (p.drop.on) dpm *= p.drop.mask(blk.row[i], col, blk.bh);
+          if (p.drop.on)
+            dpm *= p.drop.mask(blk.row[i], col, blk.bh, blk.seed);
           s[r] = live ? exp2f(x - lse2[i]) * (dpm - dlt[i]) * p.sm_scale
                       : 0.f;
         }
@@ -1284,7 +1297,7 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm<NP>)
           const float pv = exp2f(x - lse2[qc]);
           float z = pv, dpm = dp[r];
           if (p.drop.on) {
-            const float mk = p.drop.mask(qrow, key[i], blk.bh);
+            const float mk = p.drop.mask(qrow, key[i], blk.bh, blk.seed);
             z *= mk;
             dpm *= mk;
           }
@@ -1550,7 +1563,8 @@ cudaError_t launch_dq(const Args& a, const void* q, const void* k,
 // The tensor-core kernels need an even head_dim (the wrapper pads it to a
 // multiple of 8, which TMA's 16-byte strides need anyway).
 cudaError_t make_args(Args* a, int dtype, int causal, int dropout, int B,
-                      int H, int Sq, int Sk, int D, float sm_scale, int seed,
+                      int H, int Sq, int Sk, int D, float sm_scale,
+                      const uint32_t* seed,
                       uint32_t thresh, float keep_scale, void* stream) {
   if (dtype < 0 || dtype > 1 || B < 0 || H <= 0 || Sq < 0 || Sk <= 0 ||
       D <= 0 || D > kMaxD || (dtype == 1 && D % 8 != 0) ||
@@ -1563,15 +1577,17 @@ cudaError_t make_args(Args* a, int dtype, int causal, int dropout, int B,
   a->D = D;
   a->sm_scale = sm_scale;
   a->causal = causal != 0;
-  a->drop = Dropout{dropout != 0, (uint32_t)seed, thresh, keep_scale};
+  if (dropout != 0 && seed == nullptr) return cudaErrorInvalidValue;
+  a->drop = Dropout{dropout != 0, seed, thresh, keep_scale};
   a->stream = static_cast<cudaStream_t>(stream);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. seed is the int32 dropout seed, taken as
-// uint32 as the reference does; thresh and keep_scale are the reference's
+// dtype: 0 float32, 1 bfloat16. seed points at the int32 dropout seed on
+// the device (read by the kernels, taken as uint32 as the reference does;
+// null when dropout is 0); thresh and keep_scale are the reference's
 // min(int(p * 2^32), 2^32 - 1) and float32(1 / (1 - p)). `strides` holds
 // the (batch, head, row) element strides of each [B, H, S, D] operand in
 // the order of the pointer arguments, outputs last. Each function returns
@@ -1579,7 +1595,8 @@ cudaError_t make_args(Args* a, int dtype, int causal, int dropout, int B,
 // tensor-core kernels, float32 the SIMT kernels; there is no fallback from
 // one to the other.
 extern "C" int fa_forward(int dtype, int causal, int dropout, int B, int H,
-                          int Sq, int Sk, int D, float sm_scale, int seed,
+                          int Sq, int Sk, int D, float sm_scale,
+                          const uint32_t* seed,
                           uint32_t thresh, float keep_scale, const void* q,
                           const void* k, const void* v, const void* bias,
                           void* o, void* lse, const long long* strides,
@@ -1598,7 +1615,8 @@ extern "C" int fa_forward(int dtype, int causal, int dropout, int B, int H,
 }
 
 extern "C" int fa_bwd_dkv(int dtype, int causal, int dropout, int B, int H,
-                          int Sq, int Sk, int D, float sm_scale, int seed,
+                          int Sq, int Sk, int D, float sm_scale,
+                          const uint32_t* seed,
                           uint32_t thresh, float keep_scale, const void* q,
                           const void* k, const void* v, const void* bias,
                           const void* dout, const void* lse,
@@ -1620,7 +1638,8 @@ extern "C" int fa_bwd_dkv(int dtype, int causal, int dropout, int B, int H,
 }
 
 extern "C" int fa_bwd_dq(int dtype, int causal, int dropout, int B, int H,
-                         int Sq, int Sk, int D, float sm_scale, int seed,
+                         int Sq, int Sk, int D, float sm_scale,
+                         const uint32_t* seed,
                          uint32_t thresh, float keep_scale, const void* q,
                          const void* k, const void* v, const void* bias,
                          const void* dout, const void* lse, const void* delta,

@@ -1,18 +1,27 @@
-"""Executor: feed -> block function -> fetch (counterpart:
-`paddle_tpu/fluid/executor.py`, its core: no profiler phases,
-observability, warmup, elastic, parameter-server or report surfaces).
+"""Executor: feed -> compiled block -> fetch (counterpart:
+`paddle_tpu/fluid/executor.py`, its core and `warmup`: no profiler
+phases, observability, elastic, parameter-server or report surfaces).
 
-`run` prepares the block once per (program version, feed shapes and
-dtypes, fetch names, scope) and keeps it in an LRU cache (reference
-analogue: the prepared-ctx program cache, `executor.cc:184`). Feeds are
-copied to the executor's device, the block's ops run there eagerly, and
-fetches come back as numpy arrays. Persistable state stays in the Scope
-as tensors on the device between runs.
+`run` compiles the block once per (program version, feed shapes and
+dtypes, fetch names, scope) with `lowering.compile_block` and keeps the
+entry in an LRU cache of `FLAGS_tpu_compile_cache_size` entries (the
+reference's `_compile_and_cache`). On the card an entry's first run is
+eager, its second is captured as a CUDA graph and every later run copies
+the feeds into the entry's static buffers, writes the step's seed into a
+device buffer and replays the graph; the persistable state is donated:
+the scope keeps the graph's static buffers, into which each replay writes
+the new values. A block the capture analysis declines (host control
+flow, an initializer), every block on the CPU and every block with
+`FLAGS_cuda_graphs` off run eagerly, op by op; `last_entry` and
+`compiled_blocks` say which and why. Fetches come back as numpy arrays,
+or as tensors on the device (clones of a graph's outputs, which the next
+replay rewrites). `warmup` captures shape buckets ahead of traffic on
+copies of the state.
 """
 from __future__ import annotations
 
 import collections
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,18 +32,21 @@ from ..core.types import from_numpy, to_numpy, to_numpy_dtype, \
     to_torch_dtype
 from ..utils.flags import get_flag
 
-_Prepared = collections.namedtuple("_Prepared", ["state_in", "fn"])
-
 
 class Executor:
-    def __init__(self, place=None):
+    def __init__(self, place=None, graph_runner=None):
         """`place`: ``None`` or ``CUDAPlace(i)`` runs on the card (and
-        raises when there is none); ``CPUPlace()`` on the CPU."""
+        raises when there is none); ``CPUPlace()`` on the CPU.
+        `graph_runner` stands in for CUDA graph capture and replay on the
+        CPU (tests only, `core/graphs.py`)."""
         self.place = place if place is not None else \
             framework._current_expected_place()
         self.device = self.place.torch_device()
-        # LRU of prepared blocks, bounded by FLAGS_tpu_compile_cache_size
+        self._graph_runner = graph_runner
+        # LRU of compiled blocks, bounded by FLAGS_tpu_compile_cache_size
         self._cache = collections.OrderedDict()
+        #: the entry the last `run` used
+        self.last_entry: Optional[lowering.CompiledBlock] = None
 
     # -- public API --------------------------------------------------------
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
@@ -43,7 +55,8 @@ class Executor:
         """One step: run `program`'s global block with `feed`, update the
         scope's persistables, and return the `fetch_list` values (numpy
         arrays, or detached tensors on the device with
-        ``return_numpy=False``)."""
+        ``return_numpy=False``). `use_program_cache=False` compiles a
+        fresh entry for this run alone (so it runs eagerly)."""
         return self._run_impl(program, feed, fetch_list, scope,
                               return_numpy, use_program_cache)
 
@@ -51,47 +64,130 @@ class Executor:
                   use_program_cache):
         program = program or framework.default_main_program()
         scope = scope or global_scope()
-        fetch_names = [
-            f.name if isinstance(f, framework.Variable) else str(f)
-            for f in (fetch_list or [])]
-        block = program.global_block()
-        feeds = self._prepare_feed(block, feed or {})
+        fetch_names = self._fetch_names(fetch_list)
+        feeds = self._prepare_feed(program.global_block(), feed or {})
 
-        key = self._cache_key(program, feeds, fetch_names, scope)
-        entry = self._cache.get(key) if use_program_cache else None
-        if entry is not None:
-            self._cache.move_to_end(key)
-        else:
-            entry = self._prepare(program, block, feeds, fetch_names)
-            if use_program_cache:
-                self._cache[key] = entry
-                limit = int(get_flag("FLAGS_tpu_compile_cache_size", 128)
-                            or 128)
-                while len(self._cache) > limit:
-                    self._cache.popitem(last=False)
-
+        entry = self._entry(program, feeds, fetch_names, scope,
+                            use_program_cache)
+        self.last_entry = entry
         states = self._gather_states(entry.state_in, scope)
         seed = framework._global_seed_and_bump(program)
-        fetches, new_states = entry.fn(feeds, states, seed % (2**31))
+        fetches, new_states = entry.run(feeds, states, seed % (2**31))
         for n, v in new_states.items():
             scope.set_var(n, v)
         if get_flag("FLAGS_check_nan_inf"):
             self._check_nan_inf(fetch_names, fetches, new_states)
         if return_numpy:
             return [self._fetch_to_numpy(v) for v in fetches]
+        if entry.mode == "graph":
+            # the next replay rewrites the graph's outputs
+            return [v.clone() for v in fetches]
         return fetches
 
+    def compiled_blocks(self) -> list:
+        """`CompiledBlock.info()` of every cached entry, oldest first."""
+        return [entry.info() for entry in self._cache.values()]
+
+    def warmup(self, program=None, shapes=None, meshes=None,
+               fetch_list=None, scope=None, background=False) -> dict:
+        """Compile `program` for each feed-shape bucket in `shapes` (a
+        list of dicts: feed name -> shape tuple, or an example array)
+        before traffic (counterpart: the reference's `warmup`): a graph
+        entry runs its eager step and its capture on COPIES of the
+        scope's state with seed 0, so the first real run of that shape
+        replays; an eager entry runs one discarded step on copies. The
+        scope and the program's seed counter are untouched. Returns
+        {"compiled": [...], "cached": [...], "skipped": [...]}: buckets
+        compiled now, found compiled, and those whose feeds could not be
+        built (with the error). `meshes` and `background` are not ported
+        (ROADMAP Queue 1 #7) and raise."""
+        if meshes is not None:
+            raise NotImplementedError(
+                "warmup(meshes=...) is not ported: the port has no "
+                "multi-card mesh (ROADMAP Queue 1 #7)")
+        if background:
+            raise NotImplementedError(
+                "warmup(background=True) is not ported (ROADMAP Queue 1 "
+                "#7)")
+        program = program or framework.default_main_program()
+        scope = scope or global_scope()
+        fetch_names = self._fetch_names(fetch_list)
+        block = program.global_block()
+        report = {"compiled": [], "cached": [], "skipped": []}
+        for s in shapes or []:
+            desc = {k: list(getattr(v, "shape", v)) for k, v in s.items()}
+            try:
+                feeds = self._warmup_feeds(block, s)
+            except Exception as e:  # noqa: BLE001 - reported per bucket
+                report["skipped"].append(
+                    {"shapes": desc, "error": "%s: %s" % (
+                        type(e).__name__, e)})
+                continue
+            known = self._cache_key(program, feeds, fetch_names,
+                                    scope) in self._cache
+            entry = self._entry(program, feeds, fetch_names, scope, True)
+            item = {"shapes": desc, "mode": entry.mode,
+                    "reason": entry.reason}
+            if entry.phase == "captured" or (known and entry.mode == "eager"):
+                report["cached"].append(item)
+                continue
+            copies = {n: v.clone() for n, v in self._gather_states(
+                entry.state_in, scope).items()}
+            # an eager entry's discarded step, or a graph entry's eager
+            # step and then its capture (with one replay)
+            entry.run(feeds, copies, 0)
+            if entry.phase == "warm":
+                entry.run(feeds, copies, 0)
+            report["compiled"].append(item)
+        return report
+
     def close(self):
+        """Release every entry's graph and static buffers."""
+        for entry in self._cache.values():
+            entry.release()
         self._cache.clear()
+        self.last_entry = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # -- helpers -----------------------------------------------------------
-    def _prepare(self, program, block, feeds, fetch_names):
-        state_in, state_out = lowering.analyze_block(
-            block, list(feeds), fetch_names)
-        fn = lowering.build_block_fn(program, block, list(feeds),
-                                     fetch_names, state_in, state_out,
-                                     self.device)
-        return _Prepared(state_in, fn)
+    @staticmethod
+    def _fetch_names(fetch_list):
+        return [f.name if isinstance(f, framework.Variable) else str(f)
+                for f in (fetch_list or [])]
+
+    def _entry(self, program, feeds, fetch_names, scope, use_cache):
+        """The cached entry for this run, compiled and cached (evicting
+        the least recently used beyond the cache's size) if new."""
+        key = self._cache_key(program, feeds, fetch_names, scope)
+        entry = self._cache.get(key) if use_cache else None
+        if entry is not None:
+            self._cache.move_to_end(key)
+            return entry
+        entry = lowering.compile_block(
+            program, program.global_block(), list(feeds), fetch_names,
+            self.device, graph_runner=self._graph_runner)
+        if use_cache:
+            self._cache[key] = entry
+            limit = int(get_flag("FLAGS_tpu_compile_cache_size", 128)
+                        or 128)
+            while len(self._cache) > limit:
+                self._cache.popitem(last=False)[1].release()
+        return entry
+
+    def _warmup_feeds(self, block, shapes):
+        """Zero feeds of the bucket's shapes, in each var's dtype."""
+        out = {}
+        for name, spec in shapes.items():
+            if hasattr(spec, "shape") and hasattr(spec, "dtype"):
+                out[name] = spec
+                continue
+            v = block._find_var_recursive(name)
+            if v is None:
+                raise KeyError("feed %r is not a var of the program" % name)
+            out[name] = np.zeros(tuple(int(d) for d in spec),
+                                 to_numpy_dtype(v.dtype))
+        return self._prepare_feed(block, out)
 
     def _gather_states(self, names, scope):
         """The scope's tensors for `names`; each must be present and on

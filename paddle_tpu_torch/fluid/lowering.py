@@ -1,12 +1,22 @@
 """Block execution: a Program block -> one Python function that runs its
-ops eagerly, op by op (counterpart: `paddle_tpu/fluid/lowering.py`, its
-core with the control-flow ops and the bf16 AMP cast policy, without the
-data-parallel, sharding, sparse, fp8, gradient-merge and loss-scaling
-branches).
+ops op by op, and the compiled entry the executor keeps for it
+(counterpart: `paddle_tpu/fluid/lowering.py`, its core with the
+control-flow ops and the bf16 AMP cast policy, without the data-parallel,
+sharding, sparse, fp8, gradient-merge and loss-scaling branches).
 
-The reference traces the op list into one jitted XLA computation; the
-port issues each op's torch compute function in order on the executor's
-device. `torch.compile` and CUDA graphs are for a later slice.
+The reference traces the op list into one jitted XLA computation
+(`compile_block`, with the state donated). The port issues each op's
+torch compute function in order on the executor's device, and
+`compile_block` wraps that function in a `CompiledBlock`: on the card its
+first run is eager, its second is captured as a CUDA graph
+(`core/graphs.py`, the state donated), and every later run replays the
+graph. A block runs eagerly by design where the reference would not jit
+it or where the port decides on the host (`capture_blocker`): an op
+flagged `no_jit` or `dynamic_shape`, an initializer (its generator is
+seeded on the host), or `while`, `cond`, `conditional_block` and
+`switch_case`, which read their predicate on the host. The CPU runs
+every block eagerly, and `FLAGS_cuda_graphs` off (the counterpart of
+`jax.disable_jit`) does so on the card.
 
 Autodiff: `append_backward` plants a single `backward` pseudo-op. The
 function runs the forward segment on leaf tensors that require grad,
@@ -27,9 +37,11 @@ per-layer slices of stacked [n, ...] inputs, taken with one `unbind` each
 (so autograd stacks their gradients once), with its iteration var (if
 the body asked for one) bound to the index as an int32 [1] tensor on the
 device; with `remat` each iteration runs under
-`torch.utils.checkpoint`. Random ops get a generator seeded
-from (the run's seed, op index); inside a scan the seed is folded with
-the scan op's index and the iteration first, as the reference folds its
+`torch.utils.checkpoint`. Random ops get their seed from the run's seed
+and the op's index (`core/rng.py`: dropout and attention an int64 tensor
+folded on the device, never read on the host; the initializers a
+generator seeded on the host); inside a scan or loop the seed is folded
+with its op's index and the iteration first, as the reference folds its
 key, so every layer draws its own dropout mask and a recomputed
 iteration draws the same one.
 
@@ -47,16 +59,22 @@ tensors stay valid.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List
+import logging
+from typing import Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
 
 from . import framework
 from .. import ops as ops_lib
+from ..core import graphs
 from ..core.errors import NotFoundError, attach_op_callstack
-from ..core.rng import make_generator, op_seed
+from ..core.rng import StepSeed, make_generator, seed_tensor
 from ..core.types import to_torch_dtype
+from ..ops.registry import meta_rng_attrs
+from ..utils.flags import get_flag
+
+_log = logging.getLogger(__name__)
 
 # Ops that exist only for runtime bookkeeping in the reference
 _SKIP_OPS = frozenset({"feed", "fetch", "nop"})
@@ -154,9 +172,10 @@ def _exec_op(op, env, seed, op_idx, device, amp=None):
         ins = _apply_amp_casts(t, op, ins, amp)
     attrs = dict(op.attrs)
     attrs["_device"] = device
-    if opdef.needs_rng:
-        attrs["_rng_seed"] = op_seed(seed, op_idx)
-        attrs["_rng_generator"] = make_generator(seed, op_idx, device)
+    if opdef.rng == "device":
+        attrs["_rng_seed"] = seed.fold(op_idx).dev
+    elif opdef.rng == "host":
+        attrs["_rng_generator"] = make_generator(seed.host, op_idx, device)
     try:
         outs = ops_lib.normalize_outs(opdef.compute(ins, attrs))
     except Exception as e:  # noqa: BLE001 - attach the op's creation site
@@ -193,7 +212,7 @@ def _exec_scan(op, env, seed, op_idx, device, amp):
             "scan: the body never rebinds a pre-existing var — every "
             "iteration's results would be discarded. Rebind the carry "
             "with layers.assign(new_val, output=carried_var).")
-    base = op_seed(seed, op_idx)
+    base = seed.fold(op_idx)
     xs_slice = list(op.attrs.get("xs_slice", []))
     iter_name = op.attrs.get("iter_var")
     n = int(op.attrs["n"])
@@ -207,7 +226,7 @@ def _exec_scan(op, env, seed, op_idx, device, amp):
         e.update(zip(xs_slice, slices))
         if iter_name:
             e[iter_name] = iters[it]
-        _run_ops(sub.ops, e, op_seed(base, it), device, amp=amp)
+        _run_ops(sub.ops, e, base.fold(it), device, amp=amp)
         return tuple(e[n] for n in carry_names)
 
     stacked = [env[n].unbind(0) for n in op.attrs.get("xs_stacked", [])]
@@ -260,14 +279,14 @@ def _exec_while(op, env, seed, op_idx, device, amp):
         raise RuntimeError(
             "while: the loop body never rebinds condition var %r — the "
             "loop would not terminate" % cond_name)
-    base = op_seed(seed, op_idx)
+    base = seed.fold(op_idx)
     cond_pos = carry_names.index(cond_name)
     carry = [env[n] for n in carry_names]
     it = 0
     while bool(carry[cond_pos].all()):
         e = dict(env)
         e.update(zip(carry_names, carry))
-        _run_ops(sub.ops, e, op_seed(base, it), device, amp=amp)
+        _run_ops(sub.ops, e, base.fold(it), device, amp=amp)
         carry = [e[n] for n in carry_names]
         it += 1
     tracked = [i for i, v in enumerate(carry)
@@ -317,7 +336,7 @@ def _exec_cond(op, env, seed, op_idx, device, amp):
     out_names = _branch_out_names(op, env, [blk_t, blk_f])
     blk = blk_t if _pred(env, op.attrs["cond_name"]) else blk_f
     env.update(zip(out_names, _run_branch(
-        blk, env, op_seed(seed, op_idx), out_names, device, amp)))
+        blk, env, seed.fold(op_idx), out_names, device, amp)))
 
 
 def _meta_outputs(block, env, names):
@@ -331,8 +350,7 @@ def _meta_outputs(block, env, names):
             continue
         ins = {slot: [e[n] for n in names_] for slot, names_
                in op.input_names.items() if names_}
-        attrs = dict(op.attrs, _device=meta, _rng_generator=None,
-                     _rng_seed=0)
+        attrs = dict(op.attrs, _device=meta, **meta_rng_attrs())
         outs = ops_lib.normalize_outs(ops_lib.get_op(op.type).compute(
             ins, attrs))
         for slot, names_ in op.output_names.items():
@@ -351,7 +369,7 @@ def _exec_conditional_block(op, env, seed, op_idx, device, amp):
         if "out_names" in op.attrs else _sub_block_carry(blk, env)
     conds = op.input_names.get("Cond", [])
     if not conds or _pred(env, conds[0]):
-        outs = _run_branch(blk, env, op_seed(seed, op_idx), out_names,
+        outs = _run_branch(blk, env, seed.fold(op_idx), out_names,
                            device, amp)
     else:
         new = [n for n in out_names if n not in env]
@@ -377,7 +395,7 @@ def _exec_switch_case(op, env, seed, op_idx, device, amp):
     keys = list(op.attrs["keys"])
     blk = blocks[keys.index(idx)] if idx in keys else blocks[-1]
     env.update(zip(out_names, _run_branch(
-        blk, env, op_seed(seed, op_idx), out_names, device, amp)))
+        blk, env, seed.fold(op_idx), out_names, device, amp)))
 
 
 _CONTROL_FLOW = {
@@ -441,11 +459,13 @@ def _diffable(block, name, env):
 
 def build_block_fn(program, block, feed_names, fetch_names,
                    state_in, state_out, device):
-    """The function `fn(feeds, states, seed) -> (fetches, new_states)`
-    that runs `block` on `device`: feeds and states map names to
-    tensors on it; fetches are detached tensors in `fetch_names` order,
-    new_states maps each name of `state_out` the block computed to its
-    new tensor."""
+    """The function `fn(feeds, states, seed, keep=None) -> (fetches,
+    new_states)` that runs `block` on `device`: feeds and states map
+    names to tensors on it; `seed` is the run's `core.rng.StepSeed`;
+    fetches are detached tensors in `fetch_names` order, new_states maps
+    each name of `state_out` the block computed to its new tensor. A
+    `keep` list gets every tensor the run bound to a name (what a
+    captured graph must keep alive)."""
     ops = list(block.ops)
     bwd_indices = [i for i, op in enumerate(ops) if op.type == "backward"]
     if len(bwd_indices) > 1:
@@ -481,7 +501,7 @@ def build_block_fn(program, block, feed_names, fetch_names,
         _run_ops(ops[bwd_idx + 1:], env, seed, device, base_idx=bwd_idx + 1,
                  amp=amp)
 
-    def fn(feeds: Dict, states: Dict, seed):
+    def fn(feeds: Dict, states: Dict, seed: StepSeed, keep=None):
         env = {}
         env.update(states)
         env.update(feeds)
@@ -496,6 +516,129 @@ def build_block_fn(program, block, feed_names, fetch_names,
                 raise RuntimeError("fetch var %r was never computed" % n)
             fetches.append(env[n].detach())
         new_states = {n: env[n].detach() for n in state_out if n in env}
+        if keep is not None:
+            keep.extend(v for v in env.values()
+                        if isinstance(v, torch.Tensor))
         return fetches, new_states
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# Compiled entries: the capture analysis, then warm -> capture -> replay.
+# ---------------------------------------------------------------------------
+
+#: control-flow ops that read their predicate or index on the host
+_HOST_DECIDING = frozenset({"while", "cond", "conditional_block",
+                            "switch_case"})
+
+
+def capture_blocker(program, block) -> Optional[str]:
+    """Why `block` cannot be captured as a CUDA graph, or None (the
+    counterpart of the reference's `_block_host_op_kinds`, decided from
+    the program before any step). Looks through every sub-block. The
+    reasons, each naming the first op that gives it: control flow that
+    decides on the host, an op flagged `no_jit` or `dynamic_shape`, an
+    initializer whose generator is seeded on the host."""
+    reasons = {}
+
+    def scan(blk):
+        for op in blk.ops:
+            t = op.type
+            where = "op %r (block %d)" % (t, blk.idx)
+            if t in _HOST_DECIDING:
+                reasons.setdefault(
+                    "host control flow", "%s reads its predicate on the "
+                    "host" % where)
+            elif ops_lib.has_op(t):
+                od = ops_lib.get_op(t)
+                if od.no_jit:
+                    reasons.setdefault("no_jit", "%s runs on the host "
+                                       "(no_jit)" % where)
+                if od.dynamic_shape:
+                    reasons.setdefault(
+                        "dynamic_shape", "%s has a value-dependent output "
+                        "shape (dynamic_shape)" % where)
+                if od.rng == "host":
+                    reasons.setdefault(
+                        "host rng", "%s draws from a generator seeded on "
+                        "the host (an initializer)" % where)
+            for bi in _sub_block_idxs(op):
+                scan(block.program.block(bi))
+
+    scan(block)
+    return "; ".join(reasons.values()) or None
+
+
+class CompiledBlock:
+    """The executor's cache entry for one (program, block, feed shapes,
+    fetches): the block's state analysis and function, run in `mode`
+    "graph" (first run eager, second captured as a CUDA graph with the
+    state donated, then replays) or "eager" (every run op by op), with
+    `reason` saying why a block runs eagerly. See `compile_block`."""
+
+    def __init__(self, program, block, feed_names, fetch_names, device,
+                 graph_runner=None):
+        self.device = torch.device(device)
+        self.state_in, self.state_out = analyze_block(
+            block, list(feed_names), list(fetch_names))
+        self.fn = build_block_fn(program, block, list(feed_names),
+                                 list(fetch_names), self.state_in,
+                                 self.state_out, self.device)
+        reason = None
+        if graph_runner is None:
+            if self.device.type != "cuda":
+                reason = "the CPU runs blocks eagerly (no CUDA graphs)"
+            elif not get_flag("FLAGS_cuda_graphs", True):
+                reason = "FLAGS_cuda_graphs is off"
+        self.reason = reason or capture_blocker(program, block)
+        self.mode = "eager" if self.reason else "graph"
+        self._step = None if self.reason else graphs.DonatedStep(
+            self.fn, self.device, runner=graph_runner)
+
+    @property
+    def phase(self) -> str:
+        """"eager", or a graph entry's "cold", "warm" or "captured"."""
+        return "eager" if self._step is None else self._step.phase
+
+    def run(self, feeds, states, seed: int):
+        """One step over `feeds` and the scope's current `states` (name
+        -> tensor); `seed` the run's seed. Returns (fetches, new_states),
+        the latter the tensors the scope should hold."""
+        if self._step is None:
+            return self.fn(feeds, states,
+                           StepSeed(seed, seed_tensor(seed, self.device)))
+        return self._step.step(feeds, states, seed)
+
+    def info(self) -> dict:
+        """Mode, reason, phase and, once captured, the graph's capture
+        ms, pool bytes, replays and wrapper-counted launches a replay."""
+        out = {"mode": self.mode, "reason": self.reason,
+               "phase": self.phase}
+        if self._step is not None and self._step.graph.captured:
+            g = self._step.graph
+            out.update(capture_ms=g.capture_ms, pool_bytes=g.pool_bytes,
+                       replays=g.replays, launches=dict(g.launches))
+        return out
+
+    def release(self):
+        """Drop the captured graph and its static buffers."""
+        if self._step is not None:
+            self._step.release()
+
+
+def compile_block(program, block, feed_names, fetch_names, device,
+                  graph_runner=None) -> CompiledBlock:
+    """The compiled entry of `block` for these feeds and fetches on
+    `device` (counterpart: the reference's `compile_block`, which jits
+    the block with its state donated). Whether it will be captured is
+    decided here, from the program; a block that will run eagerly is
+    logged with its reason before its first step. `graph_runner` stands
+    in for CUDA graph capture and replay on the CPU (tests only; see
+    `core/graphs.py`)."""
+    entry = CompiledBlock(program, block, feed_names, fetch_names, device,
+                          graph_runner=graph_runner)
+    if entry.mode == "eager" and entry.device.type == "cuda":
+        _log.info("block %d of program %d runs eagerly: %s", block.idx,
+                  program._uid, entry.reason)
+    return entry

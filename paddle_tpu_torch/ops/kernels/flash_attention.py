@@ -20,7 +20,10 @@ flattened [BH, S, D] inputs:
   probabilities, and dropout scales only the numerator;
 - the dropout keep mask is the reference's murmur3-finalizer hash of the
   global (row, col, bh, seed) coordinates, bh = b·H + h, bit for bit, so
-  results do not depend on tiling;
+  results do not depend on tiling; the int32 seed is a tensor on the
+  device that the kernels read through a pointer (an int seed is put
+  there by a fill), so a captured CUDA graph draws new masks at every
+  replay from the seed written before it;
 - ``o``, ``dq``, ``dk``, ``dv`` in the input dtype, computed in float32.
   On the card, the bfloat16 kernels run on tensor cores and round P and
   dS to bfloat16 before their second product, so their results are close
@@ -90,16 +93,25 @@ def _keep_threshold(p_drop):
     return min(int(p_drop * 4294967296.0), _MASK32)
 
 
+def _seed_word(seed):
+    """The seed's uint32 bits: an int, or a one-element int32 tensor (as
+    int64, broadcasting)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _MASK32
+    return int(seed) & _MASK32
+
+
 def dropout_keep_mask(seed, BH, Sq, Sk, p_drop, device=None):
     """The reference's `_dropout_mask` over the whole [BH, Sq, Sk] lattice:
     ``1/(1-p)`` (float32) where kept, 0 where dropped. The uint32 hash runs
     in int64 with ``& 0xFFFFFFFF`` after every multiply, so it is bit-equal
-    to the kernel's and the reference's uint32 arithmetic."""
+    to the kernel's and the reference's uint32 arithmetic. `seed`: an int
+    or a one-element int32 tensor."""
     rows = torch.arange(Sq, dtype=torch.int64, device=device)[None, :, None]
     cols = torch.arange(Sk, dtype=torch.int64, device=device)[None, None, :]
     bh = torch.arange(BH, dtype=torch.int64, device=device)[:, None, None]
     x = ((rows * 0x9E3779B1) & _MASK32) ^ ((cols * 0x85EBCA77) & _MASK32)
-    x = x ^ ((bh * 0xC2B2AE3D) & _MASK32) ^ (int(seed) & _MASK32)
+    x = x ^ ((bh * 0xC2B2AE3D) & _MASK32) ^ _seed_word(seed)
     x = x ^ (x >> 16)
     x = (x * 0x85EBCA6B) & _MASK32
     x = x ^ (x >> 13)
@@ -221,9 +233,10 @@ def _kernel_lib():
     if lib.fa_forward.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         u32 = ctypes.c_uint32
-        # dtype, causal, dropout, B, H, Sq, Sk, D, sm_scale, seed, thresh,
-        # keep_scale; then the tensors, the strides and the stream
-        common = [i32] * 8 + [f32, i32, u32, f32]
+        # dtype, causal, dropout, B, H, Sq, Sk, D, sm_scale, the seed's
+        # device pointer, thresh, keep_scale; then the tensors, the
+        # strides and the stream
+        common = [i32] * 8 + [f32, ptr, u32, f32]
         lib.fa_forward.argtypes = common + [ptr] * 6 + [ptr, ptr]
         lib.fa_bwd_dkv.argtypes = common + [ptr] * 9 + [ptr, ptr]
         lib.fa_bwd_dq.argtypes = common + [ptr] * 8 + [ptr, ptr]
@@ -307,9 +320,26 @@ def _kernel_args(q, k, v, bias, seed, extra=(), *, tensor_cores, sm_scale,
     ops = _kernel_inputs((q, k, v) + tuple(extra), tensor_cores)
     thresh = _keep_threshold(dropout_p) if dropout_p > 0.0 else 0
     keep = 1.0 / (1.0 - dropout_p) if dropout_p > 0.0 else 1.0
+    seed_t = None
+    if dropout_p > 0.0:
+        seed_t = _device_seed(seed, dev)
+        if seed_t.device != dev or seed_t.dtype != torch.int32 \
+                or seed_t.numel() != 1:
+            raise ValueError("the kernels take the dropout seed as one "
+                             "int32 on %s" % (dev,))
     return [kind, int(causal), int(dropout_p > 0.0), B, H, Sq, Sk,
-            ops[0].shape[-1], float(sm_scale),
-            int(seed) if dropout_p > 0.0 else 0, thresh, keep], ops
+            ops[0].shape[-1], float(sm_scale), _ptr(seed_t), thresh,
+            keep], ops + [seed_t]
+
+
+def _device_seed(seed, device):
+    """The int32 dropout seed as a [1] tensor on `device`: a tensor as it
+    is, an int (taken as int32, as the reference casts it) put there by
+    a fill (no host copy)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(1)
+    return torch.full((1,), (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31,
+                      dtype=torch.int32, device=device)
 
 
 def _ptr(t):
@@ -359,7 +389,7 @@ def flash_attention_fwd(q, k, v, bias=None, seed=0, *, sm_scale,
     if _use_reference(q, impl):
         return flash_attention_fwd_reference(q, k, v, bias, seed, **kw)
     tensor_cores = q.dtype == torch.bfloat16
-    head, (qk, kk, vk) = _kernel_args(
+    head, (qk, kk, vk, _) = _kernel_args(
         q, k, v, bias, seed, tensor_cores=tensor_cores, **kw)
     o = _empty_bshd(qk, qk.shape[2])
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
@@ -382,7 +412,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta, *,
                                                  lse, delta, **kw)
     _check_grad_inputs(q, do, lse, delta)
     tensor_cores = q.dtype == torch.bfloat16
-    head, (qk, kk, vk, dok) = _kernel_args(
+    head, (qk, kk, vk, dok, _) = _kernel_args(
         q, k, v, bias, seed, (do,), tensor_cores=tensor_cores, **kw)
     dk, dv = _empty_bshd(kk, kk.shape[2]), _empty_bshd(vk, vk.shape[2])
     rc = _kernel_lib().fa_bwd_dkv(
@@ -404,7 +434,7 @@ def flash_attention_bwd_dq(q, k, v, bias, seed, do, lse, delta, *, sm_scale,
                                                 delta, **kw)
     _check_grad_inputs(q, do, lse, delta)
     tensor_cores = q.dtype == torch.bfloat16
-    head, (qk, kk, vk, dok) = _kernel_args(
+    head, (qk, kk, vk, dok, _) = _kernel_args(
         q, k, v, bias, seed, (do,), tensor_cores=tensor_cores, **kw)
     dq = _empty_bshd(qk, qk.shape[2])
     rc = _kernel_lib().fa_bwd_dq(
@@ -518,7 +548,10 @@ def flash_attention(q, k, v, key_bias=None, causal=False, sm_scale=None,
     additive bias on keys (non-differentiable). Returns [B, H, Sq, D] in
     q's dtype. dropout_p > 0 drops attention probabilities inside the
     kernels with the reference's hash of (dropout_seed, coordinates);
-    dropout_seed (an int32 value) is then required.
+    dropout_seed is then required: an int (taken as int32, as the
+    reference casts it) or a one-element int32 tensor on q's device,
+    which the kernels read where they run (so a captured graph reads the
+    value written before each replay).
 
     block_q/block_k set the padding of S, as in the reference (blocks of
     ``min(block, roundup8(S))``); the kernels tile on their own.
@@ -541,9 +574,7 @@ def flash_attention(q, k, v, key_bias=None, causal=False, sm_scale=None,
     if dropout_p > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_p > 0 requires dropout_seed")
-        seed = int(dropout_seed)
-        # the reference casts the seed to int32, then to uint32 in-kernel
-        seed = (seed + 2 ** 31) % 2 ** 32 - 2 ** 31
+        seed = _device_seed(dropout_seed, q.device)
     _use_reference(q, impl)  # validate impl and device before any work
     qf, kf, vf, bias = pad_and_flatten(q, k, v, key_bias, block_q, block_k)
     o, _ = _FlashCore.apply(qf, kf, vf, bias, seed, float(sm_scale),

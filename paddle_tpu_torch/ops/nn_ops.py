@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register_op
+from ..core.rng import flash_seed
 from ..utils.flags import get_flag
 
 
@@ -271,13 +272,13 @@ def _layer_norm(ins, attrs):
             "Variance": var.reshape(red_shape)}
 
 
-def _keep(shape, p, device, generator):
-    """Bernoulli(1 - p) keep mask of `shape`, drawn from `generator`."""
-    return torch.rand(shape, generator=generator, device=device) >= p
-
-
-@register_op("dropout", needs_rng=True)
+@register_op("dropout", rng="device")
 def _dropout(ins, attrs):
+    """Training: `kernels.dropout` under the op's device seed (the CUDA
+    kernel on the card, its plain version elsewhere), Out and the uint8
+    Mask. `is_test`: no mask drawn."""
+    from .kernels.dropout import dropout
+
     x = ins["X"][0]
     p = attrs.get("dropout_prob", 0.5)
     upscale = attrs.get("dropout_implementation",
@@ -286,11 +287,8 @@ def _dropout(ins, attrs):
         return {"Out": x if upscale else x * (1.0 - p),
                 "Mask": torch.ones(x.shape, dtype=torch.uint8,
                                    device=x.device)}
-    keep = _keep(x.shape, p, x.device, attrs["_rng_generator"])
-    kept = x / (1.0 - p) if upscale else x
-    return {"Out": torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
-                                                       device=x.device)),
-            "Mask": keep.to(torch.uint8)}
+    out, mask = dropout(x, attrs["_rng_seed"], p, upscale=upscale)
+    return {"Out": out, "Mask": mask}
 
 
 def _lookup(w, ids, padding_idx):
@@ -322,23 +320,25 @@ def _embedding(ins, attrs):
     return _lookup_table_v2(ins, attrs)
 
 
-@register_op("scaled_dot_product_attention", needs_rng=True)
+@register_op("scaled_dot_product_attention", rng="device")
 def _sdpa(ins, attrs):
     """Attention over Q, K, V [B, H, S, D] with an optional additive key
     bias KeyBias [B, Sk] or a full Mask (bool: True attends; float:
     added), in the reference's order:
 
     - on the card, with no Mask and Sk >= FLAGS_flash_attention_min_seq:
-      the flash kernels, with dropout inside them (their hash of a seed
-      taken on the host from the op's seed, so no device sync);
+      the flash kernels, with dropout inside them (their hash of an int32
+      seed derived on the device from the op's seed, `rng.flash_seed`,
+      which the kernels read through a pointer);
       ``attrs["flash_impl"] = "reference"`` runs their plain version
       with the same hash instead;
     - with dropout off: `reference_attention` (float32);
     - otherwise the unfused path: float32 scores and softmax, dropout
-      on the probabilities, and the probabilities in V's dtype for the
-      second product.
+      on the probabilities (`kernels.dropout` under the op's seed), and
+      the probabilities in V's dtype for the second product.
 
     The reference takes the kernel on the TPU only; the port on CUDA."""
+    from .kernels.dropout import dropout
     from .kernels.flash_attention import flash_attention, \
         reference_attention
 
@@ -355,8 +355,7 @@ def _sdpa(ins, attrs):
     if mask is None:
         if q.device.type == "cuda" and k.shape[-2] >= int(
                 get_flag("FLAGS_flash_attention_min_seq")):
-            seed = (attrs["_rng_seed"] >> 32) & 0x7FFFFFFF \
-                if drop_active else None
+            seed = flash_seed(attrs["_rng_seed"]) if drop_active else None
             return {"Out": flash_attention(
                 q, k, v, key_bias=bias, causal=causal, sm_scale=sm_scale,
                 dropout_p=p_drop if drop_active else 0.0,
@@ -385,8 +384,5 @@ def _sdpa(ins, attrs):
                                                     device=s.device))
     probs = torch.softmax(s, dim=-1)
     if drop_active:
-        keep = _keep(probs.shape, p_drop, probs.device,
-                     attrs["_rng_generator"])
-        probs = torch.where(keep, probs / (1.0 - p_drop),
-                            torch.zeros((), device=probs.device))
+        probs, _ = dropout(probs, attrs["_rng_seed"], p_drop)
     return {"Out": torch.matmul(probs.to(q.dtype), v).to(q.dtype)}

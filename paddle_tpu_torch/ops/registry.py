@@ -3,12 +3,19 @@
 
 Every op is ONE torch function `compute(ins, attrs) -> outs`. `ins` maps
 an input slot to a list of tensors; the returned dict maps an output slot
-to a tensor or a list of them. Two attrs are supplied by the caller, not
-by the program: `attrs["_device"]`, the device an op that has no input
-tensor creates its output on, and, for an op registered `needs_rng`,
-`attrs["_rng_generator"]`, a `torch.Generator` on that device, and
-`attrs["_rng_seed"]`, the int it was seeded with (for a kernel that
-takes its seed from the host).
+to a tensor or a list of them. Attrs supplied by the caller, not by the
+program: `attrs["_device"]`, the device an op that has no input tensor
+creates its output on; for an op registered ``rng="device"`` (dropout,
+attention), `attrs["_rng_seed"]`, its op seed as an int64 tensor on that
+device (`core/rng.py`: the step's seed folded with the op index there,
+never read on the host); for one registered ``rng="host"`` (the
+initializers), `attrs["_rng_generator"]`, a `torch.Generator` seeded on
+the host.
+
+Two flags mirror the reference's: `no_jit` (a host-side op) and
+`dynamic_shape` (the output's shape depends on input values). A block
+holding either, or a ``rng="host"`` op, is never captured as a CUDA graph
+(`fluid/lowering.py capture_blocker`). No ported op sets either flag yet.
 
 Shape/dtype inference runs the same compute function on `meta` tensors
 (in place of `jax.eval_shape`), so no per-op InferShape code exists to
@@ -22,6 +29,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.rng import seed_tensor
 from ..core.types import normalize_dtype, to_torch_dtype
 
 _REGISTRY: Dict[str, "OpDef"] = {}
@@ -33,25 +41,41 @@ _DYN_SENTINEL = 97
 _META = torch.device("meta")
 
 
-class OpDef:
-    __slots__ = ("type", "compute", "needs_rng", "infer_shape")
+_RNG_KINDS = (None, "device", "host")
 
-    def __init__(self, type_: str, compute: Callable, needs_rng: bool = False,
-                 infer_shape: Optional[Callable] = None):
+
+class OpDef:
+    __slots__ = ("type", "compute", "rng", "infer_shape", "no_jit",
+                 "dynamic_shape")
+
+    def __init__(self, type_: str, compute: Callable,
+                 rng: Optional[str] = None,
+                 infer_shape: Optional[Callable] = None,
+                 no_jit: bool = False, dynamic_shape: bool = False):
+        if rng not in _RNG_KINDS:
+            raise ValueError("rng must be one of %s, got %r"
+                             % (_RNG_KINDS, rng))
         self.type = type_
         self.compute = compute
-        self.needs_rng = needs_rng
+        self.rng = rng
         self.infer_shape = infer_shape
+        # a host-side op (the reference lowers it via pure_callback)
+        self.no_jit = no_jit
+        # the output SHAPE depends on input VALUES
+        self.dynamic_shape = dynamic_shape
 
 
-def register_op(type_: str, needs_rng: bool = False,
-                infer_shape: Optional[Callable] = None):
+def register_op(type_: str, rng: Optional[str] = None,
+                infer_shape: Optional[Callable] = None,
+                no_jit: bool = False, dynamic_shape: bool = False):
     """Decorator: register `compute(ins, attrs) -> {slot: [tensor, ...]}`
-    (see the module docstring for `ins` and the supplied attrs)."""
+    (see the module docstring for `ins`, the supplied attrs and the
+    flags)."""
 
     def deco(fn):
-        _REGISTRY[type_] = OpDef(type_, fn, needs_rng=needs_rng,
-                                 infer_shape=infer_shape)
+        _REGISTRY[type_] = OpDef(type_, fn, rng=rng,
+                                 infer_shape=infer_shape, no_jit=no_jit,
+                                 dynamic_shape=dynamic_shape)
         return fn
 
     return deco
@@ -74,6 +98,12 @@ def registered_ops() -> List[str]:
     return sorted(_REGISTRY)
 
 
+def meta_rng_attrs() -> dict:
+    """The random attrs of a run on meta tensors (which draw nothing)."""
+    return {"_rng_generator": None,
+            "_rng_seed": torch.zeros((), dtype=torch.int64, device=_META)}
+
+
 def normalize_outs(outs) -> Dict[str, list]:
     return {slot: list(v) if isinstance(v, (list, tuple)) else [v]
             for slot, v in outs.items()}
@@ -81,8 +111,8 @@ def normalize_outs(outs) -> Dict[str, list]:
 
 def run_op(type_: str, ins: Dict[str, list], attrs: dict) -> Dict[str, list]:
     """Execute an op's compute function. Without `_device`, the op runs
-    on its first input's device; a random op without a generator gets a
-    fresh one."""
+    on its first input's device; a random op without its seed or
+    generator gets a fresh one."""
     op = get_op(type_)
     attrs = dict(attrs)
     if "_device" not in attrs:
@@ -91,10 +121,12 @@ def run_op(type_: str, ins: Dict[str, list], attrs: dict) -> Dict[str, list]:
             raise ValueError("op %r has no input tensor: pass "
                              "attrs['_device']" % type_)
         attrs["_device"] = first.device
-    if op.needs_rng and "_rng_generator" not in attrs:
-        attrs["_rng_seed"] = int(np.random.randint(0, 2**31 - 1)) << 32
+    if op.rng == "device" and "_rng_seed" not in attrs:
+        attrs["_rng_seed"] = seed_tensor(
+            int(np.random.randint(0, 2**31 - 1)) << 32, attrs["_device"])
+    if op.rng == "host" and "_rng_generator" not in attrs:
         g = torch.Generator(device=attrs["_device"])
-        g.manual_seed(attrs["_rng_seed"])
+        g.manual_seed(int(np.random.randint(0, 2**31 - 1)))
         attrs["_rng_generator"] = g
     return normalize_outs(op.compute(ins, attrs))
 
@@ -130,9 +162,7 @@ def infer_outputs(type_: str, input_specs: Dict[str, list], attrs: dict):
     meta_ins = {slot: [to_meta(s) for s in specs]
                 for slot, specs in input_specs.items()}
     run_attrs = dict(attrs, _device=_META)
-    if op.needs_rng:
-        # meta tensors draw nothing
-        run_attrs.update(_rng_generator=None, _rng_seed=0)
+    run_attrs.update(meta_rng_attrs())
     outs = normalize_outs(op.compute(meta_ins, run_attrs))
     return {
         slot: [(tuple(-1 if (dynamic and d == _DYN_SENTINEL) else int(d)

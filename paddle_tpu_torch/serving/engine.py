@@ -140,10 +140,14 @@ class Engine:
     `params`: None fills the model from `seed` (`init_params`); a
     JAX-layout params dict of numpy arrays is loaded with
     `convert.load_jax_params`. `device`: None means ``cuda:0`` and raises
-    without a CUDA device; pass ``"cpu"`` to run on the CPU."""
+    without a CUDA device; pass ``"cpu"`` to run on the CPU. On the card
+    each bucket is captured as a CUDA graph (`serving/aot.py`) unless
+    `FLAGS_cuda_graphs` is off; `graph_runner` stands in for capture and
+    replay on the CPU (tests only)."""
 
     def __init__(self, model, params=None, config: Optional[
-            EngineConfig] = None, seed: int = 0, device=None):
+            EngineConfig] = None, seed: int = 0, device=None,
+            graph_runner=None):
         self.config = config or EngineConfig.from_flags()
         if self.config.quantize_weights:
             raise NotImplementedError(
@@ -191,7 +195,8 @@ class Engine:
         self._closed = False
         self._draining = False
         self._compiler = BucketCompiler(model, self.kv.config.pages_per_seq,
-                                        self.device)
+                                        self.device,
+                                        graph_runner=graph_runner)
 
     # -- public verbs ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
@@ -228,9 +233,10 @@ class Engine:
         request.cancel()
 
     def warmup(self) -> dict:
-        """Run every scheduler bucket once before first traffic (all
-        rows inactive: the pages are not written). Returns the
-        BucketCompiler report plus the bucket list."""
+        """Compile every scheduler bucket before first traffic: one eager
+        run with all rows inactive (only the scratch page is written),
+        then the capture. Returns the BucketCompiler report plus the
+        bucket list."""
         with self._lock:
             report = self._compiler.warmup(self.plan.all_buckets(),
                                            self.pages)
@@ -342,14 +348,16 @@ class Engine:
                     list(self.scheduler.running.values()):
                 req.cancel()
             self.scheduler.retire()
+            self._compiler.release()
             self._closed = True
 
     # -- dispatch ----------------------------------------------------------
     def _dispatch(self, bucket: Tuple[int, int], group, tokens, ctx,
                   qlens) -> np.ndarray:
-        """Pack one bucket into one host buffer, copy it to the device
-        in one transfer, run the step, and harvest the selected tokens
-        (the one host sync of a dispatch)."""
+        """Pack one bucket into one host buffer, copy it into the
+        bucket's device buffer in one transfer, run (or replay) the step,
+        and harvest the selected tokens (the one host sync of a
+        dispatch)."""
         B, T = bucket
         npages = self.kv.config.pages_per_seq
         tables = np.zeros((B, npages), np.int32)
@@ -358,12 +366,7 @@ class Engine:
             tables[b, :len(row)] = row
         packed = torch.from_numpy(np.concatenate([
             tokens.astype(np.int32).reshape(-1), tables.reshape(-1),
-            ctx.astype(np.int32), qlens.astype(np.int32)])).to(self.device)
-        n_tok, n_tab = B * T, B * npages
-        tok_t = packed[:n_tok].view(B, T)
-        tab_t = packed[n_tok:n_tok + n_tab].view(B, npages)
-        ctx_t = packed[n_tok + n_tab:n_tok + n_tab + B]
-        ql_t = packed[n_tok + n_tab + B:]
+            ctx.astype(np.int32), qlens.astype(np.int32)]))
         sampling = None
         if any(req.temperature > 0 for req in group):
             temps = np.zeros((B,), np.float32)
@@ -383,8 +386,7 @@ class Engine:
             sampling = tuple(torch.from_numpy(a).to(self.device)
                              for a in (temps, top_ks, top_ps, seeds, steps))
         next_tok, _logits, self.pages = self._compiler(
-            bucket, self.pages, tok_t, tab_t, ctx_t, ql_t,
-            sampling=sampling)
+            bucket, self.pages, packed, sampling=sampling)
         return next_tok.cpu().numpy()
 
     def _run_prefill(self) -> dict:

@@ -113,8 +113,17 @@ class KVCacheConfig:
 
     @property
     def pool_bytes(self) -> int:
-        """Total device bytes of the pool (`init_device_state`)."""
+        """Device bytes of the pool's `num_pages` pages (the scratch page
+        beside them is not counted)."""
         return self.num_pages * self.page_bytes
+
+    @property
+    def scratch_page(self) -> int:
+        """The index of the scratch page: one page past the pool, in the
+        page tensors but never handed out and named by no block table.
+        The serving step writes its inactive rows there, so it writes a
+        fixed number of rows (see `serving/model.py`)."""
+        return self.num_pages
 
     @property
     def resident_batch(self) -> int:
@@ -569,18 +578,21 @@ class PagedKVCache:
 
     # -- device state ------------------------------------------------------
     def init_device_state(self, device):
-        """Fresh zeroed page tensors on `device`. Float dtypes: a list of
-        (k_pages, v_pages) per layer, each [num_pages, page_size,
-        kv_heads, head_dim]. int8: 4-tuples (k_pages, v_pages, k_scale,
-        v_scale) with int8 value tensors and [num_pages, page_size] fp32
-        per-slot scales (identity 1.0 until a row is written). The serving
-        step updates these tensors in place."""
+        """Fresh zeroed page tensors on `device`, holding the pool's
+        pages and, last, the scratch page (`KVCacheConfig.scratch_page`).
+        Float dtypes: a list of (k_pages, v_pages) per layer, each
+        [num_pages + 1, page_size, kv_heads, head_dim]. int8: 4-tuples
+        (k_pages, v_pages, k_scale, v_scale) with int8 value tensors and
+        [num_pages + 1, page_size] fp32 per-slot scales (identity 1.0
+        until a row is written). The serving step updates these tensors in
+        place."""
         import torch
 
         c = self.config
-        shape = (c.num_pages, c.page_size, c.num_kv_heads, c.head_dim)
+        n = c.scratch_page + 1
+        shape = (n, c.page_size, c.num_kv_heads, c.head_dim)
         if c.quantized:
-            sshape = (c.num_pages, c.page_size)
+            sshape = (n, c.page_size)
             return [(torch.zeros(shape, dtype=torch.int8, device=device),
                      torch.zeros(shape, dtype=torch.int8, device=device),
                      torch.ones(sshape, dtype=torch.float32, device=device),

@@ -8,11 +8,15 @@ are written into the sequence's pages first (invalid rows skipped), then
 `ragged_paged_attention` attends through the block table. Every shape
 is fixed per (batch, T) bucket.
 
-The page tensors are updated IN PLACE: the valid rows' K/V are
-`index_put_` into the resident pages. The JAX package rebuilt the page
-arrays each step (a scatter with ``mode="drop"`` that sent invalid rows
-to an out-of-range page); PyTorch has no drop mode, so the valid rows
-are selected first and only those are written.
+The page tensors are updated IN PLACE: every row's K/V is `index_put_`
+into the resident pages, the inactive rows' into the pool's scratch page
+(the last page of the page tensors, `KVCacheConfig.scratch_page`, which
+the pool never hands out and no block table names). The JAX package
+rebuilt the page arrays each step with a scatter in ``mode="drop"``;
+writing a fixed number of rows keeps every shape fixed per bucket and
+the step free of host reads, so a bucket can be captured as a CUDA graph
+(`serving/aot.py`). Greedy selection (argmax) runs inside the step;
+sampled rows are drawn after it by `sample_tokens`, on the host.
 
 `dense_decode_reference` greedy-decodes one prompt with dense causal
 attention and NO paging/engine at all — the independent golden the
@@ -200,7 +204,8 @@ class TinyDecoderLM(nn.Module):
         block_tables [S, pages_per_seq] int32; context_lens [S] int32
         (INCLUDING this call's q_lens tokens); q_lens [S] int32 (0 =
         inactive slot: nothing written, zero logits, token 0). All on
-        the parameters' device.
+        the parameters' device. The page tensors' last page is the
+        scratch page the inactive rows are written to.
 
         `sampling`, when given, is the per-row 5-tuple (temps, top_ks,
         top_ps, seeds, steps) routed to `sample_tokens`; None is
@@ -220,11 +225,11 @@ class TinyDecoderLM(nn.Module):
         page_of = torch.gather(
             block_tables.long(), 1,
             (pos_c // page_size).clamp(0, block_tables.shape[1] - 1))
-        # PyTorch has no scatter drop mode: write only the valid rows
-        # (selecting them is the step's one host sync before the harvest)
-        rows = valid.reshape(-1).nonzero().squeeze(1)
-        w_page = page_of.reshape(-1)[rows]
-        w_slot = (pos_c % page_size).reshape(-1)[rows]
+        # every row is written; the inactive ones to the scratch page
+        scratch = pages[0][0].shape[0] - 1
+        w_page = torch.where(valid, page_of,
+                             torch.full_like(page_of, scratch)).reshape(-1)
+        w_slot = (pos_c % page_size).reshape(-1)
 
         x = self.emb[tokens.long()] + self.pos[pos_c]           # [S, T, E]
         for layer, entry in zip(self.layers, pages):
@@ -243,20 +248,18 @@ class TinyDecoderLM(nn.Module):
                     -127, 127).to(torch.int8)
                 vq = torch.round(v / vs[:, None, None]).clamp(
                     -127, 127).to(torch.int8)
-                k_pages.index_put_((w_page, w_slot), kq[rows])
-                v_pages.index_put_((w_page, w_slot), vq[rows])
-                k_scale.index_put_((w_page, w_slot), ks[rows])
-                v_scale.index_put_((w_page, w_slot), vs[rows])
+                k_pages.index_put_((w_page, w_slot), kq)
+                v_pages.index_put_((w_page, w_slot), vq)
+                k_scale.index_put_((w_page, w_slot), ks)
+                v_scale.index_put_((w_page, w_slot), vs)
                 attn = ragged_paged_attention(
                     q, k_pages, v_pages, block_tables, context_lens,
                     q_lens, impl=self.attention_impl,
                     k_scale=k_scale, v_scale=v_scale)
             else:
                 k_pages, v_pages = entry
-                k_pages.index_put_((w_page, w_slot),
-                                   k[rows].to(k_pages.dtype))
-                v_pages.index_put_((w_page, w_slot),
-                                   v[rows].to(v_pages.dtype))
+                k_pages.index_put_((w_page, w_slot), k.to(k_pages.dtype))
+                v_pages.index_put_((w_page, w_slot), v.to(v_pages.dtype))
                 attn = ragged_paged_attention(
                     q, k_pages, v_pages, block_tables, context_lens,
                     q_lens, impl=self.attention_impl)

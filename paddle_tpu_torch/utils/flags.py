@@ -1,7 +1,8 @@
 """Flags of the port (counterpart: `paddle_tpu/utils/flags.py`).
 
 Only the flags the ported slices read: the ``FLAGS_tpu_serving_*``
-surface of serving, the executor's, and the attention gate. Names and defaults are the JAX
+surface of serving, the executor's, the attention gate and CUDA-graph
+capture (``FLAGS_cuda_graphs``, the port's own). Names and defaults are the JAX
 package's, so one environment configures both. Flags ingest ``FLAGS_*``
 environment variables at import."""
 from __future__ import annotations
@@ -13,8 +14,12 @@ _FLAGS: Dict[str, object] = {
     # Executor.run: after each run, raise if a fetch or an updated
     # persistable holds Inf or NaN (one host copy of each)
     "FLAGS_check_nan_inf": False,
-    # Executor: prepared blocks kept per executor (LRU)
+    # Executor: compiled blocks kept per executor (LRU)
     "FLAGS_tpu_compile_cache_size": 128,
+    # Executor and serving: capture each block and serving bucket as a
+    # CUDA graph on the card (its second run) and replay it; False runs
+    # every step eagerly, op by op (the counterpart of jax.disable_jit)
+    "FLAGS_cuda_graphs": True,
     # scaled_dot_product_attention takes the flash kernels on the card at
     # or above this key length (the reference's value; the reference
     # applies it on the TPU only)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch import fluid
+from paddle_tpu_torch.core.rng import seed_tensor
 from paddle_tpu_torch.fluid.contrib import mixed_precision
 from paddle_tpu_torch.models import bert
 from paddle_tpu_torch.ops import registry
@@ -53,8 +54,8 @@ def _zero_counts():
 
 def _sdpa(q, k, v, bias, p, seed, impl="auto"):
     attrs = {"causal": False, "sm_scale": 0.125, "attn_dropout_prob": p,
-             "is_test": False, "flash_impl": impl, "_rng_seed": seed,
-             "_rng_generator": torch.Generator(q.device).manual_seed(seed)}
+             "is_test": False, "flash_impl": impl,
+             "_rng_seed": seed_tensor(seed, q.device)}
     return registry.run_op("scaled_dot_product_attention",
                            {"Q": [q], "K": [k], "V": [v], "KeyBias": [bias]},
                            attrs)["Out"][0]

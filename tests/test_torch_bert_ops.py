@@ -10,7 +10,8 @@ of every float input under one seeded cotangent (`jax.vjp` against
 batch equal in shape and dtype. The random ops are held by shape, dtype
 and range: the port's generator streams are not JAX's. Dropout (the op,
 and inside the composite attention) is held with the port's keep mask
-injected into the reference, whose `jax.random.bernoulli` returns it.
+(`core.rng.keep_mask` of the op's device seed) injected into the
+reference, whose `jax.random.bernoulli` returns it.
 
 `fused_linear_softmax_xent` is also held against a plain unfused version
 (the [N, V] logits, then log-softmax) at a vocab that is not a multiple
@@ -25,6 +26,7 @@ import torch
 from paddle_tpu.core.rng import make_key
 from paddle_tpu.ops import registry as rreg
 
+from paddle_tpu_torch.core.rng import keep_mask, seed_tensor
 from paddle_tpu_torch.core.types import to_torch_dtype
 from paddle_tpu_torch.ops import registry as treg
 
@@ -233,24 +235,25 @@ def _to_torch(a, grad=False):
 
 
 def _port(op_type, ins, attrs, seed=7):
-    attrs = dict(attrs, _device=torch.device("cpu"), _rng_seed=seed,
+    # the device seed (dropout, attention) and the host generator (the
+    # initializers)
+    attrs = dict(attrs, _device=torch.device("cpu"),
+                 _rng_seed=seed_tensor(seed, "cpu"),
                  _rng_generator=torch.Generator().manual_seed(seed))
     return treg.normalize_outs(treg.get_op(op_type).compute(ins, attrs))
 
 
 def _port_keep_mask(name, ins):
-    """The keep mask the port's op draws for `name`'s inputs (its
-    generator seeded 7, as `_port` seeds it)."""
+    """The keep mask the port's op draws for `name`'s inputs (its device
+    seed 7, as `_port` passes it)."""
     op_type, _, attrs, _, _ = CASES[name]
-    g = torch.Generator().manual_seed(7)
     if op_type == "dropout":
         shape = ins["X"][0].shape
     else:
         q, k = ins["Q"][0], ins["K"][0]
         shape = q.shape[:-1] + (k.shape[-2],)
-    return (torch.rand(shape, generator=g)
-            >= attrs.get("dropout_prob", attrs.get("attn_dropout_prob"))
-            ).numpy()
+    return keep_mask(seed_tensor(7, "cpu"), shape, attrs.get(
+        "dropout_prob", attrs.get("attn_dropout_prob"))).numpy()
 
 
 def _reference(name, ins, monkeypatch):

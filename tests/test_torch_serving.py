@@ -66,12 +66,18 @@ def _port_model(name, **kw):
     return serving.load_jax_params(model, params)
 
 
-def _port_engine(name="mha", **over):
+def _port_engine(name="mha", graph_runner=None, **over):
     _, _, params = _jax_model(name)
     return serving.Engine(_port_model(name), params=params,
                           config=serving.EngineConfig(**{**ENGINE_KW,
                                                          **over}),
-                          device="cpu")
+                          device="cpu", graph_runner=graph_runner)
+
+
+def _runner(body):
+    """Stands in for a bucket's graph replay on the CPU: the step body
+    over the bucket's static buffer and the engine's pages."""
+    return body()
 
 
 def _trace():
@@ -120,6 +126,8 @@ def test_forward_matches_jax(cfg, kv_dtype):
         assert ttok.numpy().tolist() == np.asarray(jtok).tolist()
         for jentry, tentry in zip(jpages, tpages):
             for ja, ta in zip(jentry, tentry):
+                # the port's last page is its scratch page
+                ta = ta[:spec["num_pages"]]
                 if ta.dtype == torch.int8:
                     assert np.array_equal(ta.numpy(), np.asarray(ja))
                 else:
@@ -144,10 +152,12 @@ def test_dense_decode_reference_matches_jax():
 
 # -- the engine against the JAX engine --------------------------------------
 
-@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
 def test_engine_greedy_streams_match_jax(kv_dtype):
     """Greedy streams over a multi-tenant trace with system prompts (the
-    prefix cache shares their pages) equal the JAX engine's."""
+    prefix cache shares their pages) equal the JAX engine's; the port
+    writes a fixed number of rows a step, the inactive ones to its
+    scratch page."""
     jm, _, params = _jax_model("mha")
     jeng = jserving.Engine(jm, params=params, config=jserving.EngineConfig(
         kv_dtype=kv_dtype, **ENGINE_KW))
@@ -156,6 +166,53 @@ def test_engine_greedy_streams_match_jax(kv_dtype):
     assert _replay(teng, _trace()) == want
     assert teng.kv.prefix_hit_tokens == jeng.kv.prefix_hit_tokens > 0
     assert teng.kv.pages_in_use == 0
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_graph_path_streams_match_jax(kv_dtype):
+    """The buckets' capture path (static input buffers, warmed and
+    captured before traffic, greedy tokens out of the step), driven on
+    the CPU through the runner: the streams equal the JAX engine's, and
+    every dispatch replayed a captured bucket."""
+    jm, _, params = _jax_model("mha")
+    jeng = jserving.Engine(jm, params=params, config=jserving.EngineConfig(
+        kv_dtype=kv_dtype, **ENGINE_KW))
+    want = _replay(jeng, _trace())
+    teng = _port_engine(kv_dtype=kv_dtype, graph_runner=_runner)
+    warm = teng.warmup()
+    assert len(warm["compiled"]) == len(warm["buckets"]) > 1
+    assert _replay(teng, _trace()) == want
+    info = teng._compiler.bucket_info()
+    st = teng.stats()
+    assert {v["mode"] for v in info.values()} == {"graph"}
+    assert sum(v["replays"] for v in info.values()) == \
+        st["prefill_dispatches"] + st["decode_dispatches"]
+    assert all(v["eager_runs"] == 1 for v in info.values())
+
+
+def test_scratch_page_is_in_no_block_table(monkeypatch):
+    """The page tensors hold one page past the pool; the pool never hands
+    it out, so no block table of a trace names it, and only the scratch
+    page takes the inactive rows of a warmup."""
+    teng = _port_engine(kv_dtype="float32")
+    scratch = teng.kv.config.scratch_page
+    assert scratch == ENGINE_KW["num_pages"]
+    assert teng.pages[0][0].shape[0] == scratch + 1
+    seen = []
+    table = teng.kv.block_table
+
+    def spy(seq_id):
+        row = table(seq_id)
+        seen.append(list(row))
+        return row
+
+    monkeypatch.setattr(teng.kv, "block_table", spy)
+    teng.warmup()
+    for k, v in teng.pages:
+        assert not bool(k[:scratch].any()) and not bool(v[:scratch].any())
+        assert bool(k[scratch].any())
+    _replay(teng, _trace())
+    assert seen and all(scratch not in row for row in seen)
 
 
 def test_engine_stream_matches_dense_reference():
@@ -244,7 +301,8 @@ def test_kv_device_state_and_param_loading():
     st = serving.PagedKVCache(serving.KVCacheConfig(
         dtype="int8", **kw)).init_device_state("cpu")
     assert len(st) == 2 and len(st[0]) == 4
-    assert st[0][0].dtype == torch.int8 and st[0][0].shape == (6, 4, 2, 8)
+    # 6 pages and the scratch page
+    assert st[0][0].dtype == torch.int8 and st[0][0].shape == (7, 4, 2, 8)
     assert st[0][2].dtype == torch.float32 and bool((st[0][2] == 1).all())
     st = serving.PagedKVCache(serving.KVCacheConfig(
         dtype="bfloat16", **kw)).init_device_state("cpu")

@@ -4,13 +4,17 @@ NVIDIA GPU.
 
     python3 tools/torch_fluid_profile.py [--opt sgd|adam] [--steps N]
                                          [--bert LEG | --resnet |
-                                          --transformer] [--out DIR]
+                                          --transformer] [--eager]
+                                         [--out DIR]
 
 Builds the MNIST MLP of chip_smoke.py's fluid phase (784-128-64-10,
 batch 64, the optimizer given, default SGD) through `fluid.layers` ->
 `minimize` -> `Executor()` on the card, runs the startup program and
 three warm-up steps, then traces the next N steps (default 10) with
-`torch.profiler` (CPU and CUDA activity). With ``--bert a_s128`` or
+`torch.profiler` (CPU and CUDA activity). The step is captured as a
+CUDA graph in the warm-up (its second step), so the window holds
+replays; ``--eager`` turns capture off (`FLAGS_cuda_graphs`) and traces
+eager steps. With ``--bert a_s128`` or
 ``--bert b_s4096`` it builds that leg of chip_smoke.py's fluid BERT
 phase instead (BERT-base, bf16 AMP O2, fused Adam); with ``--resnet``
 leg a of its fluid ResNet50 phase (batch 128, 224 x 224, bf16 AMP O2,
@@ -18,7 +22,8 @@ fused Momentum); with ``--transformer`` leg a of its fluid Transformer
 phase (Transformer-big, batch 32 x 128, bf16 AMP O2, fused Adam), and
 then also traces a beam-search decode over the trained scope (leg b's
 32 sentences at beam 4, `--decode-steps` steps, default 16, reported a
-decode step). Prints one JSON object: the window's wall time a step,
+decode step). Prints one JSON object: the step's mode ("graph" or
+"eager"), the window's wall time a step,
 the device time a step summed over kernels (the device's busy share is
 that over the wall time), the kernels launched a step, the device time a
 step by kernel family (convolutions, layout transposes, batch norm,
@@ -127,6 +132,7 @@ def main():
     ap.add_argument("--resnet", action="store_true")
     ap.add_argument("--transformer", action="store_true")
     ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--eager", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -134,6 +140,8 @@ def main():
         return 1
 
     from paddle_tpu_torch import fluid
+
+    fluid.set_flags({"FLAGS_cuda_graphs": not args.eager})
 
     if args.transformer:
         from paddle_tpu_torch.models import transformer
@@ -185,14 +193,15 @@ def main():
         step(i)
     prof, wall_us, out = _window(torch, lambda i: step(3 + i), args.steps)
     res = dict({"model": model, "opt": opt, "batch": b,
-                "loss": float(out[0][0])}, **_summary(prof, wall_us,
-                                                      args.steps))
+                "mode": exe.last_entry.mode, "loss": float(out[0][0])},
+               **_summary(prof, wall_us, args.steps))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
-            args.out, "fluid_%s_trace.json" % (
+            args.out, "fluid_%s_%s_trace.json" % (
                 "transformer" if args.transformer else
-                "resnet" if args.resnet else args.bert or args.opt)))
+                "resnet" if args.resnet else args.bert or args.opt,
+                exe.last_entry.mode)))
     if args.transformer:
         res["decode"] = _decode_window(torch, transformer, cfg, scope,
                                        feeds[0], args.decode_steps)

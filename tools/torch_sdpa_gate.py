@@ -51,6 +51,7 @@ def time_ms(torch, fn, reps=10, warmup=2):
 def main():
     import torch
 
+    from paddle_tpu_torch.core.rng import seed_tensor
     from paddle_tpu_torch.ops import registry
     from paddle_tpu_torch.utils import flags
 
@@ -80,8 +81,7 @@ def main():
             do = torch.randn(B, H, S, D, generator=g).to(dev, q.dtype)
             attrs = {"causal": False, "sm_scale": D ** -0.5,
                      "attn_dropout_prob": p, "is_test": False,
-                     "_rng_seed": 7 << 32,
-                     "_rng_generator": torch.Generator(dev).manual_seed(7)}
+                     "_rng_seed": seed_tensor(7 << 32, dev)}
 
             def fwd():
                 return registry.run_op(

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the port's serving step goes, on one NVIDIA GPU.
 
-    python3 tools/torch_serving_profile.py [--out DIR]
+    python3 tools/torch_serving_profile.py [--eager] [--out DIR]
 
 Builds the serving engine of chip_smoke.py (BERT-base widths, bfloat16
 pages, random weights from seed 0), serves its trace up to the first
 step that only decodes, then traces the next steady window of steps with
-`torch.profiler` (CPU and CUDA activity). Prints one JSON object: the
-window's wall time, the device time summed over kernels (the device's
+`torch.profiler` (CPU and CUDA activity). `warmup` captures every bucket
+as a CUDA graph, so the window replays them; ``--eager`` turns capture
+off (`FLAGS_cuda_graphs`). Prints one JSON object: the dispatch mode,
+the window's wall time, the device time summed over kernels (the device's
 busy share is that over the wall time), the ragged paged attention
 kernel's share, and the ten kernels with the most device time. With
 --out, the Chrome trace of the window is written there.
@@ -38,6 +40,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--eager", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -45,6 +48,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from paddle_tpu_torch import serving
+    from paddle_tpu_torch.utils.flags import set_flags
+
+    set_flags({"FLAGS_cuda_graphs": not args.eager})
 
     model = serving.TinyDecoderLM(serving.TinyLMConfig(
         **chip_smoke.BERT_BASE))
@@ -78,9 +84,10 @@ def main():
     kernels.sort(key=lambda k: -k[1])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out,
-                                              "serving_decode_trace.json"))
+        prof.export_chrome_trace(os.path.join(
+            args.out, "serving_decode_%s_trace.json" % engine._compiler.mode))
     print(json.dumps({
+        "mode": engine._compiler.mode,
         "window_steps": args.steps, "decode_batch": running,
         "wall_us": wall_us, "device_busy_us": busy,
         "device_busy_share": busy / wall_us if wall_us else None,
