@@ -144,17 +144,46 @@ Phases, each printing one JSON line:
    with captured and with eager buckets: equal token streams, tokens/s
    of each, one profiled decode replay, capture ms and pool bytes. Each
    leg prints its own line (`graphs_leg`), the phase a closing one;
-12. kernels — one line listing every ported kernel with its launches on
+12. fleet_dp — fleet collective data parallelism (BASELINE config 5),
+   each leg on a line of its own (`fleet_dp_leg`), the phase a closing
+   one with its seconds. Every rank is a process that
+   `paddle_tpu_torch.distributed.spawn` starts with the launcher's
+   contract; a rank that fails (or outlives the phase's time limit) fails
+   the phase, and every process is gone after. Leg a: phase 9 leg a's
+   ResNet50 (224 x 224, 1000 classes, scan_stages, bf16 AMP O2 over
+   Momentum(0.1, 0.9), random_seed 11) wrapped in
+   `fleet.distributed_optimizer`, `minimize`, `fuse_optimizer_ops`, on 2
+   ranks that share the one card over gloo (NCCL needs a card per rank),
+   each taking Paddle's per-card batch of 128 from the global batch of
+   256: 2 warm-up and 5 timed steps, eager (gloo collectives run on the
+   host, so the block is not captured, and the leg checks that it says
+   so); every gathered loss finite, every parameter and optimizer state
+   bit-equal across the ranks after the steps (running statistics stay
+   per rank); per-rank median step ms, total images/s, the host ms a
+   step spent in the gradient all-reduce, peak memory per rank, beside
+   phase 9 leg a's single-process figures. Leg b: ResNet50 at 32 x 32,
+   10 classes, fp32, zero-gamma, batch 4 a rank, fleet DP, 2 ranks over
+   gloo on the card and 2 on the CPU from one startup state, once
+   without and once with `sync_batch_norm`: 3 steps' gathered losses and
+   rank 0's running statistics within 1e-3 relative, replicas
+   bit-equal. Leg c: an NCCL world of one rank; a data-parallel program
+   of every single-input collective op runs eagerly, then captured and
+   replayed (bit-equal to the eager run, which equals the ops' identity
+   outside a world); then the MNIST MLP trains 8 steps through
+   `with_data_parallel`, captured, with losses bit-equal to the plain
+   program's;
+13. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, and their launches and times on the fluid BERT path; the
    dropout kernel with its launches on fluid BERT leg a); launches made
    by graph replays count;
-13. the last line, ``{"ok": true, "device": {...}}``, printed only when
+14. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
-repository around it.
+repository around it. The data-parallel phase adds no kernel: its
+collectives are NCCL's and gloo's (the reference's are XLA's).
 """
 import contextlib
 import dataclasses
@@ -266,6 +295,24 @@ TRANSFORMER_LR = 2.0         # noam's scale (Paddle's Transformer recipe)
 #: eager runs' spread is the yardstick where they are not bit-equal
 GRAPH_STEPS = {"mnist": 8, "large": 5}
 GRAPH_EAGER_RUNS = 3
+#: phase 12, fleet data parallelism. Leg a: BASELINE config 5 at phase 9
+#: leg a's size, Paddle's per-card batch of 128 on each of 2 ranks that
+#: share the card over gloo (the global batch 256); leg b: the card
+#: against the CPU, 2 ranks each, batch 4 a rank (phase 9 leg b's batch:
+#: at 2 a rank the last stage normalizes 2 values a channel, and the card
+#: and the CPU drifted 9.8e-3 apart in the third loss); leg c: NCCL at
+#: world 1
+FLEET_A = dict(img=224, classes=1000, batch=256, lr=0.1)
+FLEET_WARMUP, FLEET_STEPS = 2, 5
+FLEET_B = dict(img=32, classes=10, batch=8, lr=3e-3, steps=3)
+FLEET_B_RTOL = 1e-3          # phase 9 leg b's tolerance
+FLEET_C_STEPS = 8
+#: the legacy and extra single-input collective ops of leg c's program
+FLEET_C_OPS = [("c_reduce_sum", {"root_id": 0}), ("alltoall", {}),
+               ("c_concat", {"nranks": 1}), ("c_split", {"nranks": 1}),
+               ("c_identity", {}), ("allreduce", {"reduce_type": 0}),
+               ("broadcast", {"root": 0})]
+FLEET_TIMEOUT_S = 420        # a spawn's ranks, joined
 
 
 def emit(obj):
@@ -1265,12 +1312,14 @@ def phase_fluid_bert(torch, name):
 
 # -- phase 9 ------------------------------------------------------------------
 
-def build_fluid_resnet(fluid, img, classes, lr, amp):
+def build_fluid_resnet(fluid, img, classes, lr, amp, strategy=None):
     """ResNet50 training as bench.py's `build_resnet_train_program`
     builds it, in fresh programs: `resnet(depth=50, scan_stages=True)`,
     softmax_with_cross_entropy then mean, Momentum(lr, 0.9) (with `amp`
-    decorated bf16 O2 without loss scaling), `minimize`,
-    `fuse_optimizer_ops`. Returns (main, startup, loss)."""
+    decorated bf16 O2 without loss scaling), wrapped in
+    `fleet.distributed_optimizer` when a fleet `strategy` is given,
+    `minimize`, `fuse_optimizer_ops`. Returns (main, startup, loss)."""
+    from paddle_tpu_torch import fleet
     from paddle_tpu_torch.fluid.contrib import mixed_precision
     from paddle_tpu_torch.models import resnet
 
@@ -1288,6 +1337,8 @@ def build_fluid_resnet(fluid, img, classes, lr, amp):
         if amp:
             opt = mixed_precision.decorate(opt,
                                            use_dynamic_loss_scaling=False)
+        if strategy is not None:
+            opt = fleet.distributed_optimizer(opt, strategy)
         opt.minimize(loss)
         fluid.fuse_optimizer_ops(main)
     return main, startup, loss
@@ -2052,6 +2103,349 @@ def phase_graphs(torch, name):
     return dict(res, legs=legs)
 
 
+# -- phase 12 -----------------------------------------------------------------
+
+def fleet_state_digest(scope, names):
+    """name -> sha256 of the value's bytes (bit-equality across ranks
+    without moving the values)."""
+    import hashlib
+
+    from paddle_tpu_torch.core.types import to_numpy
+
+    return {n: hashlib.sha256(to_numpy(scope.find_var(n)).tobytes())
+            .hexdigest() for n in names}
+
+
+def fleet_dump(path, obj):
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def fleet_worker_a(out_dir):
+    """Leg a, one rank: ResNet50 at phase 9 leg a's size through fleet,
+    2 warm-up and 5 timed steps of the global batch, eager (gloo)."""
+    import torch
+
+    from paddle_tpu_torch import distributed, fleet, fluid
+    from paddle_tpu_torch.ops import collective_ops
+
+    c = FLEET_A
+    rank = distributed.get_rank()
+    main, startup, loss = build_fluid_resnet(
+        fluid, c["img"], c["classes"], c["lr"], True,
+        strategy=fleet.DistributedStrategy())
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = resnet_feed(c["batch"], c["img"], c["classes"])
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss],
+                       scope=scope)[0].ravel().tolist()
+
+    losses = [step() for _ in range(FLEET_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collective_ops.reset_stats()
+    step_ms = []
+    for _ in range(FLEET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    stats = {k: dict(v) for k, v in collective_ops.stats.items()}
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    fleet_dump(os.path.join(out_dir, "a%d.json" % rank), {
+        "losses": losses, "step_ms": step_ms,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "collectives": stats, "device": str(exe.device),
+        "mode": exe.last_entry.mode, "reason": exe.last_entry.reason,
+        "types": [op.type for op in main.global_block().ops],
+        "digest": fleet_state_digest(scope, names)})
+
+
+def fleet_worker_b(out_dir, where, sync_bn, state_path):
+    """Leg b, one rank: ResNet50 at 32 x 32 in fp32 through fleet
+    (`sync_bn`: with sync_batch_norm) on the card or the CPU; rank 0
+    starts from the saved state, rank 1 from the executor's broadcast."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import distributed, fleet, fluid
+    from paddle_tpu_torch.core.scope import dump_numpy_state, \
+        load_numpy_state
+
+    c = FLEET_B
+    torch.set_num_threads(2)
+    rank = distributed.get_rank()
+    st = fleet.DistributedStrategy()
+    st.sync_batch_norm = sync_bn
+    main, startup, loss = build_fluid_resnet(fluid, c["img"], c["classes"],
+                                             c["lr"], False, strategy=st)
+    exe = fluid.Executor(None if where == "card" else fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if rank == 0:
+        with np.load(state_path) as f:
+            load_numpy_state(scope, dict(f), exe.device)
+    feed = resnet_feed(c["batch"], c["img"], c["classes"])
+    losses = [exe.run(main, feed=feed, fetch_list=[loss],
+                      scope=scope)[0].ravel().tolist()
+              for _ in range(c["steps"])]
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    stats = [n for n in names if n.endswith(("_bn_mean", "_bn_var"))]
+    fleet_dump(os.path.join(out_dir, "b_%s_%d_%d.json" % (
+        where, int(sync_bn), rank)), {
+        "losses": losses, "device": str(exe.device),
+        "sync_bn_ops": sum(op.type == "sync_batch_norm"
+                           for b in main.blocks for op in b.ops),
+        "stats": {n: v.tolist() for n, v in dump_numpy_state(
+            scope, stats).items()} if rank == 0 else {},
+        "digest": fleet_state_digest(
+            scope, [n for n in names if n not in stats])})
+
+
+def fleet_collective_program(fluid, layers_collective):
+    """Every single-input collective op of the port over one [8, 4]
+    input, in a data-parallel program: (program, fetch vars)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", shape=[4], dtype="float32")
+        block = main.global_block()
+        fetch = [layers_collective._c_allreduce(x, reduce_type=r)
+                 for r in ("sum", "max", "min", "prod")]
+        fetch += [layers_collective._c_broadcast(x, root=0),
+                  layers_collective._c_allgather(x, nranks=1),
+                  layers_collective._c_reducescatter(x, nranks=1),
+                  layers_collective._c_sync_calc_stream(x),
+                  layers_collective._c_sync_comm_stream(x)]
+        for op, attrs in FLEET_C_OPS:
+            o = block.create_var(name="c_" + op, dtype="float32",
+                                 shape=(-1, 4))
+            block.append_op(type=op, inputs={"X": [x]},
+                            outputs={"Out": [o]}, attrs=attrs)
+            fetch.append(o)
+    return fluid.CompiledProgram(main).with_data_parallel(), fetch
+
+
+def fleet_worker_c(out_dir):
+    """Leg c, the one rank of an NCCL world: the collective program run
+    eagerly, then captured and replayed; the MNIST MLP 8 steps through
+    `with_data_parallel` against the plain program, both captured."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.core.scope import dump_numpy_state, \
+        load_numpy_state
+    from paddle_tpu_torch.fluid.layers import collective
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.parallel import env as penv
+
+    res = {"backend": penv.global_mesh().backend,
+           "world": penv.global_mesh().size}
+    prog, fetch = fleet_collective_program(fluid, collective)
+    x = np.arange(32, dtype="float32").reshape(8, 4) - 9.0
+    exe = fluid.Executor()
+    collective_ops.reset_stats()
+    runs, phases = [], []
+    for _ in range(4):
+        runs.append(exe.run(prog, feed={"x": x}, fetch_list=fetch))
+        phases.append(exe.last_entry.phase)
+    res.update(phases=phases, mode=exe.last_entry.mode,
+               eager_collectives=collective_ops.stats.get(
+                   "all_reduce", {}).get("calls", 0),
+               ops=len(fetch))
+    res["replays_equal_eager"] = all(
+        np.array_equal(a, b) for r in runs[2:] for a, b in zip(r, runs[0]))
+    plain = prog._unwrap().clone()
+    plain._data_parallel = False
+    cpu = fluid.Executor(fluid.CPUPlace()).run(plain, feed={"x": x},
+                                               fetch_list=fetch)
+    res["eager_equals_identity"] = all(
+        np.array_equal(a, b) for a, b in zip(runs[0], cpu))
+    mlp = {}
+    for name, dp in (("plain", False), ("with_data_parallel", True)):
+        main, startup, loss, acc = build_fluid_mlp(fluid, "sgd")
+        scope = fluid.Scope()
+        exe = fluid.Executor()
+        if not mlp:
+            exe.run(startup, scope=scope)
+            state = dump_numpy_state(
+                scope, [v.name for v in main.list_vars() if v.persistable])
+        else:
+            load_numpy_state(scope, state)
+        target = fluid.CompiledProgram(main).with_data_parallel() if dp \
+            else main
+        xs, ys = fluid_mnist_data()
+        losses = []
+        for i in range(FLEET_C_STEPS):
+            feed = {"img": xs[i * FLUID_BATCH:(i + 1) * FLUID_BATCH],
+                    "label": ys[i * FLUID_BATCH:(i + 1) * FLUID_BATCH]}
+            losses.append(exe.run(target, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0].tolist())
+        mlp[name] = {"losses": losses, "mode": exe.last_entry.mode,
+                     "phase": exe.last_entry.phase}
+    res["mlp"] = mlp
+    fleet_dump(os.path.join(out_dir, "c.json"), res)
+
+
+def fleet_spawn(distributed, func, args, nprocs, backend):
+    """Run `func(*args)` on `nprocs` ranks over `backend`; a failing rank
+    or the time limit fails the phase (every process is gone after)."""
+    try:
+        distributed.spawn(func, args, nprocs=nprocs, backend=backend,
+                          timeout=FLEET_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        raise SmokeFailure("fleet_dp: %s" % e)
+
+
+def fleet_read(out_dir, name):
+    with open(os.path.join(out_dir, name)) as f:
+        return json.load(f)
+
+
+def fleet_leg_a(torch, distributed, out_dir, single):
+    fleet_spawn(distributed, fleet_worker_a, (out_dir,), 2, "gloo")
+    ranks = [fleet_read(out_dir, "a%d.json" % r) for r in range(2)]
+    c = FLEET_A
+    med = [statistics.median(r["step_ms"]) for r in ranks]
+    ar = [r["collectives"].get("all_reduce", {}) for r in ranks]
+    res = dict(c, ranks=2, backend="gloo", per_rank_batch=c["batch"] // 2,
+               losses=ranks[0]["losses"],
+               median_step_ms=med, step_ms=[r["step_ms"] for r in ranks],
+               images_per_sec=c["batch"] / (max(med) / 1e3),
+               allreduce_ms_per_step=[
+                   a.get("seconds", 0.0) * 1e3 / FLEET_STEPS for a in ar],
+               allreduce_calls_per_step=[
+                   a.get("calls", 0) / FLEET_STEPS for a in ar],
+               allreduce_mb_per_step=[
+                   a.get("bytes", 0) / 1e6 / FLEET_STEPS for a in ar],
+               peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
+               devices=[r["device"] for r in ranks],
+               mode=ranks[0]["mode"], eager_reason=ranks[0]["reason"],
+               c_allreduce_sum_ops=ranks[0]["types"].count(
+                   "c_allreduce_sum"),
+               single_process={k: single[k] for k in (
+                   "batch", "median_step_ms", "images_per_sec",
+                   "peak_mem_bytes")})
+    differ = [n for n in ranks[0]["digest"]
+              if ranks[0]["digest"][n] != ranks[1]["digest"][n]
+              and not n.endswith(("_bn_mean", "_bn_var"))]
+    res["replicas_bit_equal"] = not differ
+    emit({"phase": "fleet_dp_leg", "leg": "a", **res})
+    check(all(math.isfinite(v) for step in res["losses"] for v in step)
+          and len(res["losses"][0]) == 2,
+          "fleet_dp a: losses %s" % res["losses"])
+    check(not differ, "fleet_dp a: replicas differ in %s" % differ[:5])
+    check(res["mode"] == "eager" and "gloo" in (res["eager_reason"] or ""),
+          "fleet_dp a: expected an eager gloo block, got %s (%s)"
+          % (res["mode"], res["eager_reason"]))
+    return res
+
+
+def fleet_leg_b(torch, distributed, fluid, out_dir):
+    """Card against CPU, fleet DP with and without sync_batch_norm."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.scope import dump_numpy_state
+
+    c = FLEET_B
+    main, startup, _ = build_fluid_resnet(fluid, c["img"], c["classes"],
+                                          c["lr"], False)
+    scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=scope)
+    state = dump_numpy_state(scope, sorted(
+        v.name for v in main.list_vars() if v.persistable))
+    state.update((n, np.zeros_like(v)) for n, v in state.items()
+                 if n.endswith("2c_bn_scale"))
+    path = os.path.join(out_dir, "b_state.npz")
+    np.savez(path, **state)
+    res = {}
+    for sync_bn in (False, True):
+        ctxs = [distributed.spawn(
+            fleet_worker_b, (out_dir, where, sync_bn, path), nprocs=2,
+            backend="gloo", join=False) for where in ("card", "cpu")]
+        for sc in ctxs:
+            try:
+                sc.join(FLEET_TIMEOUT_S)
+            except (RuntimeError, TimeoutError) as e:
+                for other in ctxs:
+                    other.join(1)
+                raise SmokeFailure("fleet_dp b: %s" % e)
+        got = {w: [fleet_read(out_dir, "b_%s_%d_%d.json"
+                              % (w, int(sync_bn), r)) for r in range(2)]
+               for w in ("card", "cpu")}
+        card, cpu = got["card"][0], got["cpu"][0]
+        loss_err = max(abs(a - b) / abs(b) for sa, sb in zip(
+            card["losses"], cpu["losses"]) for a, b in zip(sa, sb))
+        stat_err = max(float(np.linalg.norm(
+            np.asarray(card["stats"][n]) - np.asarray(cpu["stats"][n]))
+            / max(np.linalg.norm(cpu["stats"][n]), 1e-30))
+            for n in card["stats"])
+        equal = {w: got[w][0]["digest"] == got[w][1]["digest"]
+                 for w in got}
+        leg = {"sync_batch_norm": sync_bn, "losses": card["losses"],
+               "losses_cpu": cpu["losses"], "loss_rel_err": loss_err,
+               "max_stat_rel_err": stat_err, "stats": len(card["stats"]),
+               "sync_bn_ops": card["sync_bn_ops"],
+               "replicas_bit_equal": equal, "tol": FLEET_B_RTOL,
+               "devices": [got["card"][0]["device"], cpu["device"]]}
+        res["sync_bn" if sync_bn else "plain"] = leg
+        check(loss_err <= FLEET_B_RTOL and stat_err <= FLEET_B_RTOL
+              and all(equal.values())
+              and (card["sync_bn_ops"] > 0) == sync_bn,
+              "fleet_dp b: card vs CPU %s" % leg)
+    emit({"phase": "fleet_dp_leg", "leg": "b", **dict(c, **res)})
+    return res
+
+
+def fleet_leg_c(distributed, out_dir):
+    fleet_spawn(distributed, fleet_worker_c, (out_dir,), 1, "nccl")
+    res = fleet_read(out_dir, "c.json")
+    emit({"phase": "fleet_dp_leg", "leg": "c", **res})
+    mlp = res["mlp"]
+    check(res["backend"] == "nccl" and res["world"] == 1
+          and res["mode"] == "graph"
+          and res["phases"][1:] == ["captured"] * 3
+          and res["eager_collectives"] > 0,
+          "fleet_dp c: collective program not captured over NCCL: %s" % res)
+    check(res["replays_equal_eager"] and res["eager_equals_identity"],
+          "fleet_dp c: replayed collectives differ from eager: %s" % res)
+    check(mlp["plain"]["losses"] == mlp["with_data_parallel"]["losses"]
+          and mlp["with_data_parallel"]["mode"] == "graph",
+          "fleet_dp c: world-1 DP MLP differs from the plain one: %s" % mlp)
+    return res
+
+
+def phase_fleet_dp(torch, name, single):
+    """Phase 12: fleet collective data parallelism. Leg a: BASELINE
+    config 5 at full size, 2 ranks sharing the card over gloo; leg b: the
+    card against the CPU; leg c: NCCL at world 1, captured."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed, fluid
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="fleet_dp_")
+    try:
+        res = {"phase": "fleet_dp",
+               "leg_a": fleet_leg_a(torch, distributed, out_dir, single),
+               "leg_b": fleet_leg_b(torch, distributed, fluid, out_dir),
+               "leg_c": fleet_leg_c(distributed, out_dir)}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"phase": "fleet_dp", "seconds": time.perf_counter() - t0,
+           "legs": ["a", "b", "c"], "device": name,
+           "nvidia_smi": nvidia_smi_line(),
+           "leg_a_median_step_ms": res["leg_a"]["median_step_ms"],
+           "leg_a_images_per_sec": res["leg_a"]["images_per_sec"]}
+    emit(res)
+    return res
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -2156,9 +2550,10 @@ def main():
     train = phase_training(torch)
     phase_fluid(torch, name)
     fluid_bert = phase_fluid_bert(torch, name)
-    phase_fluid_resnet(torch, name)
+    resnet = phase_fluid_resnet(torch, name)
     phase_fluid_transformer(torch, name)
     phase_graphs(torch, name)
+    phase_fleet_dp(torch, name, resnet["leg_a"])
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

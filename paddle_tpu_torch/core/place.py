@@ -4,16 +4,36 @@
 The port runs on the card unless the caller asks for the CPU: no entry
 point falls back to the CPU on its own. A Place maps onto a torch device
 through `resolve_device`; `CUDAPlace(i)` is `cuda:i` and raises when no
-card is present. The reference's `TPUPlace` is not offered."""
+card is present. The reference's `TPUPlace` is not offered. Under data
+parallelism (one process per rank) the default card is the rank's own
+(`rank_device_index`)."""
 from __future__ import annotations
+
+import os
 
 import torch
 
 
+def rank_device_index() -> int:
+    """The card of this process: ``FLAGS_selected_gpus`` when the launcher
+    set it, else the trainer id modulo the card count in a world of
+    several trainers, else 0."""
+    sel = os.environ.get("FLAGS_selected_gpus", "")
+    if sel:
+        return int(sel.split(",")[0])
+    if int(os.environ.get("PADDLE_TRAINERS_NUM", "1")) > 1:
+        return int(os.environ.get("PADDLE_TRAINER_ID", "0")) % max(
+            torch.cuda.device_count(), 1)
+    return 0
+
+
 def resolve_device(device=None) -> torch.device:
-    """``None`` means ``cuda:0``; a CUDA device that is not present raises.
-    Pass ``"cpu"`` explicitly to run on the CPU (the tests do)."""
-    dev = torch.device("cuda:0" if device is None else device)
+    """``None`` means this process's card (``cuda:0`` outside a
+    data-parallel world, see `rank_device_index`); a CUDA device that is
+    not present raises. Pass ``"cpu"`` explicitly to run on the CPU (the
+    tests do)."""
+    dev = torch.device("cuda", rank_device_index()) if device is None \
+        else torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -85,6 +105,7 @@ class CUDAPlace(Place):
 
 
 def _current_expected_place():
-    """Default place: `CUDAPlace(0)`, whether or not a card is present
-    (the reference falls back to the CPU; the port does not)."""
-    return CUDAPlace(0)
+    """Default place: the `CUDAPlace` of this process's card, whether or
+    not a card is present (the reference falls back to the CPU; the port
+    does not)."""
+    return CUDAPlace(rank_device_index())

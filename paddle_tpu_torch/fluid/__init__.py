@@ -3,11 +3,12 @@ PyTorch (counterpart: `paddle_tpu/fluid/`).
 
 Ported so far: Program / Block / Operator / Variable (with its
 operators), the layers of the MNIST MLP, BERT, ResNet and the WMT
-Transformer (`fluid.layers`, with `layers.Scan`, the control flow
-`While`, `while_loop`, `cond`, `switch_case` and `case`, the
-learning-rate schedules and `rnn_decode`), `append_backward`, the eager
-`Executor`, the SGD, Momentum and Adam optimizers, weight decay
-(`regularizer`), `fuse_optimizer_ops`, and bf16 mixed precision
+Transformer (`fluid.layers`, with `layers.Scan`, the collectives, the
+control flow `While`, `while_loop`, `cond`, `switch_case` and `case`,
+the learning-rate schedules and `rnn_decode`), `append_backward`, the
+eager `Executor` (with `CompiledProgram.with_data_parallel`), the SGD,
+Momentum and Adam optimizers, weight decay (`regularizer`),
+`fuse_optimizer_ops`, and bf16 mixed precision
 (`contrib.mixed_precision`). What is not ported yet is absent.
 """
 from . import framework  # noqa: F401
@@ -19,6 +20,9 @@ from .framework import (  # noqa: F401
 from . import unique_name  # noqa: F401
 from ..core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .executor import Executor  # noqa: F401
+from .compiler import (  # noqa: F401
+    CompiledProgram, BuildStrategy, ExecutionStrategy,
+)
 from .backward import append_backward  # noqa: F401
 from . import layers  # noqa: F401
 from . import initializer  # noqa: F401

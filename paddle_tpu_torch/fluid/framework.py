@@ -385,6 +385,14 @@ class Program:
         self._uid = Program._uid_counter
         self._is_test = False
         self._seed_counter = 0
+        # data parallelism (`CompiledProgram.with_data_parallel`, fleet's
+        # `transpile_collective`): the executor runs the program as this
+        # process's rank of the world, over the "dp" ring
+        self._data_parallel = False
+        self._dp_axis = "dp"
+        # rank 0's seed base of a data-parallel program with random_seed
+        # 0, set by the executor at its first run
+        self._shared_seed = None
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -451,6 +459,8 @@ class Program:
             p.blocks.append(nb)
         p._is_test = for_test
         p._version = self._version
+        p._data_parallel = self._data_parallel
+        p._dp_axis = self._dp_axis
         for attr in ("_amp", "_amp_lists", "_amp_dtype", "_amp_master_of"):
             if hasattr(self, attr):
                 setattr(p, attr, getattr(self, attr))
@@ -510,9 +520,13 @@ def name_scope(prefix=None):
 
 
 def _global_seed_and_bump(program: Program):
-    """Per-run RNG seed (deterministic when program.random_seed is set)."""
+    """Per-run RNG seed (deterministic when program.random_seed is set;
+    with random_seed 0 a data-parallel program counts up from rank 0's
+    draw, so every rank draws the same masks)."""
     if program.random_seed:
         s = program.random_seed + program._seed_counter
+    elif program._shared_seed is not None:
+        s = program._shared_seed + program._seed_counter
     else:
         s = np.random.randint(0, 2**31 - 1)
     program._seed_counter += 1

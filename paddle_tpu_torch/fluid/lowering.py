@@ -1,8 +1,9 @@
 """Block execution: a Program block -> one Python function that runs its
 ops op by op, and the compiled entry the executor keeps for it
 (counterpart: `paddle_tpu/fluid/lowering.py`, its core with the
-control-flow ops and the bf16 AMP cast policy, without the data-parallel,
-sharding, sparse, fp8, gradient-merge and loss-scaling branches).
+control-flow ops, the bf16 AMP cast policy and the data-parallel gradient
+sync, without the sharding, sparse, fp8, gradient-merge and loss-scaling
+branches).
 
 The reference traces the op list into one jitted XLA computation
 (`compile_block`, with the state donated). The port issues each op's
@@ -50,6 +51,20 @@ their float32 inputs cast to the compute dtype (bf16) and its black-list
 ops their bf16 inputs cast to float32, op by op as they run (the
 reference applies the same casts while tracing).
 
+Data parallelism (`CompiledProgram.with_data_parallel`, fleet): the
+reference lowers a data-parallel block under `shard_map` over the mesh;
+the port runs it as one rank of a `torch.distributed` world, its ring
+live for the block's collective ops (`parallel/env.py`). Unless the
+program syncs its gradients itself (fleet's `c_allreduce_sum` on the
+`@GRAD` vars after the backward), every gradient is averaged over the
+ring right after the backward, one all-reduce each, and not at all on a
+ring of one (the reference's `_dp_pmean` and `_dp_sync_axes`). The port
+has no dynamic loss scaling (bf16 needs none; float16 raises), so there
+is no found-inf predicate to reduce across ranks. Gloo collectives run
+on the host, so a data-parallel block over gloo runs eagerly; over NCCL
+it is captured at one rank, and runs eagerly at more (replays of
+captured NCCL collectives across ranks hung: ROADMAP Queue 3).
+
 Scope semantics: the function is pure over a name -> tensor environment.
 Scope state (params, optimizer moments) enters as inputs and leaves as
 outputs; an op that writes a var (ParamOut is Param) rebinds the name to
@@ -71,7 +86,9 @@ from ..core import graphs
 from ..core.errors import NotFoundError, attach_op_callstack
 from ..core.rng import StepSeed, make_generator, seed_tensor
 from ..core.types import to_torch_dtype
+from ..ops import collective_ops
 from ..ops.registry import meta_rng_attrs
+from ..parallel import env as penv
 from ..utils.flags import get_flag
 
 _log = logging.getLogger(__name__)
@@ -457,21 +474,40 @@ def _diffable(block, name, env):
     return isinstance(val, torch.Tensor) and val.is_floating_point()
 
 
+def _has_explicit_sync(ops, bwd_idx):
+    """Whether an op after the backward all-reduces a `@GRAD` var (fleet's
+    transpiled program syncs its own gradients; a forward collective such
+    as a globally averaged metric does not count)."""
+    post = ops[bwd_idx + 1:] if bwd_idx is not None else []
+    return any(
+        (op.type.startswith("c_allreduce") or op.type == "allreduce")
+        and any(n.endswith(framework.GRAD_SUFFIX)
+                for n in op.input_arg_names)
+        for op in post)
+
+
 def build_block_fn(program, block, feed_names, fetch_names,
-                   state_in, state_out, device):
+                   state_in, state_out, device, ring=None):
     """The function `fn(feeds, states, seed, keep=None) -> (fetches,
     new_states)` that runs `block` on `device`: feeds and states map
     names to tensors on it; `seed` is the run's `core.rng.StepSeed`;
     fetches are detached tensors in `fetch_names` order, new_states maps
     each name of `state_out` the block computed to its new tensor. A
     `keep` list gets every tensor the run bound to a name (what a
-    captured graph must keep alive)."""
+    captured graph must keep alive). With a `ring` (a data-parallel
+    program's world) the ring is live while the block runs, and the
+    gradients are averaged over it after the backward unless the program
+    syncs them itself."""
     ops = list(block.ops)
     bwd_indices = [i for i, op in enumerate(ops) if op.type == "backward"]
     if len(bwd_indices) > 1:
         raise NotImplementedError("multiple backward sections in one block")
     bwd_idx = bwd_indices[0] if bwd_indices else None
     amp = _amp_trace_policy(program)
+    sync_ring = ring if (
+        ring is not None and ring.size > 1
+        and getattr(program, "_data_parallel", False)
+        and not _has_explicit_sync(ops, bwd_idx)) else None
 
     def _backward_section(env, seed):
         bop = ops[bwd_idx]
@@ -495,7 +531,10 @@ def build_block_fn(program, block, feed_names, fetch_names,
         for n, g in zip(diff_names, grads):
             # an unused diff var gets zeros, as jax.vjp gives
             g = torch.zeros_like(leaves[n]) if g is None else g
-            env[framework.grad_var_name(n)] = g.to(leaves[n].dtype)
+            g = g.to(leaves[n].dtype)
+            if sync_ring is not None:
+                g = collective_ops.all_reduce_mean(g, sync_ring)
+            env[framework.grad_var_name(n)] = g
         env[framework.grad_var_name(loss_name)] = torch.full(
             tuple(loss.shape), loss_scale, dtype=loss.dtype, device=device)
         _run_ops(ops[bwd_idx + 1:], env, seed, device, base_idx=bwd_idx + 1,
@@ -505,7 +544,7 @@ def build_block_fn(program, block, feed_names, fetch_names,
         env = {}
         env.update(states)
         env.update(feeds)
-        with torch.no_grad():
+        with torch.no_grad(), penv.collective_scope(ring):
             if bwd_idx is None:
                 _run_ops(ops, env, seed, device, amp=amp)
             else:
@@ -533,14 +572,24 @@ _HOST_DECIDING = frozenset({"while", "cond", "conditional_block",
                             "switch_case"})
 
 
-def capture_blocker(program, block) -> Optional[str]:
+def capture_blocker(program, block, ring=None) -> Optional[str]:
     """Why `block` cannot be captured as a CUDA graph, or None (the
     counterpart of the reference's `_block_host_op_kinds`, decided from
     the program before any step). Looks through every sub-block. The
     reasons, each naming the first op that gives it: control flow that
     decides on the host, an op flagged `no_jit` or `dynamic_shape`, an
-    initializer whose generator is seeded on the host."""
+    initializer whose generator is seeded on the host; and a
+    data-parallel block whose `ring` is a gloo group, or an NCCL group of
+    more than one rank (replays of captured NCCL collectives across
+    ranks hung; ROADMAP Queue 3)."""
     reasons = {}
+    if ring is not None and ring.backend == "gloo":
+        reasons["gloo"] = ("data-parallel over %r: gloo collectives run "
+                           "on the host" % (ring,))
+    elif ring is not None and ring.size > 1:
+        reasons["nccl"] = ("data-parallel over %r: replays of captured "
+                           "NCCL collectives across ranks are not safe yet "
+                           "(ROADMAP Queue 3)" % (ring,))
 
     def scan(blk):
         for op in blk.ops:
@@ -578,20 +627,20 @@ class CompiledBlock:
     `reason` saying why a block runs eagerly. See `compile_block`."""
 
     def __init__(self, program, block, feed_names, fetch_names, device,
-                 graph_runner=None):
+                 graph_runner=None, ring=None):
         self.device = torch.device(device)
         self.state_in, self.state_out = analyze_block(
             block, list(feed_names), list(fetch_names))
         self.fn = build_block_fn(program, block, list(feed_names),
                                  list(fetch_names), self.state_in,
-                                 self.state_out, self.device)
+                                 self.state_out, self.device, ring)
         reason = None
         if graph_runner is None:
             if self.device.type != "cuda":
                 reason = "the CPU runs blocks eagerly (no CUDA graphs)"
             elif not get_flag("FLAGS_cuda_graphs", True):
                 reason = "FLAGS_cuda_graphs is off"
-        self.reason = reason or capture_blocker(program, block)
+        self.reason = reason or capture_blocker(program, block, ring)
         self.mode = "eager" if self.reason else "graph"
         self._step = None if self.reason else graphs.DonatedStep(
             self.fn, self.device, runner=graph_runner)
@@ -628,16 +677,16 @@ class CompiledBlock:
 
 
 def compile_block(program, block, feed_names, fetch_names, device,
-                  graph_runner=None) -> CompiledBlock:
+                  graph_runner=None, ring=None) -> CompiledBlock:
     """The compiled entry of `block` for these feeds and fetches on
     `device` (counterpart: the reference's `compile_block`, which jits
     the block with its state donated). Whether it will be captured is
     decided here, from the program; a block that will run eagerly is
     logged with its reason before its first step. `graph_runner` stands
     in for CUDA graph capture and replay on the CPU (tests only; see
-    `core/graphs.py`)."""
+    `core/graphs.py`); `ring` is a data-parallel program's world."""
     entry = CompiledBlock(program, block, feed_names, fetch_names, device,
-                          graph_runner=graph_runner)
+                          graph_runner=graph_runner, ring=ring)
     if entry.mode == "eager" and entry.device.type == "cuda":
         _log.info("block %d of program %d runs eagerly: %s", block.idx,
                   program._uid, entry.reason)

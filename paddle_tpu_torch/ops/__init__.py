@@ -17,3 +17,5 @@ from . import optimizer_ops  # noqa: F401
 from . import metric_ops  # noqa: F401
 from . import fused_ops  # noqa: F401
 from . import beam_search_ops  # noqa: F401
+from . import collective_ops  # noqa: F401
+from . import specialty_ops  # noqa: F401

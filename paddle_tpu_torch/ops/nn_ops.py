@@ -291,8 +291,36 @@ def _dropout(ins, attrs):
     return {"Out": out, "Mask": mask}
 
 
+class _SortedLookup(torch.autograd.Function):
+    """`F.embedding` whose weight gradient on the card takes PyTorch's
+    deterministic CUDA path (sort the ids, then sum each id's rows in
+    order). The default path sums the rows of an id that repeats often
+    (BERT's position and segment ids) in another order each run, so two
+    runs, or a captured and an eager step, differ in those rows."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = w.shape[0]
+        return F.embedding(ids, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        was = torch.are_deterministic_algorithms_enabled()
+        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            gw = torch.ops.aten.embedding_dense_backward(
+                g, ids, ctx.rows, -1, False)
+        finally:
+            torch.use_deterministic_algorithms(was, warn_only=warn_only)
+        return gw, None
+
+
 def _lookup(w, ids, padding_idx):
-    out = F.embedding(ids, w)
+    out = _SortedLookup.apply(w, ids) if w.is_cuda and w.requires_grad \
+        else F.embedding(ids, w)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids == padding_idx)[..., None],
                           torch.zeros((), dtype=out.dtype,

@@ -80,8 +80,9 @@ class SPMDConfig:
 def _check_ported(cfg):
     if (cfg.dp, cfg.pp, cfg.tp) != (1, 1, 1):
         raise NotImplementedError(
-            "dp/pp/tp = %d/%d/%d: the port runs one device; the mesh "
-            "collectives come with torch.distributed in ROADMAP Queue 1 #7"
+            "dp/pp/tp = %d/%d/%d: the trainer runs one device; its mesh "
+            "over torch.distributed comes with the second half of ROADMAP "
+            "Queue 1 #7"
             % (cfg.dp, cfg.pp, cfg.tp))
     if cfg.sp_mode != "megatron":
         raise NotImplementedError(

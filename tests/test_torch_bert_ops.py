@@ -208,15 +208,29 @@ TRANSFORMER_SLICE_OPS = {
     "unsqueeze2", "stack", "increment", "one_hot", "label_smooth", "exp",
     "floor", "cos", "where", "sigmoid", "log_softmax", "split", "expand",
     "cumsum", "beam_search", "gather_tree", "beam_search_decode"}
+#: the data-parallel slice's op types, held by
+#: tests/test_torch_collective_ops.py (sync_batch_norm also by
+#: tests/test_torch_fleet_dp.py)
+COLLECTIVE_SLICE_OPS = {
+    "c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+    "c_allreduce_prod", "c_broadcast", "c_allgather", "c_reducescatter",
+    "c_reduce_sum", "alltoall", "c_concat", "c_split", "c_embedding",
+    "c_identity", "c_sync_calc_stream", "c_sync_comm_stream", "allreduce",
+    "broadcast", "dgc", "sync_batch_norm"}
 
 
 def test_cases_cover_the_registry():
     """Every op type the port registers is held here, by
-    tests/test_torch_fluid_ops.py, tests/test_torch_resnet_ops.py or
-    tests/test_torch_transformer_ops.py."""
+    tests/test_torch_fluid_ops.py, tests/test_torch_resnet_ops.py,
+    tests/test_torch_transformer_ops.py or
+    tests/test_torch_collective_ops.py."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
     assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS \
-        | TRANSFORMER_SLICE_OPS == set(treg.registered_ops())
+        | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS \
+        == set(treg.registered_ops())
+    assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
+                | TRANSFORMER_SLICE_OPS) & COLLECTIVE_SLICE_OPS \
+        and len(COLLECTIVE_SLICE_OPS) == 19
     assert not types & FLUID_SLICE_OPS and len(types) == 21
     assert not (types | FLUID_SLICE_OPS) & RESNET_SLICE_OPS
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS) \

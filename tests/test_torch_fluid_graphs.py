@@ -404,3 +404,26 @@ def test_mlp_losses_through_the_graph_path_match_jax(kind, one_torch_thread):
     assert exe.last_entry.info()["replays"] == len(feeds) - 1
     np.testing.assert_allclose([float(g[0][0]) for g in got], want,
                                rtol=LOSS_RTOL)
+
+
+def test_sorted_lookup_gradient_matches_embedding():
+    """The lookup ops' weight gradient on the card goes through
+    `nn_ops._SortedLookup` (PyTorch's deterministic sorted path for
+    heavily repeated ids). Its arithmetic, here on the CPU, is
+    `F.embedding`'s, and it leaves the deterministic-algorithms flag as
+    it found it."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.nn_ops import _SortedLookup
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(9, 6, generator=g, requires_grad=True)
+    ids = torch.randint(0, 3, (4, 50), generator=g)
+    up = torch.randn(4, 50, 6, generator=g)
+    want, = torch.autograd.grad(F.embedding(ids, w), w, up)
+    before = torch.are_deterministic_algorithms_enabled()
+    out = _SortedLookup.apply(w, ids)
+    got, = torch.autograd.grad(out, w, up)
+    assert torch.equal(out, F.embedding(ids, w))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.are_deterministic_algorithms_enabled() == before

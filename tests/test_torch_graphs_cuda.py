@@ -293,3 +293,28 @@ def test_warmup_then_first_run_replays(dev, graphs_flag):
                        fetch_list=[loss], scope=scope)
     assert len(again["cached"]) == 1 and not again["compiled"]
     exe.close()
+
+
+def test_lookup_gradient_is_deterministic(dev):
+    """BERT's position ids repeat every row of the batch: the lookup's
+    weight gradient is the same bits run after run (and under a
+    captured step), where PyTorch's default path sums each id's rows in
+    another order each run."""
+    from paddle_tpu_torch.ops import registry as reg
+
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(512, 768, generator=g).to(dev, torch.bfloat16)
+    ids = torch.arange(128).repeat(256, 1).to(dev)
+    up = torch.randn(256, 128, 768, generator=g).to(dev, torch.bfloat16)
+    grads = []
+    for _ in range(4):
+        leaf = w.clone().requires_grad_(True)
+        out = reg.get_op("lookup_table_v2").compute(
+            {"W": [leaf], "Ids": [ids]}, {})["Out"]
+        grads.append(torch.autograd.grad(out, leaf, up)[0])
+    for x in grads[1:]:
+        assert torch.equal(x, grads[0])
+    want = (up.float().sum(0))
+    torch.testing.assert_close(grads[0][:128].float(), want, rtol=2e-2,
+                               atol=2e-2)
+    assert not grads[0][128:].any()

@@ -335,8 +335,9 @@ def test_port_imports_no_jax():
     train step with flash attention, trains a tiny MLP through the fluid
     static graph, takes a bf16 AMP step of a tiny scanned BERT, a step of
     a small ResNet, and two noam-Adam steps of a tiny Transformer, which
-    it then decodes with beam search, and has imported neither jax nor
-    anything of paddle_tpu."""
+    it then decodes with beam search, launches a 2-rank gloo
+    data-parallel MLP step whose ranks import neither, and has imported
+    neither jax nor anything of paddle_tpu."""
     code = (
         "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
@@ -409,6 +410,38 @@ def test_port_imports_no_jax():
     "        beam_size=2, max_out_len=4, device='cpu')\n"
     "assert math.isfinite(float(w[1][0][0])), w\n"
     "assert tuple(seqs.shape) == (2, 2, 5), seqs.shape\n"
+        "import subprocess, tempfile\n"
+        "from paddle_tpu_torch.distributed.launch import free_port_base\n"
+        "dp = ('import sys\\n'\n"
+        "      'import numpy as np\\n'\n"
+        "      'from paddle_tpu_torch import fleet, fluid\\n'\n"
+        "      'fleet.init(is_collective=True)\\n'\n"
+        "      'x = fluid.layers.data(name=\"x\", shape=[8])\\n'\n"
+        "      'y = fluid.layers.data(name=\"y\", shape=[1], dtype=\"int64\")\\n'\n"
+        "      'o = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy('\n"
+        "      'fluid.layers.fc(input=x, size=4), y))\\n'\n"
+        "      'fluid.optimizer.SGD(0.1).minimize(o)\\n'\n"
+        "      'exe = fluid.Executor(fluid.CPUPlace())\\n'\n"
+        "      'exe.run(fluid.default_startup_program())\\n'\n"
+        "      'p = fluid.CompiledProgram(fluid.default_main_program())\\n'\n"
+        "      'r = np.random.RandomState(0)\\n'\n"
+        "      'l = exe.run(p.with_data_parallel(), fetch_list=[o], feed={'\n"
+        "      '\"x\": r.randn(4, 8).astype(\"float32\"),'\n"
+        "      '\"y\": r.randint(0, 4, (4, 1))})[0]\\n'\n"
+        "      'assert l.shape == (2,) and np.isfinite(l).all(), l\\n'\n"
+        "      'bad = [m for m in sys.modules if m.split(\".\")[0] in '\n"
+        "      '(\"jax\", \"jaxlib\", \"paddle_tpu\")]\\n'\n"
+        "      'assert not bad, bad\\n'\n"
+        "      'print(\"DP-CLEAN\", fleet.worker_index())\\n')\n"
+        "with tempfile.NamedTemporaryFile('w', suffix='.py',\n"
+        "                                 delete=False) as fh:\n"
+        "    fh.write(dp)\n"
+        "rr = subprocess.run([sys.executable, '-m',\n"
+        "    'paddle_tpu_torch.distributed.launch', '--nproc_per_node', '2',\n"
+        "    '--started_port', str(free_port_base(3)), '--backend', 'gloo',\n"
+        "    fh.name], capture_output=True, text=True, timeout=60)\n"
+        "assert rr.returncode == 0 and rr.stdout.count('DP-CLEAN') == 2, (\n"
+        "    rr.stdout + rr.stderr)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n"
