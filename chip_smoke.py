@@ -172,18 +172,40 @@ Phases, each printing one JSON line:
    outside a world); then the MNIST MLP trains 8 steps through
    `with_data_parallel`, captured, with losses bit-equal to the plain
    program's;
-13. kernels — one line listing every ported kernel with its launches on
+13. spmd_mesh — the SPMD trainer (`parallel.transformer` with a
+   `parallel.env.Mesh`) over ranks that share the card over gloo
+   (`distributed.spawn`; NCCL needs a card a rank), each leg on a line of
+   its own (`spmd_mesh_leg`), the phase a closing one. Leg a: the
+   default `SPMDConfig` (phase 6's widths, bf16, remat, random weights
+   from seed 0), Megatron sequence parallelism on dp1 pp2 tp2 (4 ranks),
+   4 microbatches of the global batch of 8 (GPipe), 1 warm-up and 2
+   timed steps: the loss finite and the same on every rank; the flash
+   launches a rank, zeroed just before the timed steps, exactly
+   2 x 6 layers x 4 microbatches forward (remat) and 6 x 4 each of dK/dV
+   and dQ a step, all on tensor cores at [8, 6, 512, 64]; per-rank median
+   step ms, tokens/s, the host ms a step spent in collectives (gloo
+   stages through the host), peak memory per rank, beside phase 6's
+   single-process figures. Leg b: Ulysses on dp1 pp1 tp2 (2 ranks),
+   the same widths and checks (12 layers a rank, flash at [8, 6, 512,
+   64] after the all-to-all). Leg c: the CPU tests' widths (vocab 64,
+   d_model 32, 4 heads, d_ff 64, seq 16, 4 layers, 4 microbatches, fp32)
+   with the kernels on, on dp1 pp2 tp2 (Megatron) and dp2 pp1 tp2
+   (Ulysses), from the params of one process on the card: 3 steps'
+   losses within 2e-4 and the step-0 gradients, gathered, within 5e-4
+   of that process's, with the kernels and with `attn_impl="reference"`
+   alike; a rank that fails fails the phase;
+14. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
-   TFLOP/s, and their launches and times on the fluid BERT path; the
-   dropout kernel with its launches on fluid BERT leg a); launches made
-   by graph replays count;
-14. the last line, ``{"ok": true, "device": {...}}``, printed only when
+   TFLOP/s, their launches and times on the fluid BERT path and their
+   launches a rank on the mesh trainer; the dropout kernel with its
+   launches on fluid BERT leg a); launches made by graph replays count;
+15. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
-repository around it. The data-parallel phase adds no kernel: its
-collectives are NCCL's and gloo's (the reference's are XLA's).
+repository around it. The data-parallel and mesh phases add no kernel:
+their collectives are NCCL's and gloo's (the reference's are XLA's).
 """
 import contextlib
 import dataclasses
@@ -233,6 +255,14 @@ FLASH_CASES = [
          causal=False, bias=True, p=0.1),
     dict(name="bert_s4096_bf16", B=2, H=12, S=4096, D=64, dtype="bfloat16",
          causal=False, bias=True, p=0.1, qkv_views=True),
+    # the mesh trainer's: Megatron at tp 2 (6 heads, views of the rank's
+    # qkv), Ulysses at tp 2 and 4 (6 and 3 heads after the all-to-all)
+    dict(name="megatron_tp2_bf16_causal", B=8, H=6, S=512, D=64,
+         dtype="bfloat16", causal=True, bias=False, p=0.0, qkv_views=True),
+    dict(name="ulysses_tp2_bf16_causal", B=8, H=6, S=512, D=64,
+         dtype="bfloat16", causal=True, bias=False, p=0.0, bshd=True),
+    dict(name="ulysses_tp4_bf16_causal", B=8, H=3, S=512, D=64,
+         dtype="bfloat16", causal=True, bias=False, p=0.0, bshd=True),
 ]
 FLASH_SEED = 1234
 #: the dropout kernel at fluid BERT leg a's shapes (S 128, batch 256): the
@@ -313,6 +343,26 @@ FLEET_C_OPS = [("c_reduce_sum", {"root_id": 0}), ("alltoall", {}),
                ("c_identity", {}), ("allreduce", {"reduce_type": 0}),
                ("broadcast", {"root": 0})]
 FLEET_TIMEOUT_S = 420        # a spawn's ranks, joined
+#: phase 13, the SPMD trainer over a mesh of ranks sharing the card over
+#: gloo. Legs a and b: the default SPMDConfig, 4 microbatches of the
+#: global batch of 8, 1 warm-up and 2 timed steps; leg a Megatron on
+#: dp1 pp2 tp2 (4 ranks), leg b Ulysses on dp1 pp1 tp2 (2 ranks)
+SPMD_A = dict(dp=1, pp=2, tp=2, sp_mode="megatron")
+SPMD_B = dict(dp=1, pp=1, tp=2, sp_mode="ulysses")
+SPMD_MICRO, SPMD_BATCH, SPMD_WARMUP, SPMD_STEPS = 4, 8, 1, 2
+#: phase 5's case at the shapes and layouts each leg gives the flash
+#: kernels ([8, 6, 512, 64] bf16 causal)
+SPMD_FLASH_CASES = {"a": "megatron_tp2_bf16_causal",
+                    "b": "ulysses_tp2_bf16_causal"}
+#: leg c: the CPU tests' widths with the kernels on, against one process
+#: on the card from the same params (seed 5, demo_batch(cfg, 8, seed=5))
+SPMD_C_KW = dict(vocab=64, d_model=32, n_heads=4, d_ff=64, seq_len=16,
+                 n_layers=4, n_micro=4, dtype="float32", remat=False,
+                 use_flash=True)
+SPMD_C_MESHES = [dict(dp=1, pp=2, tp=2, sp_mode="megatron"),
+                 dict(dp=2, pp=1, tp=2, sp_mode="ulysses")]
+SPMD_C_STEPS, SPMD_C_SEED = 3, 5
+SPMD_C_LOSS_RTOL, SPMD_C_GRAD_RTOL, SPMD_C_GRAD_ATOL = 2e-4, 5e-4, 1e-6
 
 
 def emit(obj):
@@ -690,7 +740,9 @@ def flash_inputs(torch, case, seed):
     """Seeded [B, H, S, D] inputs, a cotangent, and a padding bias (each
     sequence keeps a random prefix of at least half its keys). With
     `qkv_views`, q, k and v are the trainer's views of one [B, S, 3, H, D]
-    tensor and the cotangent a view of a [B, S, H, D] one."""
+    tensor and the cotangent a view of a [B, S, H, D] one; with `bshd`,
+    each is a [B, S, H, D] tensor transposed, as Ulysses' all-to-all
+    hands them on."""
     B, H, S, D = case["B"], case["H"], case["S"], case["D"]
     dtype = getattr(torch, case["dtype"])
     gen = torch.Generator().manual_seed(seed)
@@ -699,6 +751,9 @@ def flash_inputs(torch, case, seed):
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         do = torch.randn((B, S, H, D), generator=gen).to(
             DEV, dtype).transpose(1, 2)
+    elif case.get("bshd"):
+        q, k, v, do = (torch.randn((B, S, H, D), generator=gen).to(
+            DEV, dtype).transpose(1, 2) for _ in range(4))
     else:
         q, k, v, do = (torch.randn((B, H, S, D), generator=gen).to(
             DEV, dtype) for _ in range(4))
@@ -827,6 +882,7 @@ def phase_flash_cases(torch, timer):
                "dtype": case["dtype"], "causal": case["causal"],
                "key_bias": case["bias"], "dropout_p": case["p"],
                "qkv_views": bool(case.get("qkv_views")),
+               "bshd": bool(case.get("bshd")),
                "padded_s": qf.shape[2], "max_abs_err": errs,
                "tol": {"forward": fwd_tol, "grads": grad_tol}, "ok": ok,
                "library_ms": library, "kernels": {
@@ -2446,6 +2502,253 @@ def phase_fleet_dp(torch, name, single):
     return res
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+def spmd_worker_full(out_dir, leg, mesh_kw):
+    """Legs a and b, one rank: the default SPMDConfig on the mesh, the
+    flash launch counts zeroed just before the timed steps and read just
+    after."""
+    import torch
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import transformer as tt
+
+    rank = distributed.get_rank()
+    cfg = tt.SPMDConfig(n_micro=SPMD_MICRO, **mesh_kw)
+    mesh = cfg.mesh(device=DEV)
+    params = tt.shard_params(tt.init_params(cfg, seed=0, device=mesh.device),
+                             cfg, mesh)
+    opt = tt.init_opt_state(params)
+    step = tt.make_train_step(cfg, mesh)
+    tokens, labels = tt.demo_batch(cfg, SPMD_BATCH, seed=0)
+    losses = []
+    for i in range(SPMD_WARMUP):
+        params, opt, loss = step(params, opt, tokens, labels, i)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collective_ops.reset_stats()
+    fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+    fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
+    step_ms = []
+    for i in range(SPMD_WARMUP, SPMD_WARMUP + SPMD_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, labels, i)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fleet_dump(os.path.join(out_dir, "spmd_%s%d.json" % (leg, rank)), {
+        "losses": losses, "step_ms": step_ms,
+        "launches": {"forward": fa.fwd_launches, "dkv": fa.dkv_launches,
+                     "dq": fa.dq_launches},
+        "tensor_core_launches": dict(fa.tc_launches),
+        "device": str(mesh.device),
+        "backend": mesh.backend, "coords": list(mesh.coords),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "collectives": {k: dict(v) for k, v in
+                        collective_ops.stats.items()}})
+
+
+def spmd_worker_c(out_dir, mesh_kw, params_path):
+    """Leg c, one rank: the small model on the mesh from the saved
+    global params, with the kernels and with the plain attention: 3
+    steps' losses and the step-0 gradients gathered."""
+    import numpy as np
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.parallel import transformer as tt
+
+    rank = distributed.get_rank()
+    cfg = tt.SPMDConfig(**dict(SPMD_C_KW, **mesh_kw))
+    mesh = cfg.mesh(device=DEV)
+    with np.load(params_path) as f:
+        tree = spmd_tree(dict(f), cfg)
+    tokens, labels = tt.demo_batch(cfg, SPMD_BATCH, seed=SPMD_C_SEED)
+    res = {"device": str(mesh.device)}
+    for impl in ("auto", "reference"):
+        res[impl] = spmd_small_run(tt, cfg, mesh, tree, tokens, labels, impl)
+    if rank == 0:
+        fleet_dump(os.path.join(out_dir, "spmd_c_%s.json" % "x".join(
+            str(mesh_kw[a]) for a in ("dp", "pp", "tp"))), res)
+
+
+def spmd_tree(flat, cfg):
+    """The saved global params (layer leaves [n_layers, ...]) as the tree
+    of `cfg`, its layer leaves stacked [pp, n_layers / pp, ...]."""
+    tree = {"ln_f": {}, "layers": {}}
+    for path, v in flat.items():
+        if path.startswith("layers/"):
+            v = v.reshape((cfg.pp, cfg.layers_per_stage) + v.shape[1:])
+        node = tree
+        *keys, last = path.split("/")
+        for k in keys:
+            node = node[k]
+        node[last] = v
+    return tree
+
+
+def spmd_small_run(tt, cfg, mesh, tree, tokens, labels, impl):
+    """SPMD_C_STEPS steps: the losses and the step-0 gradients, layer
+    leaves flattened to [n_layers, ...]."""
+    params = tt.shard_params(tree, cfg, mesh) if mesh is not None \
+        else tt.params_from_numpy(tree, device=DEV)
+    opt = tt.init_opt_state(params)
+    step = tt.make_train_step(cfg, mesh, device=DEV if mesh is None
+                              else None, with_grads=True, attn_impl=impl)
+    losses, grads = [], None
+    for i in range(SPMD_C_STEPS):
+        params, opt, loss, g = step(params, opt, tokens, labels, i)
+        losses.append(float(loss))
+        if grads is None:
+            grads = {k: v.reshape((-1,) + v.shape[2:]).tolist()
+                     if k.startswith("layers/") else v.tolist()
+                     for k, v in leaves(tt.params_to_numpy(g, cfg, mesh))}
+    return {"losses": losses, "grads": grads}
+
+
+def spmd_run_leg(distributed, func, args, nprocs):
+    try:
+        distributed.spawn(func, args, nprocs=nprocs, backend="gloo",
+                          timeout=FLEET_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        raise SmokeFailure("spmd_mesh: %s" % e)
+
+
+def spmd_leg_full(torch, distributed, out_dir, leg, mesh_kw, single):
+    """Legs a and b: the ranks' figures beside phase 6's single
+    process."""
+    from paddle_tpu_torch.parallel import transformer as tt
+
+    n = mesh_kw["dp"] * mesh_kw["pp"] * mesh_kw["tp"]
+    spmd_run_leg(distributed, spmd_worker_full, (out_dir, leg, mesh_kw), n)
+    ranks = [fleet_read(out_dir, "spmd_%s%d.json" % (leg, r))
+             for r in range(n)]
+    cfg = tt.SPMDConfig(n_micro=SPMD_MICRO, **mesh_kw)
+    per_step = cfg.layers_per_stage * SPMD_MICRO * SPMD_STEPS
+    # remat runs each layer's forward twice
+    want = {"forward": 2 * per_step, "dkv": per_step, "dq": per_step}
+    med = [statistics.median(r["step_ms"]) for r in ranks]
+    tokens = SPMD_MICRO * SPMD_BATCH * cfg.seq_len
+    coll = [r["collectives"] for r in ranks]
+    res = dict(mesh_kw, leg=leg, ranks=n, backend=ranks[0]["backend"],
+               n_micro=SPMD_MICRO, global_batch=SPMD_BATCH,
+               steps=SPMD_STEPS, losses=ranks[0]["losses"],
+               median_step_ms=med, step_ms=[r["step_ms"] for r in ranks],
+               tokens_per_step=tokens,
+               tokens_per_sec=tokens / (max(med) / 1e3),
+               collective_host_ms_per_step=[
+                   sum(v["seconds"] for v in c.values()) * 1e3 / SPMD_STEPS
+                   for c in coll],
+               collective_mb_per_step=[
+                   sum(v["bytes"] for v in c.values()) / 1e6 / SPMD_STEPS
+                   for c in coll],
+               collective_calls_per_step=[
+                   {k: v["calls"] / SPMD_STEPS for k, v in c.items()}
+                   for c in coll],
+               peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
+               devices=[r["device"] for r in ranks],
+               flash_launches=[r["launches"] for r in ranks],
+               flash_tensor_core_launches=[r["tensor_core_launches"]
+                                           for r in ranks],
+               flash_launches_expected=want,
+               single_process={k: single[k] for k in (
+                   "batch", "mean_step_ms", "tokens_per_sec",
+                   "peak_mem_bytes")})
+    emit({"phase": "spmd_mesh_leg", **res})
+    check(all(math.isfinite(x) for x in res["losses"]),
+          "spmd_mesh %s: losses %s" % (leg, res["losses"]))
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks),
+          "spmd_mesh %s: the ranks report other losses: %s"
+          % (leg, [r["losses"] for r in ranks]))
+    check(all(r["launches"] == want and r["tensor_core_launches"] == want
+              for r in ranks),
+          "spmd_mesh %s: flash launches %s (tensor cores %s), expected %s "
+          "a rank" % (leg, res["flash_launches"],
+                      res["flash_tensor_core_launches"], want))
+    return res
+
+
+def spmd_rel_err(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, "float64"), np.asarray(b, "float64")
+    return float(np.max(np.abs(a - b) / (np.abs(b) + 1e-30)))
+
+
+def spmd_leg_c(torch, distributed, out_dir):
+    """The small model on two meshes over gloo on the card, with the
+    kernels and with the plain attention, against one process on the
+    card with the kernels from the same params."""
+    import numpy as np
+
+    from paddle_tpu_torch.parallel import transformer as tt
+
+    cfg1 = tt.SPMDConfig(**SPMD_C_KW)
+    params = tt.params_to_numpy(tt.init_params(cfg1, seed=SPMD_C_SEED,
+                                               device="cpu"))
+    flat = {k: v.reshape((-1,) + v.shape[2:]) if k.startswith("layers/")
+            else v for k, v in leaves(params)}
+    path = os.path.join(out_dir, "spmd_c_params.npz")
+    np.savez(path, **flat)
+    tokens, labels = tt.demo_batch(cfg1, SPMD_BATCH, seed=SPMD_C_SEED)
+    single = spmd_small_run(tt, cfg1, None, spmd_tree(flat, cfg1), tokens,
+                            labels, "auto")
+    res = {"single": single["losses"], "meshes": []}
+    for mesh_kw in SPMD_C_MESHES:
+        n = mesh_kw["dp"] * mesh_kw["pp"] * mesh_kw["tp"]
+        spmd_run_leg(distributed, spmd_worker_c, (out_dir, mesh_kw, path), n)
+        got = fleet_read(out_dir, "spmd_c_%s.json" % "x".join(
+            str(mesh_kw[a]) for a in ("dp", "pp", "tp")))
+        for impl in ("auto", "reference"):
+            loss_err = spmd_rel_err(got[impl]["losses"], single["losses"])
+            bad = {}
+            for k, want in single["grads"].items():
+                a, b = np.asarray(got[impl]["grads"][k]), np.asarray(want)
+                if not np.allclose(a, b, rtol=SPMD_C_GRAD_RTOL,
+                                   atol=SPMD_C_GRAD_ATOL):
+                    bad[k] = float(np.max(np.abs(a - b)))
+            leg = dict(mesh_kw, attn_impl=impl, ranks=n,
+                       losses=got[impl]["losses"], loss_rel_err=loss_err,
+                       grads_outside_tol=bad, device=got["device"])
+            res["meshes"].append(leg)
+            check(loss_err <= SPMD_C_LOSS_RTOL and not bad,
+                  "spmd_mesh c: mesh vs one process: %s" % leg)
+    emit({"phase": "spmd_mesh_leg", "leg": "c", **res})
+    return res
+
+
+def phase_spmd_mesh(torch, name, single):
+    """Phase 13: the SPMD trainer over a mesh of ranks that share the
+    card over gloo. Leg a: Megatron dp1 pp2 tp2 at full width; leg b:
+    Ulysses dp1 pp1 tp2 at full width; leg c: the small model on two
+    meshes against one process."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="spmd_mesh_")
+    try:
+        legs = {"a": spmd_leg_full(torch, distributed, out_dir, "a", SPMD_A,
+                                   single),
+                "b": spmd_leg_full(torch, distributed, out_dir, "b", SPMD_B,
+                                   single),
+                "c": spmd_leg_c(torch, distributed, out_dir)}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"phase": "spmd_mesh", "seconds": time.perf_counter() - t0,
+           "legs": ["a", "b", "c"], "device": name,
+           "nvidia_smi": nvidia_smi_line(),
+           "median_step_ms": {k: legs[k]["median_step_ms"] for k in "ab"},
+           "tokens_per_sec": {k: legs[k]["tokens_per_sec"] for k in "ab"}}
+    emit(res)
+    return legs
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -2486,16 +2789,25 @@ def flash_times(kname, case):
             "at_case": case["case"]}
 
 
-def flash_entry(kname, replaces, launches, case, bert_launches, bert_case):
+def flash_entry(kname, replaces, launches, case, bert_launches, bert_case,
+                mesh, mesh_cases):
     """A flash kernel's line: its launches on the trainer's path (phase 6)
     and its numbers at the trainer's shape (case a); beside them, its
     launches on the fluid BERT path at S 4096 (phase 8, leg b) and its
-    numbers at that shape."""
+    numbers at that shape, and its launches a rank on the mesh trainer's
+    timed steps (phase 13, legs a and b) with its numbers at each leg's
+    shape and layout (`mesh_cases`: leg -> phase 5 case)."""
     return dict({"name": "flash_attention_" + kname, "route": "cuda",
                  "source": FLASH_SOURCE, "replaces": replaces,
                  "launches": launches}, **flash_times(kname, case),
                 fluid_bert=dict(launches=bert_launches,
-                                **flash_times(kname, bert_case)))
+                                **flash_times(kname, bert_case)),
+                spmd_mesh={leg: dict(
+                    mesh=SPMD_A if leg == "a" else SPMD_B,
+                    launches_per_rank=[r[kname] for r in
+                                       mesh[leg]["flash_launches"]],
+                    **flash_times(kname, mesh_cases[leg]))
+                    for leg in ("a", "b")})
 
 
 def dropout_entry(launches, cases):
@@ -2554,6 +2866,7 @@ def main():
     phase_fluid_transformer(torch, name)
     phase_graphs(torch, name)
     phase_fleet_dp(torch, name, resnet["leg_a"])
+    mesh = phase_spmd_mesh(torch, name, train)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)
@@ -2570,7 +2883,8 @@ def main():
     ] + [flash_entry(kname, FLASH_TPU + ":" + line, train["launches"][kname],
                      flash[FLASH_CASES[0]["name"]],
                      fluid_bert["legs"][1]["launches"][kname],
-                     flash["bert_s4096_bf16"])
+                     flash["bert_s4096_bf16"], mesh,
+                     {leg: flash[c] for leg, c in SPMD_FLASH_CASES.items()})
          for kname, line in (("forward", "109"), ("dkv", "235"),
                              ("dq", "298"))]
         + [dropout_entry(fluid_bert["legs"][0]["dropout_launches"], drop)]}

@@ -34,13 +34,33 @@ from __future__ import annotations
 
 import gc
 import time
+import weakref
 from typing import Callable, Dict, List, Tuple
 
 import torch
 
 from .rng import StepSeed, seed_tensor
 
-__all__ = ["Graph", "DonatedStep", "shared_pool", "launch_counts"]
+__all__ = ["Graph", "DonatedStep", "shared_pool", "launch_counts",
+           "release_collective_graphs"]
+
+#: the captured graphs that recorded collectives, until released. NCCL
+#: does not destroy a communicator while a graph that captured its
+#: collectives lives (the destroy waits for it), so leaving the world
+#: releases them first (`distributed.shutdown_parallel_env`).
+_COLLECTIVE_GRAPHS = weakref.WeakSet()
+
+
+def _collective_calls() -> int:
+    from ..ops import collective_ops
+
+    return sum(s["calls"] for s in collective_ops.stats.values())
+
+
+def release_collective_graphs() -> None:
+    """Release every live graph that captured a collective."""
+    for graph in list(_COLLECTIVE_GRAPHS):
+        graph.release()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -118,6 +138,7 @@ class Graph:
             raise RuntimeError("CUDA graphs need a CUDA device, not %s"
                                % self.device)
         before = launch_counts()
+        collectives = _collective_calls()
         graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(self.device)
         with torch.cuda.device(self.device):
@@ -155,6 +176,8 @@ class Graph:
                          if after[k] != before[k]}
         # the capture recorded these launches; replays make them
         _add_counts(self.launches, -1)
+        if _collective_calls() != collectives:
+            _COLLECTIVE_GRAPHS.add(self)
         self.graph = graph
         self.outputs = outputs
         self._body = body
@@ -177,6 +200,7 @@ class Graph:
         pool's memory returns to the caching allocator)."""
         if self.graph is not None:
             self.graph.reset()
+        _COLLECTIVE_GRAPHS.discard(self)
         self.graph = self.outputs = self._body = None
 
 

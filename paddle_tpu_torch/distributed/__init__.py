@@ -12,6 +12,7 @@ so several ranks can share one card over it.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import multiprocessing
 import os
@@ -118,14 +119,28 @@ def init_parallel_env(backend=None, timeout_s=None):
                                % (n, one.item()))
     penv.set_global_mesh(ring)
     penv.register_ring(0, ring)
+    if device is not None:
+        # a script that never leaves the world still exits: NCCL's
+        # communicators go after every graph that captured them
+        from ..core import graphs
+
+        atexit.register(graphs.release_collective_graphs)
     return ParallelEnv()
 
 
 def shutdown_parallel_env():
-    """Leave the world (after `init_parallel_env`)."""
+    """Leave the world (after `init_parallel_env`). The CUDA graphs that
+    captured its collectives are released first, once the card has run
+    every replay queued: NCCL's destroy of a communicator waits for
+    them."""
     import torch.distributed as dist
 
+    from ..core import graphs
+
     if penv.global_mesh() is not None:
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        graphs.release_collective_graphs()
         penv.set_global_mesh(None)
         dist.destroy_process_group()
 

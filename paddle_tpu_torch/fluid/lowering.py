@@ -62,8 +62,9 @@ ring of one (the reference's `_dp_pmean` and `_dp_sync_axes`). The port
 has no dynamic loss scaling (bf16 needs none; float16 raises), so there
 is no found-inf predicate to reduce across ranks. Gloo collectives run
 on the host, so a data-parallel block over gloo runs eagerly; over NCCL
-it is captured at one rank, and runs eagerly at more (replays of
-captured NCCL collectives across ranks hung: ROADMAP Queue 3).
+it is captured at one rank, and runs eagerly at more (captured at 4
+ranks, the replays ran but their losses differed from an eager run's:
+ROADMAP Queue 3).
 
 Scope semantics: the function is pure over a name -> tensor environment.
 Scope state (params, optimizer moments) enters as inputs and leaves as
@@ -580,8 +581,8 @@ def capture_blocker(program, block, ring=None) -> Optional[str]:
     decides on the host, an op flagged `no_jit` or `dynamic_shape`, an
     initializer whose generator is seeded on the host; and a
     data-parallel block whose `ring` is a gloo group, or an NCCL group of
-    more than one rank (replays of captured NCCL collectives across
-    ranks hung; ROADMAP Queue 3)."""
+    more than one rank (its captured losses differed from an eager
+    run's at 4 ranks; ROADMAP Queue 3)."""
     reasons = {}
     if ring is not None and ring.backend == "gloo":
         reasons["gloo"] = ("data-parallel over %r: gloo collectives run "

@@ -42,22 +42,39 @@ def reset_stats():
     stats.clear()
 
 
-def _collective(kind, ring, x, fn):
-    """Run `fn(t)` on a contiguous copy `t` of `x` that lives where the
-    ring's backend can read it (the host for gloo); returns what `fn`
-    returns, each tensor back on `x`'s device."""
+def staged(ring, x):
+    """Whether the ring's backend reads `x` only through a host copy
+    (gloo and a tensor on the card)."""
+    return ring.backend == "gloo" and x.device.type != "cpu"
+
+
+def record(kind, t0, nbytes):
+    """Add one call of `kind`, begun at host time `t0`, to `stats`."""
+    s = stats.setdefault(kind, {"calls": 0, "seconds": 0.0, "bytes": 0})
+    s["calls"] += 1
+    s["seconds"] += time.perf_counter() - t0
+    s["bytes"] += nbytes
+
+
+def _collective(kind, ring, x, fn, in_place=True):
+    """Run `fn(t)` on a contiguous `t` holding `x` where the ring's
+    backend can read it (a host copy for gloo); returns what `fn`
+    returns, each tensor back on `x`'s device. A `fn` that writes `t`
+    (`in_place`) gets a copy; one that only reads it gets `x` itself
+    where `x` is contiguous and needs no staging."""
     t0 = time.perf_counter()
-    stage = ring.backend == "gloo" and x.device.type != "cpu"
-    t = x.detach().to("cpu") if stage else x.detach().clone(
-        memory_format=torch.contiguous_format)
+    stage = staged(ring, x)
+    if stage:
+        t = x.detach().to("cpu", memory_format=torch.contiguous_format)
+    elif in_place:
+        t = x.detach().clone(memory_format=torch.contiguous_format)
+    else:
+        t = x.detach().contiguous()
     out = fn(t)
     if stage:
         out = [o.to(x.device) for o in out] if isinstance(out, list) \
             else out.to(x.device)
-    s = stats.setdefault(kind, {"calls": 0, "seconds": 0.0, "bytes": 0})
-    s["calls"] += 1
-    s["seconds"] += time.perf_counter() - t0
-    s["bytes"] += x.numel() * x.element_size()
+    record(kind, t0, x.numel() * x.element_size())
     return out
 
 
@@ -102,7 +119,7 @@ def all_gather(x, ring):
         dist.all_gather(outs, t, group=ring.group)
         return outs
 
-    return _collective("all_gather", ring, x, fn)
+    return _collective("all_gather", ring, x, fn, in_place=False)
 
 
 def _ring(attrs):

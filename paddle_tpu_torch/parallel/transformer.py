@@ -7,18 +7,39 @@ own Adam, in one eager PyTorch step on explicit tensors: embedding, then
 float32 loss head, `torch.autograd` for the gradients, and the update.
 
 The reference runs one `shard_map`ped, jitted program over a
-("dp", "pp", "tp") mesh. The port runs dp = pp = tp = 1 with
-``sp_mode="megatron"`` only: the mesh collectives come with
-`torch.distributed` (ROADMAP Queue 1 #7), and Ulysses and ring attention
-with the scale-out slice (Queue 1 #10). Parameters keep the reference's
-tree and its stacked ``[pp, layers_per_stage, ...]`` layer leaves, so
-`params_from_numpy` / `params_to_numpy` carry a JAX tree across key by
-key.
+("dp", "pp", "tp") mesh. The port runs one process per device over a
+`parallel.env.Mesh` of `torch.distributed` groups with the same axes,
+and its step makes the reference's collectives explicit
+(`mesh_collectives.py`):
 
-    cfg = SPMDConfig()
-    params = init_params(cfg, seed=0)              # on cuda:0
+- dp: each rank takes its rows of the batch; the gradients are summed
+  over the ranks a parameter is replicated on.
+- pp: GPipe. The layers are stacked on a leading stage dim; stage s runs
+  microbatch t - s at tick t and hands its output to stage s + 1. The
+  port drives the schedule itself, tick by tick: the forward of every
+  microbatch, then the backward of each in reverse, each stage sending
+  the gradient of its input back (`torch.autograd.backward` a microbatch,
+  so every rank of a group runs the same collectives in the same order,
+  remat's recomputed ones too). The reference's bubble ticks compute
+  values it masks out, with exactly zero gradient; the port skips them.
+- tp, ``sp_mode="megatron"``: sequence parallelism between blocks;
+  all-gather of the sequence before attention and the MLP,
+  reduce-scatter after the row-parallel `wo` and `w2`, q/k/v and `w1`
+  column-parallel, attention on H/tp heads.
+- tp, ``sp_mode="ulysses"``: weights replicated, the sequence sharded,
+  attention re-sharded by two all-to-alls (`ulysses.py`).
+
+With no mesh the step is the same code with every collective an
+identity. Parameters keep the reference's tree and its stacked ``[pp,
+layers_per_stage, ...]`` layer leaves; `shard_params` slices a global
+tree to a rank's shard by `param_specs`, and `params_to_numpy` gathers
+the shards back.
+
+    cfg = SPMDConfig(dp=1, pp=2, tp=2)
+    mesh = cfg.mesh()                              # in each of 4 ranks
+    params = shard_params(init_params(cfg, seed=0), cfg, mesh)
     opt = init_opt_state(params)
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, mesh)
     tokens, labels = demo_batch(cfg, batch_global=8)
     for i in range(n):
         params, opt, loss = step(params, opt, tokens, labels, i)
@@ -26,6 +47,7 @@ key.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -33,11 +55,19 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from . import axis_rules
+from . import mesh_collectives as mc
+from .ulysses import ulysses_attention
 from ..core.place import resolve_device
 from ..ops.kernels.flash_attention import flash_attention
+from ..ops.nn_ops import _lookup
 
 __all__ = ["SPMDConfig", "init_params", "init_opt_state", "make_train_step",
-           "demo_batch", "params_from_numpy", "params_to_numpy"]
+           "demo_batch", "params_from_numpy", "params_to_numpy",
+           "param_specs", "shard_params"]
+
+#: the mesh axes, in the order of the reference's Mesh("dp", "pp", "tp")
+AXES = ("dp", "pp", "tp")
 
 # Adam of the reference (`make_train_step`): b1, b2, eps and base lr
 _B1, _B2, _EPS, _LR = 0.9, 0.95, 1e-8, 1e-4
@@ -59,7 +89,10 @@ class SPMDConfig:
     dtype: str = "bfloat16"     # compute dtype (params/opt state fp32)
     remat: bool = True          # recompute each layer in backward
     use_flash: bool = None      # flash attention (None = on a CUDA device)
-    sp_mode: str = "megatron"   # "megatron" | "ulysses" (not ported)
+    sp_mode: str = "megatron"   # "megatron" (SP over tp via gather/
+                                # scatter + sharded weights) or
+                                # "ulysses" (all-to-all head<->sequence
+                                # re-sharding, replicated weights)
 
     def __post_init__(self):
         if self.sp_mode not in ("megatron", "ulysses"):
@@ -76,18 +109,15 @@ class SPMDConfig:
     def d_head(self):
         return self.d_model // self.n_heads
 
+    def mesh(self, backend=None, device=None):
+        """This process's `parallel.env.Mesh` over ("dp", "pp", "tp") of
+        (dp, pp, tp): the world of the launch environment laid out
+        row-major, as the reference reshapes its devices. Every rank of
+        the world calls it."""
+        from .env import Mesh
 
-def _check_ported(cfg):
-    if (cfg.dp, cfg.pp, cfg.tp) != (1, 1, 1):
-        raise NotImplementedError(
-            "dp/pp/tp = %d/%d/%d: the trainer runs one device; its mesh "
-            "over torch.distributed comes with the second half of ROADMAP "
-            "Queue 1 #7"
-            % (cfg.dp, cfg.pp, cfg.tp))
-    if cfg.sp_mode != "megatron":
-        raise NotImplementedError(
-            "sp_mode=%r: Ulysses and ring attention are not ported yet "
-            "(ROADMAP Queue 1 #10)" % (cfg.sp_mode,))
+        return Mesh(AXES, (self.dp, self.pp, self.tp), backend=backend,
+                    device=device)
 
 
 def _compute_dtype(cfg):
@@ -95,8 +125,64 @@ def _compute_dtype(cfg):
 
 
 # ---------------------------------------------------------------------------
-# parameters
+# parameters and their shardings
 # ---------------------------------------------------------------------------
+
+#: per-param logical axis names (one a dim), resolved through
+#: `axis_rules`. Layer params carry a leading 'stage' (pp) dim and a
+#: 'layers' (layers_per_stage) dim from the GPipe stacking.
+_LAYER_AXIS_NAMES = {
+    "ln1_s": ("stage", "layers", "embed"),
+    "ln1_b": ("stage", "layers", "embed"),
+    "wqkv": ("stage", "layers", "embed", "qkv", "joined_kv"),
+    "wo": ("stage", "layers", "joined_kv", "embed"),
+    "ln2_s": ("stage", "layers", "embed"),
+    "ln2_b": ("stage", "layers", "embed"),
+    "w1": ("stage", "layers", "embed", "mlp"),
+    "b1": ("stage", "layers", "mlp"),
+    "w2": ("stage", "layers", "mlp", "embed"),
+    "b2": ("stage", "layers", "embed"),
+}
+
+
+def _transformer_rules(cfg):
+    """The Megatron column/row-parallel assignment over ("dp", "pp",
+    "tp"). Under Ulysses the weights replicate over tp (which carries
+    only the sequence shards), so their gradients sum over tp."""
+    tp = None if cfg.sp_mode == "ulysses" else "tp"
+    return (
+        ("stage", "pp"),
+        ("layers", None),
+        ("embed", None),        # contraction dim — replicate
+        ("qkv", None),          # the q/k/v selector dim
+        ("joined_kv", tp),      # fused heads*kv projection dim
+        ("mlp", tp),            # ffn hidden dim
+        ("vocab", None),        # the embed table stays replicated here
+        ("seq", None),
+        ("batch", None),
+    )
+
+
+def param_specs(cfg):
+    """The tree of specs: for each leaf, one mesh axis (or None) a dim."""
+    rules = _transformer_rules(cfg)
+
+    def res(names):
+        return axis_rules.logical_to_mesh_axes(names, rules)
+
+    return {
+        "embed": res(("vocab", "embed")),
+        "pos": res(("seq", "embed")),
+        "ln_f": {"scale": res(("embed",)), "bias": res(("embed",))},
+        "layers": {n: res(a) for n, a in _LAYER_AXIS_NAMES.items()},
+    }
+
+
+def _replicated_axes(spec):
+    """Mesh axes a leaf is replicated over: its gradient's psum axes."""
+    named = {a for a in spec if a is not None}
+    return tuple(a for a in AXES if a not in named)
+
 
 def init_params(cfg, seed=0, device=None):
     """The reference's tree, shapes and scales (normal * 0.02; the output
@@ -156,9 +242,46 @@ def params_from_numpy(tree, device=None):
         np.asarray(a, dtype=np.float32), device=dev), tree)
 
 
-def params_to_numpy(params):
-    """The tree as numpy float32 arrays, for the JAX side."""
-    return _tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+def shard_params(params, cfg, mesh):
+    """This rank's shard of the global tree `params` (arrays or tensors):
+    each dim that `param_specs` names a mesh axis of is cut into that
+    axis's size and the rank keeps its block (the reference's
+    `device_put` with NamedShardings); float32 on the mesh's device."""
+
+    def shard(a, spec):
+        t = a.detach().float() if isinstance(a, torch.Tensor) else \
+            torch.as_tensor(np.asarray(a, dtype=np.float32))
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            n = mesh.axis_size(axis)
+            if t.shape[dim] % n:
+                raise ValueError("dim %d of %s does not split over %s=%d"
+                                 % (dim, tuple(t.shape), axis, n))
+            k = t.shape[dim] // n
+            t = t.narrow(dim, mesh.axis_index(axis) * k, k)
+        return t.to(mesh.device, copy=True).contiguous()
+
+    return _tree_map(shard, params, param_specs(cfg))
+
+
+def params_to_numpy(params, cfg=None, mesh=None):
+    """The tree as numpy float32 arrays, for the JAX side. With a mesh,
+    `params` are this rank's shards (of parameters, moments or
+    gradients) and come back as the global tree, gathered along every
+    sharded dim (`np.asarray` of the reference's global arrays); every
+    rank of the mesh calls it."""
+    if mesh is None:
+        return _tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+
+    def gather(t, spec):
+        t = t.detach().float()
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                t = mc.all_gather(t, mesh.ring(axis), dim)
+        return t.cpu().numpy()
+
+    return _tree_map(gather, params, param_specs(cfg))
 
 
 def demo_batch(cfg, batch_global, seed=0):
@@ -170,7 +293,7 @@ def demo_batch(cfg, batch_global, seed=0):
 
 
 # ---------------------------------------------------------------------------
-# the model
+# the model, one rank's part (the reference's per-device functions)
 # ---------------------------------------------------------------------------
 
 def _layer_norm(x, scale, bias):
@@ -181,19 +304,25 @@ def _layer_norm(x, scale, bias):
     return (xf - mu) * torch.rsqrt(var + 1e-5) * scale + bias
 
 
-def _layer_fn(cfg, attn_impl, x, ln1_s, ln1_b, wqkv, wo, ln2_s, ln2_b, w1,
-              b1, w2, b2):
-    """One pre-LN block on x [B, S, D] in the compute dtype (the
-    reference's `_layer_fn` at tp = 1)."""
+def _layer_fn(cfg, attn_impl, tp, x, ln1_s, ln1_b, wqkv, wo, ln2_s, ln2_b,
+              w1, b1, w2, b2):
+    """One pre-LN block on the sequence shard x [B, S/tp, D] in the
+    compute dtype, Megatron-SP (the reference's `_layer_fn`): the weights
+    are this rank's tp shards (wqkv [D, 3, D/tp], wo [D/tp, D], w1 [D,
+    F/tp], b1 [F/tp], w2 [F/tp, D]); `tp` is the rank's tp ring."""
     cdt = _compute_dtype(cfg)
-    B, S, D = x.shape
-    H, dh = cfg.n_heads, cfg.d_head
+    heads = cfg.n_heads // cfg.tp
+    dh = cfg.d_head
 
     h = _layer_norm(x, ln1_s, ln1_b).to(cdt)
-    qkv = torch.einsum("bsd,dke->bske", h, wqkv.to(cdt))  # [B, S, 3, D]
+    h_full = mc.all_gather(h, tp, 1)                        # [B, S, D]
+    B, S = h_full.shape[:2]
+    # wqkv's LAST dim is tp-sharded, so each rank holds whole heads of q,
+    # k and v alike
+    qkv = torch.einsum("bsd,dke->bske", h_full, wqkv.to(cdt))
 
     def to_heads(t):
-        return t.reshape(B, S, H, dh).transpose(1, 2)
+        return t.reshape(B, S, heads, dh).transpose(1, 2)
 
     q, k, v = (to_heads(qkv[:, :, i]) for i in range(3))
     if cfg.use_flash:
@@ -206,39 +335,83 @@ def _layer_fn(cfg, attn_impl, x, ln1_s, ln1_b, wqkv, wo, ln2_s, ln2_b, w1,
                                        device=x.device), diagonal=1)
         probs = torch.softmax(scores + causal, dim=-1).to(cdt)
         ctx = (probs @ v).to(cdt)
-    ctx = ctx.transpose(1, 2).reshape(B, S, D)
-    x = x + ctx @ wo.to(cdt)
+    ctx = ctx.transpose(1, 2).reshape(B, S, heads * dh)
+    # partial sums over tp, reduced and scattered back to sequence shards
+    x = x + mc.psum_scatter(ctx @ wo.to(cdt), tp, 1)
+
+    h = _layer_norm(x, ln2_s, ln2_b).to(cdt)
+    h_full = mc.all_gather(h, tp, 1)
+    a = F.gelu(h_full @ w1.to(cdt) + b1.to(cdt), approximate="tanh")
+    mlp_out = mc.psum_scatter(a @ w2.to(cdt), tp, 1) + b2.to(cdt)
+    return x + mlp_out
+
+
+def _layer_fn_ulysses(cfg, attn_impl, tp, x, ln1_s, ln1_b, wqkv, wo, ln2_s,
+                      ln2_b, w1, b1, w2, b2):
+    """The Ulysses block on the sequence shard x [B, S/tp, D] (the
+    reference's `_layer_fn_ulysses`): q/k/v and the MLP run on the shard
+    with full-width (tp-replicated) weights; attention re-shards by two
+    all-to-alls over `tp`."""
+    cdt = _compute_dtype(cfg)
+    B, S_loc, D = x.shape
+    dh = cfg.d_head
+
+    h = _layer_norm(x, ln1_s, ln1_b).to(cdt)
+    qkv = torch.einsum("bsd,dke->bske", h, wqkv.to(cdt))   # [B, S/tp, 3, D]
+
+    def to_heads(t):
+        return t.reshape(B, S_loc, cfg.n_heads, dh)
+
+    ctx = ulysses_attention(
+        *(to_heads(qkv[:, :, i]) for i in range(3)), tp, causal=True,
+        sm_scale=1.0 / math.sqrt(dh), use_flash=bool(cfg.use_flash),
+        impl=attn_impl).to(cdt)
+    x = x + ctx.reshape(B, S_loc, D) @ wo.to(cdt)
 
     h = _layer_norm(x, ln2_s, ln2_b).to(cdt)
     a = F.gelu(h @ w1.to(cdt) + b1.to(cdt), approximate="tanh")
-    mlp_out = a @ w2.to(cdt) + b2.to(cdt)
-    return x + mlp_out
+    return x + a @ w2.to(cdt) + b2.to(cdt)
 
 
 _LAYER_KEYS = ("ln1_s", "ln1_b", "wqkv", "wo", "ln2_s", "ln2_b", "w1", "b1",
                "w2", "b2")
 
 
-def _forward_loss(cfg, attn_impl, p, tokens, labels):
-    """Summed token NLL over B·S of one microbatch, divided by B·S (the
-    reference's `_embed_fn`, `_stage_fn` and `_loss_fn`)."""
-    cdt = _compute_dtype(cfg)
-    S = tokens.shape[1]
-    x = (p["embed"][tokens] + p["pos"][None, :S]).to(cdt)
+def _stage_fn(cfg, layer, layers, x):
+    """This rank's layers_per_stage layers on x (the reference's
+    `_stage_fn`), each under `checkpoint` with remat."""
     # unbind, not per-layer indexing: its backward stacks the layers'
     # gradients once, where each index would add a zero-filled copy of
     # the whole stacked leaf
-    per_layer = zip(*(p["layers"][key][0].unbind(0) for key in _LAYER_KEYS))
-    for lp in per_layer:
+    for lp in zip(*(layers[key][0].unbind(0) for key in _LAYER_KEYS)):
         if cfg.remat:
-            x = checkpoint(_layer_fn, cfg, attn_impl, x, *lp,
-                           use_reentrant=False)
+            x = checkpoint(layer, x, *lp, use_reentrant=False)
         else:
-            x = _layer_fn(cfg, attn_impl, x, *lp)
-    h = _layer_norm(x, p["ln_f"]["scale"], p["ln_f"]["bias"])
+            x = layer(x, *lp)
+    return x
+
+
+def _embed_fn(cfg, p, tokens, tp_index):
+    """This rank's sequence shard of the embedded microbatch tokens [B,
+    S] (the reference's `_embed_fn`, which embeds all of S and slices)."""
+    S_loc = tokens.shape[1] // cfg.tp
+    rows = slice(tp_index * S_loc, (tp_index + 1) * S_loc)
+    # the lookup's weight gradient sums each id's rows in a fixed order on
+    # the card (`ops/nn_ops.py _lookup`), so two runs agree bit for bit
+    x = _lookup(p["embed"], tokens[:, rows], None) + p["pos"][None, rows]
+    return x.to(_compute_dtype(cfg))
+
+
+def _loss_fn(cfg, p, y, labels, tp_index):
+    """The summed token NLL of this rank's sequence shard y [B, S/tp, D]
+    over the microbatch's B·S tokens (the reference's `_loss_fn`; the sum
+    over tp comes outside)."""
+    h = _layer_norm(y, p["ln_f"]["scale"], p["ln_f"]["bias"])
     logits = h @ p["embed"].T
+    S_loc = y.shape[1]
+    lbl = labels[:, tp_index * S_loc:(tp_index + 1) * S_loc]
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    nll = -logp.gather(-1, lbl[..., None])[..., 0]
     return nll.sum() / (labels.shape[0] * labels.shape[1])
 
 
@@ -248,33 +421,157 @@ def _indices(a, dev):
     return a.to(dev).long()
 
 
-def make_train_step(cfg, device=None, with_grads=False, attn_impl="auto"):
+def _local_rows(a, dp, index, dev):
+    """Rows [i B/dp, (i+1) B/dp) of a [n_micro, B, S] batch (the
+    reference's P(None, "dp", None))."""
+    rows = a.shape[1]
+    if rows % dp:
+        raise ValueError("a global batch of %d rows does not split over "
+                         "dp=%d" % (rows, dp))
+    k = rows // dp
+    return _indices(a[:, index * k:(index + 1) * k], dev)
+
+
+def _check_mesh(cfg, mesh):
+    if mesh is None:
+        if (cfg.dp, cfg.pp, cfg.tp) != (1, 1, 1):
+            raise ValueError(
+                "dp/pp/tp = %d/%d/%d needs a mesh: make_train_step(cfg, "
+                "cfg.mesh()) in each of the %d ranks"
+                % (cfg.dp, cfg.pp, cfg.tp, cfg.dp * cfg.pp * cfg.tp))
+    elif mesh.axis_names != AXES or \
+            mesh.axis_sizes != (cfg.dp, cfg.pp, cfg.tp):
+        raise ValueError("the config asks for dp/pp/tp = %d/%d/%d, the mesh "
+                         "is %r" % (cfg.dp, cfg.pp, cfg.tp, mesh))
+    for what, n, d in (("n_heads", cfg.n_heads, cfg.tp),
+                       ("seq_len", cfg.seq_len, cfg.tp),
+                       ("d_ff", cfg.d_ff, cfg.tp),
+                       ("n_layers", cfg.n_layers, cfg.pp)):
+        if n % d:
+            raise ValueError("%s = %d does not split over %d" % (what, n, d))
+
+
+def make_train_step(cfg, mesh=None, device=None, with_grads=False,
+                    attn_impl="auto"):
     """Returns ``step(params, opt_state, tokens, labels, step)`` ->
     ``(params, opt_state, loss)``, or ``(params, opt_state, loss, grads)``
-    when `with_grads`. tokens/labels: [n_micro, B, S] integer arrays or
-    tensors. The returned params and moments are new tensors.
+    when `with_grads`. tokens/labels: the GLOBAL [n_micro, B, S] integer
+    arrays or tensors (each dp rank takes its rows). The returned params,
+    moments and gradients are new tensors: with a mesh, this rank's
+    shards (`shard_params`, `params_to_numpy`); the loss is the global
+    one, the same on every rank.
 
-    `device` defaults to cuda:0 and raises without a card.
-    ``use_flash=None`` turns flash attention on for a CUDA device, as the
-    reference turns it on when no mesh device is a CPU. `attn_impl` goes to
+    `mesh`: the `parallel.env.Mesh` of (dp, pp, tp) (`cfg.mesh()`), or
+    None for one process (dp = pp = tp = 1). `device` defaults to the
+    mesh's, else cuda:0, and raises without a card. ``use_flash=None``
+    turns flash attention on for a CUDA device, as the reference turns
+    it on when no mesh device is a CPU. `attn_impl` goes to
     `flash_attention` ("auto": the kernels on the card, the plain version
     on the CPU; "reference": the plain version anywhere)."""
-    _check_ported(cfg)
-    dev = resolve_device(device)
+    _check_mesh(cfg, mesh)
+    dev = mesh.device if mesh is not None and device is None \
+        else resolve_device(device)
+    if mesh is not None and dev != mesh.device:
+        raise ValueError("device %s is not the mesh's %s"
+                         % (dev, mesh.device))
     if cfg.use_flash is None:
         cfg = dataclasses.replace(cfg, use_flash=dev.type == "cuda")
-    n_micro = cfg.n_micro
+    rings = {a: mesh.ring(a) if mesh is not None else None for a in AXES}
+    index = {a: mesh.axis_index(a) if mesh is not None else 0 for a in AXES}
+    stage, n_stages, n_micro = index["pp"], cfg.pp, cfg.n_micro
+    first, last = stage == 0, stage == n_stages - 1
+    pp_ring = rings["pp"]
+    layer = functools.partial(
+        _layer_fn_ulysses if cfg.sp_mode == "ulysses" else _layer_fn,
+        cfg, attn_impl, rings["tp"])
+    specs = param_specs(cfg)
+    cdt = _compute_dtype(cfg)
+    # the differentiated loss is the LOCAL one over n_micro · dp: no
+    # collective inside it (a psum there would scale every cotangent by
+    # its group's size); the gradient sums below make it the batch mean
+    scale = 1.0 / (n_micro * cfg.dp)
+
+    def fwd_valid(t):
+        return 0 <= t - stage < n_micro
+
+    def bwd_micro(u):
+        # the backward runs the microbatches in reverse, the last stage
+        # first
+        return n_micro - 1 - (u - (n_stages - 1 - stage))
+
+    def pipeline(p, tokens, labels):
+        """The GPipe schedule: forward ticks, then backward ticks; fills
+        the leaves' .grad; returns this rank's summed loss."""
+        like = torch.empty((tokens.shape[1], cfg.seq_len // cfg.tp,
+                            cfg.d_model), dtype=cdt, device=dev)
+        ticks = n_micro + n_stages - 1
+        saved, inbox = {}, None
+        loss = torch.zeros((), device=dev)
+        for t in range(ticks):
+            y = None
+            if fwd_valid(t):
+                mb = t - stage
+                x = _embed_fn(cfg, p, tokens[mb], index["tp"]) if first \
+                    else inbox.requires_grad_(True)
+                y = _stage_fn(cfg, layer, p["layers"], x)
+                if last:
+                    y = _loss_fn(cfg, p, y, labels[mb], index["tp"]) * scale
+                    loss = loss + y.detach()
+                saved[mb] = (x, y)
+            if pp_ring is not None:
+                got = mc.exchange(
+                    pp_ring, [(stage + 1, y)] if y is not None and not last
+                    else [], [stage - 1] if not first and fwd_valid(t + 1)
+                    else [], like)
+                inbox = got[0] if got else None
+        grad_in = None
+        for u in range(ticks):
+            mb, gx = bwd_micro(u), None
+            if 0 <= mb < n_micro:
+                x, out = saved.pop(mb)
+                torch.autograd.backward(out, None if last else grad_in)
+                gx = None if first else x.grad
+            if pp_ring is not None:
+                got = mc.exchange(
+                    pp_ring, [(stage - 1, gx)] if gx is not None else [],
+                    [stage + 1] if not last and 0 <= bwd_micro(u + 1)
+                    < n_micro else [], like)
+                grad_in = got[0] if got else None
+        return loss
+
+    def reduce_grads(grads):
+        """Each leaf summed over the axes its parameter is replicated on,
+        one flat buffer for each set of axes."""
+        leaves, buckets = [], {}
+
+        def collect(g, spec):
+            axes = tuple(a for a in _replicated_axes(spec)
+                         if rings[a] is not None)
+            if axes:
+                buckets.setdefault(axes, []).append(len(leaves))
+            leaves.append(g)
+
+        _tree_map(collect, grads, specs)
+        for axes, ids in buckets.items():
+            flat = mc.psum(torch.cat([leaves[i].reshape(-1) for i in ids]),
+                           [rings[a] for a in axes])
+            for i, part in zip(ids, flat.split(
+                    [leaves[i].numel() for i in ids])):
+                leaves[i] = part.view_as(leaves[i])
+        it = iter(leaves)
+        return _tree_map(lambda _: next(it), grads)
 
     def train_step(params, opt_state, tokens, labels, step):
-        tokens, labels = _indices(tokens, dev), _indices(labels, dev)
+        tokens = _local_rows(tokens, cfg.dp, index["dp"], dev)
+        labels = _local_rows(labels, cfg.dp, index["dp"], dev)
         p = _tree_map(lambda t: t.detach().requires_grad_(True), params)
-        leaves = []
-        _tree_map(leaves.append, p)
-        loss = sum(_forward_loss(cfg, attn_impl, p, tokens[t], labels[t])
-                   for t in range(n_micro)) / (n_micro * cfg.dp)
-        flat = torch.autograd.grad(loss, leaves)
-        it = iter(flat)
-        grads = _tree_map(lambda _: next(it), p)
+        loss = pipeline(p, tokens, labels)
+        grads = reduce_grads(_tree_map(
+            lambda t: t.grad if t.grad is not None
+            else torch.zeros_like(t), p))
+        # the reported loss: the partial token means summed over tp, the
+        # last stage's over pp, and the 1/dp means over dp
+        loss = mc.psum(loss, [rings["tp"], rings["pp"], rings["dp"]])
 
         with torch.no_grad():
             t = torch.tensor(float(step) + 1.0, dtype=torch.float32,
@@ -295,7 +592,7 @@ def make_train_step(cfg, device=None, with_grads=False, attn_impl="auto"):
         new_m = _tree_map(lambda o: o[1], out)
         new_v = _tree_map(lambda o: o[2], out)
         if with_grads:
-            return new_p, (new_m, new_v), loss.detach(), grads
-        return new_p, (new_m, new_v), loss.detach()
+            return new_p, (new_m, new_v), loss, grads
+        return new_p, (new_m, new_v), loss
 
     return train_step

@@ -148,6 +148,20 @@ def test_capture_blockers_of_data_parallel_blocks():
         main, block, tenv.Ring(None, "nccl", [0, 1, 2, 3], 2))
 
 
+def test_leaving_the_world_releases_collective_graphs():
+    """NCCL's destroy of a communicator waits for the CUDA graphs that
+    captured its collectives (4 ranks then never exited):
+    `shutdown_parallel_env` releases the registered graphs first, and a
+    released graph leaves the registry."""
+    from paddle_tpu_torch.core import graphs
+
+    g = graphs.Graph("cpu", runner=lambda body: body())
+    g.capture(lambda: None)
+    graphs._COLLECTIVE_GRAPHS.add(g)
+    graphs.release_collective_graphs()
+    assert not g.captured and g not in graphs._COLLECTIVE_GRAPHS
+
+
 def test_ops_are_identities_without_a_live_ring():
     """Outside a data-parallel run every collective op returns its input,
     as the reference's do outside a mesh; dgc raises."""

@@ -12,7 +12,8 @@ replayed: the replays equal the eager run bit for bit, which equals the
 ops' identity outside a world (at world 1 every collective returns its
 input). The MNIST MLP through `with_data_parallel`, captured, gives the
 plain program's losses bit for bit (data parallelism at world 1 is the
-identity, in the reference too)."""
+identity, in the reference too). Leaving the world releases the graphs
+that captured its collectives."""
 import numpy as np
 import pytest
 import torch
@@ -142,3 +143,26 @@ def test_dp_mlp_at_world_one_equals_plain(world, graphs_on):
         assert exe.last_entry.phase == "captured"
     assert out[True].shape == (8, 1)
     np.testing.assert_array_equal(out[True], out[False])
+
+
+def test_leaving_the_world_releases_its_captured_graphs(world, graphs_on):
+    """A captured data-parallel block is registered as a graph holding
+    collectives (NCCL does not destroy a communicator while such a graph
+    lives); `shutdown_parallel_env` releases it. Runs last: it leaves the
+    world and joins a new one for the module's teardown."""
+    from paddle_tpu_torch.core import graphs
+
+    main, fetch = _collective_program()
+    prog = fluid.CompiledProgram(main).with_data_parallel()
+    exe = fluid.Executor()
+    x = np.ones((8, 4), dtype="float32")
+    for _ in range(3):
+        exe.run(prog, feed={"x": x}, fetch_list=fetch)
+    graph = exe.last_entry._step.graph
+    assert exe.last_entry.phase == "captured" and graph.replays == 2
+    assert graph in graphs._COLLECTIVE_GRAPHS
+    distributed.shutdown_parallel_env()
+    assert penv.global_mesh() is None
+    assert len(graphs._COLLECTIVE_GRAPHS) == 0 and graph.graph is None
+    distributed.init_parallel_env(backend="nccl")
+    assert penv.global_mesh().backend == "nccl"

@@ -336,8 +336,9 @@ def test_port_imports_no_jax():
     static graph, takes a bf16 AMP step of a tiny scanned BERT, a step of
     a small ResNet, and two noam-Adam steps of a tiny Transformer, which
     it then decodes with beam search, launches a 2-rank gloo
-    data-parallel MLP step whose ranks import neither, and has imported
-    neither jax nor anything of paddle_tpu."""
+    data-parallel MLP step and a 2-stage pipeline step of the trainer on a
+    mesh of those ranks, which import neither, and has imported neither
+    jax nor anything of paddle_tpu."""
     code = (
         "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
@@ -429,6 +430,14 @@ def test_port_imports_no_jax():
         "      '\"x\": r.randn(4, 8).astype(\"float32\"),'\n"
         "      '\"y\": r.randint(0, 4, (4, 1))})[0]\\n'\n"
         "      'assert l.shape == (2,) and np.isfinite(l).all(), l\\n'\n"
+        "      'from paddle_tpu_torch.parallel import transformer as tt\\n'\n"
+        "      'c = tt.SPMDConfig(vocab=64, d_model=32, n_heads=4, d_ff=64, '\n"
+        "      'seq_len=16, n_layers=2, n_micro=2, pp=2, use_flash=True)\\n'\n"
+        "      'm = c.mesh(device=\"cpu\")\\n'\n"
+        "      'mp = tt.shard_params(tt.init_params(c, device=\"cpu\"), c, m)\\n'\n"
+        "      'ml = tt.make_train_step(c, m)(mp, tt.init_opt_state(mp), '\n"
+        "      '*tt.demo_batch(c, 2), 0)[2]\\n'\n"
+        "      'assert np.isfinite(float(ml)), ml\\n'\n"
         "      'bad = [m for m in sys.modules if m.split(\".\")[0] in '\n"
         "      '(\"jax\", \"jaxlib\", \"paddle_tpu\")]\\n'\n"
         "      'assert not bad, bad\\n'\n"

@@ -4,8 +4,8 @@ one device: the JAX parameters carried across with `params_from_numpy`,
 the same `demo_batch`, then the losses of 3 steps and the gradients of the
 first, with flash attention (the JAX Pallas kernels interpreted; the
 port's plain flash version) and with the composite attention. Then the
-port's own contracts: remat on == off, no silent CPU fallback, and the
-mesh and sequence-parallel modes that are not ported raise.
+port's own contracts: remat on == off, no silent CPU fallback, and a
+mesh config without a mesh raises.
 
 Each JAX configuration runs once per module (a fixture shares it).
 
@@ -152,11 +152,14 @@ def test_no_silent_cpu_fallback(monkeypatch):
         tt.init_params(cfg)
 
 
-@pytest.mark.parametrize("mesh", [dict(dp=2), dict(pp=2), dict(tp=2),
-                                  dict(sp_mode="ulysses")])
-def test_unported_modes_raise(mesh):
-    cfg = dataclasses.replace(tt.SPMDConfig(**SMALL), **mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #"):
-        tt.make_train_step(cfg, device="cpu")
+def test_sp_mode_validated():
     with pytest.raises(ValueError, match="sp_mode"):
         tt.SPMDConfig(sp_mode="ring")
+
+
+def test_mesh_needs_a_mesh():
+    """dp, pp or tp above 1 without a mesh raises (the mesh runs one
+    process a device: tests/test_torch_spmd_mesh.py)."""
+    cfg = dataclasses.replace(tt.SPMDConfig(**SMALL), pp=2)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tt.make_train_step(cfg, device="cpu")
