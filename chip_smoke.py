@@ -155,13 +155,17 @@ Phases, each printing one JSON line:
    `fleet.distributed_optimizer`, `minimize`, `fuse_optimizer_ops`, on 2
    ranks that share the one card over gloo (NCCL needs a card per rank),
    each taking Paddle's per-card batch of 128 from the global batch of
-   256: 2 warm-up and 5 timed steps, eager (gloo collectives run on the
-   host, so the block is not captured, and the leg checks that it says
-   so); every gathered loss finite, every parameter and optimizer state
-   bit-equal across the ranks after the steps (running statistics stay
-   per rank); per-rank median step ms, total images/s, the host ms a
-   step spent in the gradient all-reduce, peak memory per rank, beside
-   phase 9 leg a's single-process figures. Leg b: ResNet50 at 32 x 32,
+   256, with the sharded weight update (the default: ZeRO-1, fleet's
+   gradient all-reduces lowered to bucketed reduce-scatters, the
+   Momentum velocities and AMP masters held as 1/N slices, the params
+   all-gathered): 2 warm-up and 5 timed steps, eager (gloo collectives
+   run on the host, so the block is not captured, and the leg checks
+   that it says so); every gathered loss finite, every parameter and
+   optimizer state (read at its logical shape) bit-equal across the
+   ranks after the steps (running statistics stay per rank); per-rank
+   median step ms, total images/s, the host ms, calls and MB a step of
+   the collectives, the optimizer state a rank holds, peak memory per
+   rank, beside phase 9 leg a's single-process figures. Leg b: ResNet50 at 32 x 32,
    10 classes, fp32, zero-gamma, batch 4 a rank, fleet DP, 2 ranks over
    gloo on the card and 2 on the CPU from one startup state, once
    without and once with `sync_batch_norm`: 3 steps' gathered losses and
@@ -194,13 +198,32 @@ Phases, each printing one JSON line:
    losses within 2e-4 and the step-0 gradients, gathered, within 5e-4
    of that process's, with the kernels and with `attn_impl="reference"`
    alike; a rank that fails fails the phase;
-14. kernels — one line listing every ported kernel with its launches on
+14. zero — the sharded weight update (ZeRO-1) against the replicated
+   one, on 2 gloo ranks sharing the card (`distributed.spawn`), each
+   rank running both from the same start state for 1 warm-up and 3
+   timed steps, each leg on a line of its own (`zero_leg`), the phase a
+   closing one. Leg a:
+   BASELINE config 5 (phase 12 leg a's fleet ResNet50, 128 a rank):
+   losses and every persistable at its logical shape bit-equal on
+   against off. Leg b: fluid BERT-base pretraining at S 4096 x 2 (1 a
+   rank; phase 8 leg b's program: bf16 AMP O2, fused Adam, scan remat,
+   the flash kernels with the key bias and dropout) through
+   `with_data_parallel`: the fp32 masters and the moments sharded, the
+   flash and dropout kernels' launch counts (zeroed just before the
+   steps) above 0 in both runs, losses and state within 1e-2 (relative,
+   the state in norm) where not bit-equal. Both legs: the state
+   sharded on (a rank holds about half the logical optimizer-state
+   bytes, as `CompiledBlock.info()` reports) and not off, the replicas
+   bit-equal; per rank the optimizer-state bytes (logical and held),
+   the collectives' calls, MB and host ms a step, the step ms, peak
+   memory;
+15. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, their launches and times on the fluid BERT path and their
    launches a rank on the mesh trainer; the dropout kernel with its
    launches on fluid BERT leg a); launches made by graph replays count;
-15. the last line, ``{"ok": true, "device": {...}}``, printed only when
+16. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -363,6 +386,15 @@ SPMD_C_MESHES = [dict(dp=1, pp=2, tp=2, sp_mode="megatron"),
                  dict(dp=2, pp=1, tp=2, sp_mode="ulysses")]
 SPMD_C_STEPS, SPMD_C_SEED = 3, 5
 SPMD_C_LOSS_RTOL, SPMD_C_GRAD_RTOL, SPMD_C_GRAD_ATOL = 2e-4, 5e-4, 1e-6
+#: phase 14, the sharded weight update (ZeRO-1) on 2 gloo ranks sharing
+#: the card, on against off from one state: leg a BASELINE config 5 (phase
+#: 12 leg a's ResNet50, 128 a rank), leg b fluid BERT-base at S 4096 x 2
+#: (1 a rank; phase 8 leg b's program: bf16 AMP O2, fused Adam, scan
+#: remat, the flash kernels); leg b's tolerance, losses and the state
+#: relative in norm, where its runs are not bit-equal
+ZERO_WARMUP, ZERO_STEPS = 1, 3
+ZERO_B = dict(seq=4096, batch=2)
+ZERO_B_RTOL = 1e-2
 
 
 def emit(obj):
@@ -2161,15 +2193,17 @@ def phase_graphs(torch, name):
 
 # -- phase 12 -----------------------------------------------------------------
 
-def fleet_state_digest(scope, names):
-    """name -> sha256 of the value's bytes (bit-equality across ranks
-    without moving the values)."""
+def fleet_state_digest(exe, program, scope, names):
+    """name -> sha256 of the value's bytes at its logical shape
+    (bit-equality across ranks without moving the values; the moments
+    and masters the sharded update keeps as 1/N slices are gathered
+    first, so every rank calls this alike)."""
     import hashlib
 
     from paddle_tpu_torch.core.types import to_numpy
 
-    return {n: hashlib.sha256(to_numpy(scope.find_var(n)).tobytes())
-            .hexdigest() for n in names}
+    return {n: hashlib.sha256(to_numpy(exe.read_logical(
+        n, program, scope)).tobytes()).hexdigest() for n in names}
 
 
 def fleet_dump(path, obj):
@@ -2216,8 +2250,10 @@ def fleet_worker_a(out_dir):
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "collectives": stats, "device": str(exe.device),
         "mode": exe.last_entry.mode, "reason": exe.last_entry.reason,
+        "opt_state": {k: v for k, v in exe.last_entry.info().items()
+                      if k.startswith(("opt_state", "grad_buckets"))},
         "types": [op.type for op in main.global_block().ops],
-        "digest": fleet_state_digest(scope, names)})
+        "digest": fleet_state_digest(exe, main, scope, names)})
 
 
 def fleet_worker_b(out_dir, where, sync_bn, state_path):
@@ -2258,7 +2294,7 @@ def fleet_worker_b(out_dir, where, sync_bn, state_path):
         "stats": {n: v.tolist() for n, v in dump_numpy_state(
             scope, stats).items()} if rank == 0 else {},
         "digest": fleet_state_digest(
-            scope, [n for n in names if n not in stats])})
+            exe, main, scope, [n for n in names if n not in stats])})
 
 
 def fleet_collective_program(fluid, layers_collective):
@@ -2346,6 +2382,23 @@ def fleet_worker_c(out_dir):
     fleet_dump(os.path.join(out_dir, "c.json"), res)
 
 
+def collectives_per_step(stats, steps):
+    """Each rank's collectives a step from its `collective_ops.stats`
+    over `steps` steps: host ms, calls and MB in all, and by kind."""
+    return {
+        "collective_ms_per_step": [sum(
+            v["seconds"] for v in st.values()) * 1e3 / steps
+            for st in stats],
+        "collective_calls_per_step": [sum(
+            v["calls"] for v in st.values()) / steps for st in stats],
+        "collective_mb_per_step": [sum(
+            v["bytes"] for v in st.values()) / 1e6 / steps for st in stats],
+        "collectives_by_kind": [{k: {
+            "calls": v["calls"] / steps, "ms": v["seconds"] * 1e3 / steps,
+            "mb": v["bytes"] / 1e6 / steps} for k, v in st.items()}
+            for st in stats]}
+
+
 def fleet_spawn(distributed, func, args, nprocs, backend):
     """Run `func(*args)` on `nprocs` ranks over `backend`; a failing rank
     or the time limit fails the phase (every process is gone after)."""
@@ -2366,17 +2419,13 @@ def fleet_leg_a(torch, distributed, out_dir, single):
     ranks = [fleet_read(out_dir, "a%d.json" % r) for r in range(2)]
     c = FLEET_A
     med = [statistics.median(r["step_ms"]) for r in ranks]
-    ar = [r["collectives"].get("all_reduce", {}) for r in ranks]
     res = dict(c, ranks=2, backend="gloo", per_rank_batch=c["batch"] // 2,
                losses=ranks[0]["losses"],
                median_step_ms=med, step_ms=[r["step_ms"] for r in ranks],
                images_per_sec=c["batch"] / (max(med) / 1e3),
-               allreduce_ms_per_step=[
-                   a.get("seconds", 0.0) * 1e3 / FLEET_STEPS for a in ar],
-               allreduce_calls_per_step=[
-                   a.get("calls", 0) / FLEET_STEPS for a in ar],
-               allreduce_mb_per_step=[
-                   a.get("bytes", 0) / 1e6 / FLEET_STEPS for a in ar],
+               **collectives_per_step([r["collectives"] for r in ranks],
+                                      FLEET_STEPS),
+               opt_state=[r["opt_state"] for r in ranks],
                peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
                devices=[r["device"] for r in ranks],
                mode=ranks[0]["mode"], eager_reason=ranks[0]["reason"],
@@ -2749,6 +2798,197 @@ def phase_spmd_mesh(torch, name, single):
     return legs
 
 
+# -- phase 14 -----------------------------------------------------------------
+
+def zero_worker(out_dir, leg):
+    """One rank of phase 14: leg "a" (fleet ResNet50) or "b" (BERT-base
+    through `with_data_parallel`), with the sharded update on and then
+    off, each from the same start state (the first run's startup, put
+    back into the second's scope): the steps' losses and ms, the
+    collectives a step, the optimizer state a rank holds, the kernels'
+    launch counts (zeroed just before the steps, read just after) and,
+    against the other run, the state at its logical shape."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch import distributed, fleet, fluid
+    from paddle_tpu_torch.core.types import to_numpy
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.ops.kernels import dropout, \
+        flash_attention as fa
+
+    rank = distributed.get_rank()
+    out, start, logical = {}, None, {}
+    for variant in ("on", "off"):
+        fluid.set_flags({"FLAGS_tpu_sharded_weight_update":
+                         variant == "on"})
+        if leg == "a":
+            c = FLEET_A
+            main, startup, loss = build_fluid_resnet(
+                fluid, c["img"], c["classes"], c["lr"], True,
+                strategy=fleet.DistributedStrategy())
+            prog = main
+            feed = resnet_feed(c["batch"], c["img"], c["classes"])
+        else:
+            cfg = bert_cfg(ZERO_B["seq"])
+            main, startup, loss, _ = build_fluid_bert(fluid, cfg,
+                                                      ZERO_B["seq"], True)
+            prog = fluid.CompiledProgram(main).with_data_parallel()
+            feed = bert.bert_feed(cfg, ZERO_B["batch"], ZERO_B["seq"])
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        if start is None:
+            start = {n: scope.find_var(n).clone() for n in names}
+        else:
+            for n in names:
+                scope.set_var(n, start[n].clone())
+        def step():
+            return exe.run(prog, feed=feed, fetch_list=[loss],
+                           scope=scope)[0].ravel().tolist()
+
+        # the warm-up step also broadcasts rank 0's state
+        losses = [step() for _ in range(ZERO_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collective_ops.reset_stats()
+        fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+        fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
+        dropout.launches = 0
+        step_ms = []
+        for _ in range(ZERO_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {"flash_forward": fa.fwd_launches,
+                    "flash_dkv": fa.dkv_launches, "flash_dq": fa.dq_launches,
+                    "dropout": dropout.launches}
+        stats = {k: dict(v) for k, v in collective_ops.stats.items()}
+        info = exe.last_entry.info()
+        plan = main._shard_plan if variant == "on" else None
+        logical[variant] = {n: exe.read_logical(n, main, scope).clone()
+                            for n in names}
+        out[variant] = {
+            "losses": losses, "step_ms": step_ms, "launches": launches,
+            "collectives": stats, "mode": info["mode"],
+            "reason": info["reason"],
+            "opt_state": {k: v for k, v in info.items()
+                          if k.startswith(("opt_state", "grad_buckets"))},
+            "masters_sharded": len(plan.master_of) if plan else 0,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "digest": {n: hashlib.sha256(to_numpy(v).tobytes()).hexdigest()
+                       for n, v in logical[variant].items()
+                       if not n.endswith(("_bn_mean", "_bn_var"))}}
+        del exe, scope, prog, main
+        torch.cuda.empty_cache()
+    on, off = logical["on"], logical["off"]
+    out["state_bit_equal"] = all(torch.equal(on[n], off[n]) for n in on)
+    out["state_max_abs_diff"] = max(float((on[n].double() - off[n].double())
+                                          .abs().max()) for n in on)
+    out["state_max_rel_norm"] = max(float(
+        (on[n].double() - off[n].double()).norm()
+        / max(float(off[n].double().norm()), 1e-30)) for n in on)
+    fleet_dump(os.path.join(out_dir, "zero_%s%d.json" % (leg, rank)), out)
+
+
+def zero_leg(distributed, out_dir, leg):
+    fleet_spawn(distributed, zero_worker, (out_dir, leg), 2, "gloo")
+    ranks = [fleet_read(out_dir, "zero_%s%d.json" % (leg, r))
+             for r in range(2)]
+    res = {"leg": leg, "ranks": 2, "backend": "gloo",
+           "warmup_steps": ZERO_WARMUP, "timed_steps": ZERO_STEPS,
+           "config": ("BASELINE config 5: fleet ResNet50, 224 x 224, "
+                      "batch 128 a rank, bf16 AMP O2, fused Momentum"
+                      if leg == "a" else
+                      "fluid BERT-base pretraining, S 4096 x 2 (1 a rank), "
+                      "bf16 AMP O2, fused Adam, scan remat")}
+    for variant in ("on", "off"):
+        v = [r[variant] for r in ranks]
+        med = [statistics.median(x["step_ms"]) for x in v]
+        res[variant] = dict(
+            losses=v[0]["losses"], step_ms=[x["step_ms"] for x in v],
+            median_step_ms=med, mode=v[0]["mode"],
+            opt_state=[x["opt_state"] for x in v],
+            masters_sharded=v[0]["masters_sharded"],
+            launches=[x["launches"] for x in v],
+            peak_mem_bytes=[x["peak_mem_bytes"] for x in v],
+            **collectives_per_step([x["collectives"] for x in v],
+                                   ZERO_STEPS))
+    res["losses_bit_equal"] = res["on"]["losses"] == res["off"]["losses"]
+    res["max_loss_rel_diff"] = max(
+        abs(a - b) / max(abs(b), 1e-30) for sa, sb in zip(
+            res["on"]["losses"], res["off"]["losses"])
+        for a, b in zip(sa, sb))
+    res["state_bit_equal"] = [r["state_bit_equal"] for r in ranks]
+    res["state_max_abs_diff"] = [r["state_max_abs_diff"] for r in ranks]
+    res["state_max_rel_norm"] = [r["state_max_rel_norm"] for r in ranks]
+    res["replicas_bit_equal"] = all(
+        ranks[0][v]["digest"] == ranks[1][v]["digest"] for v in ("on", "off"))
+    emit({"phase": "zero_leg", **res})
+    on = res["on"]
+    check(all(math.isfinite(x) for s_ in on["losses"] for x in s_)
+          and len(on["losses"][0]) == 2, "zero %s: losses %s"
+          % (leg, on["losses"]))
+    check(on["mode"] == "eager" and res["off"]["mode"] == "eager",
+          "zero %s: expected eager gloo blocks" % leg)
+    check(all(o["opt_state_sharded_vars"] > 0
+              and 2 * o["opt_state_per_replica_bytes"]
+              < 1.01 * o["opt_state_logical_bytes"] for o in on["opt_state"])
+          and all(o["opt_state_sharded_vars"] == 0
+                  for o in res["off"]["opt_state"]),
+          "zero %s: state not sharded: %s / %s" % (
+              leg, on["opt_state"], res["off"]["opt_state"]))
+    check(res["replicas_bit_equal"], "zero %s: replicas differ" % leg)
+    if leg == "a":
+        check(res["losses_bit_equal"] and all(res["state_bit_equal"]),
+              "zero a: on and off differ (losses %s, state %s)" % (
+                  res["max_loss_rel_diff"], res["state_max_abs_diff"]))
+    else:
+        check(on["masters_sharded"] > 0, "zero b: AMP masters not sharded")
+        check(all(x["flash_forward"] > 0 and x["flash_dkv"] > 0
+                  and x["flash_dq"] > 0 and x["dropout"] > 0
+                  for v in ("on", "off") for x in res[v]["launches"]),
+              "zero b: kernel launches %s / %s" % (
+                  on["launches"], res["off"]["launches"]))
+        check(res["max_loss_rel_diff"] <= ZERO_B_RTOL
+              and max(res["state_max_rel_norm"]) <= ZERO_B_RTOL,
+              "zero b: on and off differ by %s (losses), %s (state)" % (
+                  res["max_loss_rel_diff"], res["state_max_rel_norm"]))
+    return res
+
+
+def phase_zero(torch, name):
+    """Phase 14: the sharded weight update on against off, on 2 gloo
+    ranks sharing the card. Leg a: BASELINE config 5; leg b: fluid
+    BERT-base with its AMP masters sharded and the flash kernels."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="zero_")
+    try:
+        legs = {leg: zero_leg(distributed, out_dir, leg) for leg in "ab"}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"phase": "zero", "seconds": time.perf_counter() - t0,
+           "legs": ["a", "b"], "device": name,
+           "nvidia_smi": nvidia_smi_line(),
+           "median_step_ms": {k: {v: legs[k][v]["median_step_ms"]
+                                  for v in ("on", "off")} for k in legs},
+           "bit_equal": {k: legs[k]["losses_bit_equal"]
+                         and all(legs[k]["state_bit_equal"])
+                         for k in legs}}
+    emit(res)
+    return legs
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -2867,6 +3107,7 @@ def main():
     phase_graphs(torch, name)
     phase_fleet_dp(torch, name, resnet["leg_a"])
     mesh = phase_spmd_mesh(torch, name, train)
+    phase_zero(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

@@ -155,7 +155,10 @@ class Graph:
             gc_was_on = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                # thread_local: a device prefetcher's thread may copy the
+                # next batch (and allocate pinned memory) meanwhile
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                      capture_error_mode="thread_local"):
                     outputs = body()
             except Exception as e:
                 after = launch_counts()

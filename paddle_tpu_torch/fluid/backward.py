@@ -21,6 +21,24 @@ def _collect_forward_used_names(block, upto_idx):
     return used
 
 
+def _grad_topo_index(block, upto_idx, names):
+    """For each name, the index of the last forward op that reads it
+    (looking through control-flow sub-blocks). The backward produces
+    gradients by walking the forward in reverse, so a var with a larger
+    last-use index gets its gradient earlier: the order the gradient
+    buckets of the sharded update follow
+    (`parallel/sharded_update.plan_buckets`)."""
+    from .lowering import _op_reads_writes
+
+    want = set(names)
+    last = {}
+    for i, op in enumerate(block.ops[:upto_idx]):
+        for n in _op_reads_writes(op)[0]:
+            if n in want:
+                last[n] = i
+    return last
+
+
 def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append the backward section for `loss`; returns [(param, grad)].
@@ -79,5 +97,8 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         outputs={"Grad": [grad_var_name(n) for n in diff_names],
                  "LossGrad": [loss_grad]},
         attrs={"loss_name": loss.name, "diff_names": diff_names,
-               "loss_scale": 1.0, "_is_backward": True})
+               "loss_scale": 1.0, "_is_backward": True,
+               # gradient production order for the bucketed collectives
+               # (a larger index materializes earlier in the backward)
+               "grad_topo": _grad_topo_index(block, upto, diff_names)})
     return params_grads

@@ -4,9 +4,11 @@
 The white/black-list casts are applied op by op as the block runs
 (`fluid/lowering._apply_amp_casts`); this module makes the rewrite that
 changes the program's state: `rewrite_master_weights`, fp32 master
-weights with bf16 live parameters, on one device (the reference's ZeRO
-split of the masters is not ported). Dynamic loss scaling (fp16) and the
-fp8 tier are not ported.
+weights with bf16 live parameters. In a data-parallel program the
+sharded update keeps each rank's 1/N slice of the masters
+(`parallel/sharded_update.py`, which finds them through
+``program._amp_master_of`` and the ``__amp_param_cast__`` casts).
+Dynamic loss scaling (fp16) and the fp8 tier are not ported.
 """
 from __future__ import annotations
 

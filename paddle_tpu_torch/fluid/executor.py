@@ -31,6 +31,14 @@ rank 0 (once a scope: an evaluation clone keeps the per-rank running
 statistics), and with random_seed 0 every rank takes rank 0's step
 seeds, so the replicas start equal and draw the same dropout masks. The cache key holds the
 world, so an entry compiled for one world never runs in another.
+
+With the sharded weight update (ZeRO-1, `parallel/sharded_update.py`,
+on by default) the scope holds this rank's flat 1/N slice of each
+optimizer moment and AMP master the entry keeps sharded: the first run
+lays each out from its logical value after the broadcast, and
+`read_logical` gathers one back at its logical shape (every rank calls
+it alike). `feed_sharding` gives `reader.prefetch_to_device` this rank's
+rows, and a feed the prefetcher already cut to them is left as it is.
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ from .compiler import CompiledProgram
 from ..core.scope import global_scope
 from ..ops import collective_ops
 from ..parallel import env as penv
+from ..parallel import sharded_update as _su
+from ..reader import prefetcher
 from ..core.types import from_numpy, to_numpy, to_numpy_dtype, \
     to_torch_dtype
 from ..utils.flags import get_flag
@@ -97,6 +107,7 @@ class Executor:
         self.last_entry = entry
         if ring is not None:
             self._sync_start(program, scope, ring)
+            self._layout_sharded(entry, scope)
         states = self._gather_states(entry.state_in, scope)
         seed = framework._global_seed_and_bump(program)
         fetches, new_states = entry.run(feeds, states, seed % (2**31))
@@ -169,6 +180,7 @@ class Executor:
                 continue
             copies = {n: v.clone() for n, v in self._gather_states(
                 entry.state_in, scope).items()}
+            self._layout_sharded(entry, copies)
             # an eager entry's discarded step, or a graph entry's eager
             # step and then its capture (with one replay)
             entry.run(feeds, copies, 0)
@@ -176,6 +188,35 @@ class Executor:
                 entry.run(feeds, copies, 0)
             report["compiled"].append(item)
         return report
+
+    def read_logical(self, name, program=None, scope=None):
+        """The scope's value of `name` at its logical shape, a tensor: a
+        var the data-parallel `program` keeps sharded (its last compiled
+        plan, ``program._shard_plan``) is gathered over the world's ring
+        and unsharded, so every rank must call this alike; any other var
+        is the scope's tensor as it is."""
+        program = self._program(program)
+        scope = scope or global_scope()
+        v = scope.find_var(name)
+        if v is None:
+            raise KeyError("var %r is not in the scope" % name)
+        plan = getattr(program, "_shard_plan", None)
+        info = plan.sharded_state.get(name) if plan is not None else None
+        if info is None or tuple(v.shape) == info.shape:
+            return v
+        return _su.gather_logical(v, info, plan)
+
+    def feed_sharding(self, program=None):
+        """The rows of a global batch this process's run of `program`
+        keeps (counterpart: the reference's `feed_sharding`): None for a
+        program that is not data-parallel or runs without a world, else
+        a `reader.prefetcher.RowShard` of this rank. Hand it to
+        `reader.prefetch_to_device`, which then copies only those rows
+        to the card, and `run` takes the prefetched feeds as they are."""
+        ring = self._dp_ring(self._program(program))
+        if ring is None:
+            return None
+        return prefetcher.RowShard(ring.rank, ring.size)
 
     def close(self):
         """Release every entry's graph and static buffers."""
@@ -202,9 +243,13 @@ class Executor:
     @staticmethod
     def _split_feed(feed, ring):
         """This rank's rows of each global feed (arrays or tensors):
-        [r B/N, (r+1) B/N)."""
+        [r B/N, (r+1) B/N); a feed the prefetcher already cut to this
+        rank's rows (`feed_sharding`) stays as it is."""
         out = {}
         for name, t in feed.items():
+            if prefetcher.rows_of(t) == (ring.rank, ring.size):
+                out[name] = t
+                continue
             if not hasattr(t, "shape"):
                 t = np.asarray(t)
             rows = t.shape[0] if len(t.shape) else 0
@@ -243,6 +288,27 @@ class Executor:
             program._shared_seed = int(collective_ops.broadcast(
                 mine, ring, 0).item())
         self._dp_checked.add(key)
+
+    @staticmethod
+    def _layout_sharded(entry, states):
+        """Lay each var the entry keeps sharded out as this rank's flat
+        slice (`states`: a scope, or a dict of name -> tensor), where it
+        still holds the logical value (the startup's, the broadcast's, a
+        checkpoint's)."""
+        plan = entry.shard_plan
+        if plan is None:
+            return
+        is_dict = isinstance(states, dict)
+        for n, info in plan.sharded_state.items():
+            v = states.get(n) if is_dict else states.find_var(n)
+            if not isinstance(v, torch.Tensor) or \
+                    tuple(v.shape) == (info.padded // plan.ndev,):
+                continue
+            v = _su.to_sharded_local(v, info, plan.rank, plan.ndev)
+            if is_dict:
+                states[n] = v
+            else:
+                states.set_var(n, v)
 
     @staticmethod
     def _gather_fetches(program, fetch_names, fetches, ring):

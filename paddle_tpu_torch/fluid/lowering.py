@@ -54,17 +54,28 @@ reference applies the same casts while tracing).
 Data parallelism (`CompiledProgram.with_data_parallel`, fleet): the
 reference lowers a data-parallel block under `shard_map` over the mesh;
 the port runs it as one rank of a `torch.distributed` world, its ring
-live for the block's collective ops (`parallel/env.py`). Unless the
-program syncs its gradients itself (fleet's `c_allreduce_sum` on the
-`@GRAD` vars after the backward), every gradient is averaged over the
-ring right after the backward, one all-reduce each, and not at all on a
-ring of one (the reference's `_dp_pmean` and `_dp_sync_axes`). The port
-has no dynamic loss scaling (bf16 needs none; float16 raises), so there
-is no found-inf predicate to reduce across ranks. Gloo collectives run
-on the host, so a data-parallel block over gloo runs eagerly; over NCCL
-it is captured at one rank, and runs eagerly at more (captured at 4
-ranks, the replays ran but their losses differed from an eager run's:
-ROADMAP Queue 3).
+live for the block's collective ops (`parallel/env.py`). By default the
+block runs the reference's sharded weight update (ZeRO-1,
+`parallel/sharded_update.py`, planned once a compile by
+`parallel/planner.py` and kept as ``program._shard_plan``): the
+optimizer-bound gradients are reduce-scattered over the ring in buckets
+of backward order (fleet's `c_allreduce_sum` on them becomes the
+reduce-scatter), the post-backward section runs on this rank's flat 1/N
+shards, the moments and AMP masters enter and leave the step as this
+rank's shards, and the updated params are all-gathered (the deferred
+ones at the end of the step, a bucket at a time, in forward order).
+Where there is no plan (one rank, `FLAGS_tpu_sharded_weight_update` off,
+a program the planner declines) and the program does not sync its
+gradients itself, every gradient is averaged over the ring right after
+the backward, one all-reduce each (the reference's `_dp_pmean`). A
+collective that fails raises; nothing falls back to the replicated
+path mid-step. The port has no dynamic loss scaling (bf16 needs none;
+float16 raises), so there is no found-inf predicate to reduce across
+ranks. Gloo collectives run on the host, so a data-parallel block over
+gloo runs eagerly; over NCCL it is captured with its collectives at any
+number of ranks (at 4 ranks the captured job's losses and state lie
+within the spread of two eager jobs, which already differ at their
+first step: ROADMAP Queue 3).
 
 Scope semantics: the function is pure over a name -> tensor environment.
 Scope state (params, optimizer moments) enters as inputs and leaves as
@@ -90,6 +101,8 @@ from ..core.types import to_torch_dtype
 from ..ops import collective_ops
 from ..ops.registry import meta_rng_attrs
 from ..parallel import env as penv
+from ..parallel import planner
+from ..parallel import sharded_update as _su
 from ..utils.flags import get_flag
 
 _log = logging.getLogger(__name__)
@@ -488,7 +501,7 @@ def _has_explicit_sync(ops, bwd_idx):
 
 
 def build_block_fn(program, block, feed_names, fetch_names,
-                   state_in, state_out, device, ring=None):
+                   state_in, state_out, device, ring=None, shard_plan=None):
     """The function `fn(feeds, states, seed, keep=None) -> (fetches,
     new_states)` that runs `block` on `device`: feeds and states map
     names to tensors on it; `seed` is the run's `core.rng.StepSeed`;
@@ -498,7 +511,12 @@ def build_block_fn(program, block, feed_names, fetch_names,
     captured graph must keep alive). With a `ring` (a data-parallel
     program's world) the ring is live while the block runs, and the
     gradients are averaged over it after the backward unless the program
-    syncs them itself."""
+    syncs them itself. With a `shard_plan` (a
+    `parallel.sharded_update.ShardedUpdatePlan` on that ring) the update
+    is sharded: the optimizer-bound gradients are reduce-scattered, the
+    post-backward section runs in shard space, the plan's sharded state
+    comes in and goes out as this rank's flat slices, and a fetched
+    shard is gathered."""
     ops = list(block.ops)
     bwd_indices = [i for i, op in enumerate(ops) if op.type == "backward"]
     if len(bwd_indices) > 1:
@@ -529,36 +547,63 @@ def build_block_fn(program, block, feed_names, fetch_names,
                 loss_sum, [leaves[n] for n in diff_names],
                 grad_outputs=torch.full_like(loss_sum, loss_scale),
                 allow_unused=True)
+        synced = {}
         for n, g in zip(diff_names, grads):
             # an unused diff var gets zeros, as jax.vjp gives
             g = torch.zeros_like(leaves[n]) if g is None else g
-            g = g.to(leaves[n].dtype)
-            if sync_ring is not None:
-                g = collective_ops.all_reduce_mean(g, sync_ring)
-            env[framework.grad_var_name(n)] = g
+            synced[framework.grad_var_name(n)] = g.to(leaves[n].dtype)
+        if sync_ring is not None:
+            scatter = {}
+            if shard_plan is not None:
+                # the optimizer-bound gradients, one reduce-scatter a
+                # bucket (or a variable), in backward order
+                scatter = _su.bucketed_reduce_scatter(
+                    {gn: g for gn, g in synced.items()
+                     if gn in shard_plan.grad_names}, shard_plan, mean=True)
+            synced = {gn: scatter[gn] if gn in scatter
+                      else collective_ops.all_reduce_mean(g, sync_ring)
+                      for gn, g in synced.items()}
+        env.update(synced)
         env[framework.grad_var_name(loss_name)] = torch.full(
             tuple(loss.shape), loss_scale, dtype=loss.dtype, device=device)
-        _run_ops(ops[bwd_idx + 1:], env, seed, device, base_idx=bwd_idx + 1,
-                 amp=amp)
+        if shard_plan is not None:
+            _su.run_sharded_post_ops(ops[bwd_idx + 1:], env, seed,
+                                     bwd_idx + 1, amp, shard_plan, block,
+                                     device)
+        else:
+            _run_ops(ops[bwd_idx + 1:], env, seed, device,
+                     base_idx=bwd_idx + 1, amp=amp)
+
+    def unshard(n, v):
+        return _su.unwrap_out(n, v, shard_plan) if shard_plan is not None \
+            else v
 
     def fn(feeds: Dict, states: Dict, seed: StepSeed, keep=None):
         env = {}
         env.update(states)
         env.update(feeds)
+        if shard_plan is not None:
+            _su.wrap_sharded_state(env, shard_plan)
         with torch.no_grad(), penv.collective_scope(ring):
             if bwd_idx is None:
                 _run_ops(ops, env, seed, device, amp=amp)
             else:
                 _backward_section(env, seed)
-        fetches = []
-        for n in fetch_names:
-            if n not in env:
-                raise RuntimeError("fetch var %r was never computed" % n)
-            fetches.append(env[n].detach())
-        new_states = {n: env[n].detach() for n in state_out if n in env}
+            fetches = []
+            for n in fetch_names:
+                if n not in env:
+                    raise RuntimeError("fetch var %r was never computed"
+                                       % n)
+                v = env[n]
+                if isinstance(v, _su.ShardVal):
+                    v = _su.gather_full(v, shard_plan)
+                fetches.append(v.detach())
+            new_states = {n: unshard(n, env[n]).detach() for n in state_out
+                          if n in env}
         if keep is not None:
-            keep.extend(v for v in env.values()
-                        if isinstance(v, torch.Tensor))
+            keep.extend(v.vec if isinstance(v, _su.ShardVal) else v
+                        for v in env.values()
+                        if isinstance(v, (torch.Tensor, _su.ShardVal)))
         return fetches, new_states
 
     return fn
@@ -580,17 +625,12 @@ def capture_blocker(program, block, ring=None) -> Optional[str]:
     reasons, each naming the first op that gives it: control flow that
     decides on the host, an op flagged `no_jit` or `dynamic_shape`, an
     initializer whose generator is seeded on the host; and a
-    data-parallel block whose `ring` is a gloo group, or an NCCL group of
-    more than one rank (its captured losses differed from an eager
-    run's at 4 ranks; ROADMAP Queue 3)."""
+    data-parallel block whose `ring` is a gloo group (NCCL collectives
+    are captured with the block)."""
     reasons = {}
     if ring is not None and ring.backend == "gloo":
         reasons["gloo"] = ("data-parallel over %r: gloo collectives run "
                            "on the host" % (ring,))
-    elif ring is not None and ring.size > 1:
-        reasons["nccl"] = ("data-parallel over %r: replays of captured "
-                           "NCCL collectives across ranks are not safe yet "
-                           "(ROADMAP Queue 3)" % (ring,))
 
     def scan(blk):
         for op in blk.ops:
@@ -632,9 +672,22 @@ class CompiledBlock:
         self.device = torch.device(device)
         self.state_in, self.state_out = analyze_block(
             block, list(feed_names), list(fetch_names))
+        self.shard_plan = None
+        if ring is not None and program._data_parallel:
+            self.shard_plan = planner.plan_parallel(program, block,
+                                                    ring).shard_plan
+            program._shard_plan = self.shard_plan
+        if self.shard_plan is not None:
+            # a would-be-sharded state var must flow in and out of the
+            # step; anything else keeps the replicated layout
+            mut = set(self.state_in) & set(self.state_out)
+            for n in list(self.shard_plan.sharded_state):
+                if n not in mut:
+                    del self.shard_plan.sharded_state[n]
         self.fn = build_block_fn(program, block, list(feed_names),
                                  list(fetch_names), self.state_in,
-                                 self.state_out, self.device, ring)
+                                 self.state_out, self.device, ring,
+                                 shard_plan=self.shard_plan)
         reason = None
         if graph_runner is None:
             if self.device.type != "cuda":
@@ -661,10 +714,25 @@ class CompiledBlock:
         return self._step.step(feeds, states, seed)
 
     def info(self) -> dict:
-        """Mode, reason, phase and, once captured, the graph's capture
-        ms, pool bytes, replays and wrapper-counted launches a replay."""
+        """Mode, reason, phase, the optimizer state the step keeps
+        sharded (`opt_state_sharded_vars`, and with any,
+        `opt_state_logical_bytes`, what every rank would hold replicated,
+        against `opt_state_per_replica_bytes`, what this rank holds: the
+        keys of the reference's `Executor.donation_report`) and, once
+        captured, the graph's capture ms, pool bytes, replays and
+        wrapper-counted launches a replay."""
         out = {"mode": self.mode, "reason": self.reason,
                "phase": self.phase}
+        sharded = self.shard_plan.sharded_state if self.shard_plan \
+            is not None else {}
+        out["opt_state_sharded_vars"] = len(sharded)
+        if sharded:
+            ndev = self.shard_plan.ndev
+            out["opt_state_logical_bytes"] = sum(
+                i.numel * i.itemsize for i in sharded.values())
+            out["opt_state_per_replica_bytes"] = sum(
+                i.padded // ndev * i.itemsize for i in sharded.values())
+            out["grad_buckets"] = len(self.shard_plan.buckets)
         if self._step is not None and self._step.graph.captured:
             g = self._step.graph
             out.update(capture_ms=g.capture_ms, pool_bytes=g.pool_bytes,

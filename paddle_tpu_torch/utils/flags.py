@@ -1,8 +1,9 @@
 """Flags of the port (counterpart: `paddle_tpu/utils/flags.py`).
 
 Only the flags the ported slices read: the ``FLAGS_tpu_serving_*``
-surface of serving, the executor's, the attention gate and CUDA-graph
-capture (``FLAGS_cuda_graphs``, the port's own). Names and defaults are the JAX
+surface of serving, the executor's, the attention gate, CUDA-graph
+capture (``FLAGS_cuda_graphs``, the port's own), the sharded weight
+update with its gradient buckets, and the device prefetcher's depth. Names and defaults are the JAX
 package's, so one environment configures both. Flags ingest ``FLAGS_*``
 environment variables at import."""
 from __future__ import annotations
@@ -20,6 +21,20 @@ _FLAGS: Dict[str, object] = {
     # CUDA graph on the card (its second run) and replay it; False runs
     # every step eagerly, op by op (the counterpart of jax.disable_jit)
     "FLAGS_cuda_graphs": True,
+    # data parallelism: the sharded weight update (ZeRO-1,
+    # parallel/sharded_update.py): gradients reduce-scattered, each rank
+    # updating its flat 1/N shard of every parameter and keeping its
+    # shard of the optimizer moments and AMP masters across steps, the
+    # parameters all-gathered after; off (or a program the planner
+    # declines) replicates the update on every rank
+    "FLAGS_tpu_sharded_weight_update": True,
+    # gradient buckets of the sharded update: optimizer-bound gradients
+    # grouped in backward order into buckets of at most this many MiB,
+    # one reduce-scatter (and one all-gather of the updated parameters)
+    # a bucket; 0 = one collective a variable
+    "FLAGS_tpu_comm_bucket_mb": 25.0,
+    # reader.prefetch_to_device: batches in flight ahead of the consumer
+    "FLAGS_tpu_prefetch_depth": 2,
     # scaled_dot_product_attention takes the flash kernels on the card at
     # or above this key length (the reference's value; the reference
     # applies it on the TPU only)

@@ -127,9 +127,10 @@ def test_gloo_block_runs_eagerly_and_says_why(cohort):
 
 
 def test_capture_blockers_of_data_parallel_blocks():
-    """A data-parallel block over gloo, or over NCCL at more than one
-    rank, runs eagerly and names why; over NCCL at one rank it may be
-    captured."""
+    """A data-parallel block over gloo runs eagerly and names why; over
+    NCCL it may be captured at one rank and at more (at 4 ranks the
+    captured job lies within the spread of two eager ones: ROADMAP
+    Queue 3)."""
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.fluid.lowering import capture_blocker
     from paddle_tpu_torch.parallel import env as tenv
@@ -144,8 +145,8 @@ def test_capture_blockers_of_data_parallel_blocks():
         is None
     assert "gloo collectives run on the host" in capture_blocker(
         main, block, tenv.Ring(None, "gloo", [0], 0))
-    assert "NCCL collectives across ranks" in capture_blocker(
-        main, block, tenv.Ring(None, "nccl", [0, 1, 2, 3], 2))
+    assert capture_blocker(
+        main, block, tenv.Ring(None, "nccl", [0, 1, 2, 3], 2)) is None
 
 
 def test_leaving_the_world_releases_collective_graphs():

@@ -336,9 +336,10 @@ def test_port_imports_no_jax():
     static graph, takes a bf16 AMP step of a tiny scanned BERT, a step of
     a small ResNet, and two noam-Adam steps of a tiny Transformer, which
     it then decodes with beam search, launches a 2-rank gloo
-    data-parallel MLP step and a 2-stage pipeline step of the trainer on a
-    mesh of those ranks, which import neither, and has imported neither
-    jax nor anything of paddle_tpu."""
+    data-parallel MLP step (the sharded Adam update, fed by the device
+    prefetcher) and a 2-stage pipeline step of the trainer on a mesh of
+    those ranks, which import neither, and has imported neither jax nor
+    anything of paddle_tpu."""
     code = (
         "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
@@ -421,15 +422,21 @@ def test_port_imports_no_jax():
         "      'y = fluid.layers.data(name=\"y\", shape=[1], dtype=\"int64\")\\n'\n"
         "      'o = fluid.layers.mean(fluid.layers.softmax_with_cross_entropy('\n"
         "      'fluid.layers.fc(input=x, size=4), y))\\n'\n"
-        "      'fluid.optimizer.SGD(0.1).minimize(o)\\n'\n"
+        "      'fluid.optimizer.Adam(0.1).minimize(o)\\n'\n"
         "      'exe = fluid.Executor(fluid.CPUPlace())\\n'\n"
         "      'exe.run(fluid.default_startup_program())\\n'\n"
         "      'p = fluid.CompiledProgram(fluid.default_main_program())\\n'\n"
+        "      'p = p.with_data_parallel()\\n'\n"
         "      'r = np.random.RandomState(0)\\n'\n"
-        "      'l = exe.run(p.with_data_parallel(), fetch_list=[o], feed={'\n"
+        "      'from paddle_tpu_torch import reader\\n'\n"
+        "      'f = next(reader.prefetch_to_device(iter([{'\n"
         "      '\"x\": r.randn(4, 8).astype(\"float32\"),'\n"
-        "      '\"y\": r.randint(0, 4, (4, 1))})[0]\\n'\n"
+        "      '\"y\": r.randint(0, 4, (4, 1))}]), device=\"cpu\",'\n"
+        "      'sharding=exe.feed_sharding(p)))\\n'\n"
+        "      'l = exe.run(p, fetch_list=[o], feed=f)[0]\\n'\n"
         "      'assert l.shape == (2,) and np.isfinite(l).all(), l\\n'\n"
+        "      'i = exe.last_entry.info()\\n'\n"
+        "      'assert i[\"opt_state_sharded_vars\"] == 4, i\\n'\n"
         "      'from paddle_tpu_torch.parallel import transformer as tt\\n'\n"
         "      'c = tt.SPMDConfig(vocab=64, d_model=32, n_heads=4, d_ff=64, '\n"
         "      'seq_len=16, n_layers=2, n_micro=2, pp=2, use_flash=True)\\n'\n"

@@ -132,6 +132,117 @@ def collective_inputs():
             "ids": np.array([[0], [4], [9], [5], [2], [7]], "int64")}
 
 
+#: the sharded weight update (tests/test_torch_sharded_update.py): the
+#: 31-wide MLP of tests/test_sharded_update.py (31 divides no world, so
+#: every sharded tensor is padded) under each optimizer, and a 1-layer
+#: BERT at bf16 AMP O2 with fused Adam; steps, a bucket cap small enough
+#: for several buckets, and the variants each world runs
+ZERO_STEPS = 3
+ZERO_CAP_MB = 0.002
+ZERO_MLPS = {
+    "adam_reg_fused": dict(opt="adam", reg=True, fuse=True),
+    "momentum": dict(opt="momentum"),
+    "sgd": dict(opt="sgd"),
+}
+ZERO_BERT = dict(vocab_size=128, hidden_size=32, num_hidden_layers=1,
+                 num_attention_heads=2, intermediate_size=64,
+                 max_position_embeddings=16, hidden_dropout_prob=0.0,
+                 attention_probs_dropout_prob=0.0)
+ZERO_BERT_SEQ, ZERO_BERT_BATCH = 16, 4
+#: the reference's BERT runs one step (its second step compiles again,
+#: the slowest part of the test); the ranks keep their state after it
+#: variant -> (FLAGS_tpu_sharded_weight_update, FLAGS_tpu_comm_bucket_mb)
+ZERO_VARIANTS = {"on": (True, ZERO_CAP_MB), "off": (False, ZERO_CAP_MB),
+                 "cap0": (True, 0.0)}
+
+
+def zero_mlps(world):
+    """The MLPs a world runs: all at 2 ranks, the Adam one at 4."""
+    return list(ZERO_MLPS) if world == 2 else ["adam_reg_fused"]
+
+
+def build_zero_mlp(fluid, opt, reg=False, fuse=False):
+    """The 31-wide MLP (32-31-4, softmax cross-entropy, mean) over `opt`
+    ("adam" at 0.01, "momentum" at 0.1 and 0.9, "sgd" at 0.1), with L2
+    decay 1e-3 and `fuse_optimizer_ops` when asked: (main, startup,
+    loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1234
+    with fluid.program_guard(main, startup), fluid.unique_name_guard():
+        img = fluid.layers.data(name="img", shape=[32], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=img, size=31, act="relu")
+        logits = fluid.layers.fc(input=h, size=4)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        kw = {}
+        if reg:
+            kw["regularization"] = fluid.regularizer.L2Decay(1e-3)
+        O = fluid.optimizer
+        {"adam": lambda: O.AdamOptimizer(learning_rate=0.01, **kw),
+         "momentum": lambda: O.MomentumOptimizer(
+             learning_rate=0.1, momentum=0.9, **kw),
+         "sgd": lambda: O.SGDOptimizer(learning_rate=0.1, **kw)}[opt]() \
+            .minimize(loss)
+        if fuse:
+            fluid.fuse_optimizer_ops(main)
+    return main, startup, loss
+
+
+def build_zero_size1(fluid, fleet, nranks=None):
+    """The reference's single-element-parameter case
+    (tests/test_sharded_update.py:279): an 8 -> 1 regression head, whose
+    bias is a (1,) parameter, through fleet over Adam(1e-3) (the JAX
+    package's fleet: `transpile_collective(nranks=nranks)`): (main,
+    startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 11
+    with fluid.program_guard(main, startup), fluid.unique_name_guard():
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        err = fluid.layers.fc(input=x, size=1) - y
+        loss = fluid.layers.mean(err * err)
+        fleet_minimize(fluid, fleet,
+                       lambda: fluid.optimizer.AdamOptimizer(1e-3),
+                       nranks=nranks)(loss)
+    return main, startup, loss
+
+
+def zero_size1_feed():
+    r = np.random.RandomState(0)
+    return {"x": r.rand(16, 8).astype("float32"),
+            "y": r.rand(16, 1).astype("float32")}
+
+
+def zero_mlp_feed():
+    r = np.random.RandomState(0)
+    return {"img": r.rand(64, 32).astype("float32"),
+            "label": r.randint(0, 4, (64, 1)).astype("int64")}
+
+
+def build_zero_bert(fluid, mp, bert, cfg=None, seq=ZERO_BERT_SEQ,
+                    scan=False):
+    """BERT pretraining (`cfg`, default `ZERO_BERT`), bf16 AMP O2 over
+    Adam(1e-3) with `fuse_optimizer_ops`, as bench.py builds BERT, with
+    the scan encoder when asked (the reference compiles the 1-layer
+    default's unrolled encoder faster): (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name_guard():
+        total, _, _, _ = bert.bert_pretrain_loss(
+            cfg or bert.BertConfig(**ZERO_BERT), seq, scan_layers=scan)
+        opt = mp.decorate(fluid.optimizer.AdamOptimizer(1e-3),
+                          use_dynamic_loss_scaling=False)
+        opt.minimize(total)
+        fluid.fuse_optimizer_ops(main)
+    return main, startup, total
+
+
+def zero_bert_feed(bert):
+    return bert.bert_feed(bert.BertConfig(**ZERO_BERT), ZERO_BERT_BATCH,
+                          ZERO_BERT_SEQ)
+
+
 # -- the cases, in the worker ------------------------------------------------
 
 def _run_collective(out, rank, world):
@@ -187,12 +298,22 @@ def _run_collective(out, rank, world):
     dist.barrier()
 
 
+def logical_state(exe, program, scope, names):
+    """name -> numpy value at its logical shape (the sharded moments and
+    masters gathered over the ranks: every rank calls it)."""
+    from paddle_tpu_torch.core.types import to_numpy
+
+    return {n: to_numpy(exe.read_logical(n, program, scope))
+            for n in names}
+
+
 def _train(fluid, main, startup, loss, feed, steps, state, mode, out):
     """`steps` steps of `main` (fleet-transpiled, or through
     `with_data_parallel` when mode is "dp"): rank 0 starts from `state`
     (None: its own startup), the other ranks from their own startup.
-    Records the gathered losses, every persistable after the steps, the
-    sum of this rank's own start values and the program's shared seed."""
+    Records the gathered losses, every persistable after the steps (at
+    its logical shape), the sum of this rank's own start values and the
+    program's shared seed."""
     from paddle_tpu_torch.core.scope import dump_numpy_state, \
         load_numpy_state
     from paddle_tpu_torch.distributed import get_rank
@@ -210,14 +331,31 @@ def _train(fluid, main, startup, loss, feed, steps, state, mode, out):
     out["losses"] = np.stack([exe.run(prog, feed=feed, fetch_list=[loss],
                                       scope=scope)[0]
                               for _ in range(steps)])
-    out.update(dump_numpy_state(scope, names))
+    out.update(logical_state(exe, main, scope, names))
     out["shared_seed"] = np.array(main._shared_seed or -1)
     return exe, scope
 
 
+def save_state(d, name, state):
+    """Write a start state to `<d>/<name>.state.npz`; bfloat16 arrays go
+    as float32 (exact) and are named under "__bf16__"."""
+    bf16 = [n for n, v in state.items() if v.dtype.name == "bfloat16"]
+    np.savez(os.path.join(d, name + ".state.npz"),
+             __bf16__=np.array(bf16, dtype=str),
+             **{n: (v.astype("float32") if n in bf16 else v)
+                for n, v in state.items()})
+
+
 def _load(d, name):
     with np.load(os.path.join(d, name + ".state.npz")) as f:
-        return dict(f)
+        st = dict(f)
+    bf16 = list(st.pop("__bf16__", []))
+    if bf16:
+        import ml_dtypes
+
+        for n in bf16:
+            st[n] = st[n].astype(ml_dtypes.bfloat16)
+    return st
 
 
 def fleet_minimize(fluid, fleet, opt_fn, sync_bn=False, nranks=None):
@@ -302,6 +440,166 @@ def _run_fleet_util(out, rank, world):
         ["f%d" % i for i in range(5)]))
 
 
+def _run_zero(out, d, world):
+    """Each MLP of `zero_mlps(world)` (and at 2 ranks the AMP BERT and
+    the size-1 head through fleet) under the variants of `ZERO_VARIANTS`
+    (at 4 ranks, and for those two, on and off) through
+    `with_data_parallel`, from the
+    reference's start state (`zero_<name>.state.npz`, rank 0 loads it):
+    the gathered losses, every persistable after the steps at its
+    logical shape, and the entry's `info()` numbers, keyed
+    "<name>.<variant>.<what>"."""
+    from paddle_tpu_torch import fleet, fluid
+    from paddle_tpu_torch.core.scope import load_numpy_state
+    from paddle_tpu_torch.distributed import get_rank
+    from paddle_tpu_torch.fluid.contrib import mixed_precision as mp
+    from paddle_tpu_torch.models import bert
+
+    mlps = zero_mlps(world)
+    builds = {n: (lambda c=ZERO_MLPS[n]: build_zero_mlp(fluid, **c))
+              for n in mlps}
+    feeds = {n: zero_mlp_feed() for n in mlps}
+    # a cap of 0 against the buckets is held bit-equal at 2 ranks only
+    variants = {n: ZERO_VARIANTS if world == 2 else {
+        k: ZERO_VARIANTS[k] for k in ("on", "off")} for n in mlps}
+    if world == 2:
+        builds["bert_amp"] = lambda: build_zero_bert(fluid, mp, bert)
+        feeds["bert_amp"] = zero_bert_feed(bert)
+        builds["size1"] = lambda: build_zero_size1(fluid, fleet)
+        feeds["size1"] = zero_size1_feed()
+        for n in ("bert_amp", "size1"):
+            variants[n] = {k: ZERO_VARIANTS[k] for k in ("on", "off")}
+    for name, build in builds.items():
+        state = _load(d, "zero_" + name)
+        for variant, (flag, cap) in variants[name].items():
+            fluid.set_flags({"FLAGS_tpu_sharded_weight_update": flag,
+                             "FLAGS_tpu_comm_bucket_mb": cap})
+            main, startup, loss = build()
+            exe = fluid.Executor(fluid.CPUPlace())
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            if get_rank() == 0:
+                load_numpy_state(scope, state, "cpu")
+            prog = main if name == "size1" else \
+                fluid.CompiledProgram(main).with_data_parallel()
+            key = "%s.%s." % (name, variant)
+            losses = []
+            for i in range(ZERO_STEPS):
+                losses.append(exe.run(prog, feed=feeds[name],
+                                      fetch_list=[loss], scope=scope)[0])
+                if i == 0 and name == "bert_amp" and variant == "on":
+                    for n, v in logical_state(exe, main, scope,
+                                              state).items():
+                        out[key + "step1." + n] = v.astype("float32")
+            out[key + "losses"] = np.stack(losses)
+            for n, v in logical_state(exe, main, scope, state).items():
+                # bfloat16 as float32 (exact): npz has no bfloat16
+                out[key + "state." + n] = v.astype("float32") \
+                    if v.dtype.name == "bfloat16" else v
+            for k, v in exe.last_entry.info().items():
+                if k.startswith(("opt_state", "grad_buckets")):
+                    out[key + "info." + k] = np.array(v)
+            out[key + "sharded"] = np.array(sorted(
+                main._shard_plan.sharded_state) if main._shard_plan
+                else [], dtype=str)
+            out[key + "local_bytes"] = np.array(sum(
+                scope.find_var(n).numel() * scope.find_var(n).element_size()
+                for n in (main._shard_plan.sharded_state
+                          if main._shard_plan else ())))
+            if name == "momentum" and variant == "on":
+                _reshard_round_trip(out, key, exe, main, prog, scope,
+                                    feeds[name], loss)
+    if world == 2:
+        _run_zero_prefetched(out, d)
+    _gloo_bf16_sum(out, world)
+    fluid.set_flags({"FLAGS_tpu_sharded_weight_update": True,
+                     "FLAGS_tpu_comm_bucket_mb": 25.0})
+
+
+def _reshard_round_trip(out, key, exe, main, prog, scope, feed, loss):
+    """`reshard_scope_to_logical` puts the sharded vars back at their
+    logical shapes (equal to `read_logical`'s), and the next step lays
+    them out again."""
+    from paddle_tpu_torch.core.types import to_numpy
+    from paddle_tpu_torch.parallel import sharded_update
+
+    want = {n: to_numpy(exe.read_logical(n, main, scope))
+            for n in main._shard_plan.sharded_state}
+    out[key + "resharded"] = np.array(
+        sharded_update.reshard_scope_to_logical(main, scope))
+    out[key + "reshard_equal"] = np.array(all(
+        np.array_equal(to_numpy(scope.find_var(n)), v)
+        for n, v in want.items()))
+    out[key + "after_reshard"] = exe.run(prog, feed=feed, fetch_list=[loss],
+                                         scope=scope)[0]
+    out[key + "relaid"] = np.array(all(
+        scope.find_var(n).dim() == 1 and scope.find_var(n).numel()
+        < v.size for n, v in want.items()))
+
+
+def zero_ranks(d):
+    """A `distributed.spawn` target: case "zero" on this rank, its
+    results in `<d>/zero.rank<r>.npz`."""
+    import torch
+
+    from paddle_tpu_torch import distributed
+
+    torch.set_num_threads(2)
+    out = {}
+    _run_zero(out, d, distributed.get_world_size())
+    np.savez(os.path.join(d, "zero.rank%d.npz" % distributed.get_rank()),
+             **out)
+
+
+def _gloo_bf16_sum(out, world):
+    """A bf16 all-reduce over gloo against each rank's values summed in
+    float32 and rounded once: `bf16_sum.exact` (every element equal) and
+    `bf16_sum.max_ulps` (the largest difference in bf16 steps of the
+    element's largest addend)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import get_rank
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.parallel import env as penv
+
+    vals = [torch.randn(4096, generator=torch.Generator().manual_seed(r))
+            .to(torch.bfloat16) for r in range(world)]
+    got = collective_ops.all_reduce(vals[get_rank()], penv.global_mesh())
+    want = sum(v.float() for v in vals).to(torch.bfloat16)
+    scale = torch.stack([v.float().abs() for v in vals]).amax(0)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    out["bf16_sum.exact"] = np.array(torch.equal(got, want))
+    out["bf16_sum.max_ulps"] = np.array(float(
+        ((got.float() - want.float()).abs() / ulp).max()))
+
+
+def _run_zero_prefetched(out, d):
+    """The Momentum MLP, sharded, fed by `reader.prefetch_to_device` with
+    the executor's `feed_sharding` (this rank's rows only)."""
+    from paddle_tpu_torch import fluid, reader
+    from paddle_tpu_torch.core.scope import load_numpy_state
+    from paddle_tpu_torch.distributed import get_rank
+
+    fluid.set_flags({"FLAGS_tpu_sharded_weight_update": True,
+                     "FLAGS_tpu_comm_bucket_mb": ZERO_CAP_MB})
+    main, startup, loss = build_zero_mlp(fluid, **ZERO_MLPS["momentum"])
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    if get_rank() == 0:
+        load_numpy_state(scope, _load(d, "zero_momentum"), "cpu")
+    prog = fluid.CompiledProgram(main).with_data_parallel()
+    losses = []
+    with reader.prefetch_to_device(
+            [zero_mlp_feed() for _ in range(ZERO_STEPS)],
+            sharding=exe.feed_sharding(prog), device="cpu") as batches:
+        for feed in batches:
+            out["momentum.prefetch.rows"] = np.array(feed["img"].shape[0])
+            losses.append(exe.run(prog, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0])
+    out["momentum.prefetch.losses"] = np.stack(losses)
+
+
 CASES = {
     "fleet_util": lambda out, d, r, n: _run_fleet_util(out, r, n),
     "collective": lambda out, d, r, n: _run_collective(out, r, n),
@@ -358,6 +656,91 @@ def spawn_probe(d, fail_rank=None):
 # -- the tests' side ---------------------------------------------------------
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def reference_zero(jobs):
+    """The JAX package's sharded update for each (dir, name, world) of
+    `jobs` (name "bert_amp" or one of `ZERO_MLPS`), on a mesh of `world`
+    virtual CPU devices from `<dir>/zero_<name>.state.npz`: writes
+    `<dir>/ref_<name>.npz` with the losses and every persistable after
+    the steps at its logical shape (bfloat16 as float32). The tests run
+    it in their process, and as a process of its own
+    (`start_reference_zero`) beside the ranks."""
+    import jax
+    from jax.sharding import Mesh
+
+    jax.config.update("jax_platforms", "cpu")
+    import paddle_tpu.fluid as rfluid
+    from paddle_tpu import fleet as rfleet
+    from paddle_tpu.core.scope import Scope
+    from paddle_tpu.fluid.contrib import mixed_precision as rmp
+    from paddle_tpu.models import bert as rbert
+    from paddle_tpu.parallel.sharded_update import unshard_scope_value
+    from paddle_tpu.utils.flags import get_flags, set_flags
+    from paddle_tpu_torch.models import bert as tbert
+
+    saved = get_flags(["FLAGS_tpu_comm_bucket_mb"])
+    set_flags({"FLAGS_tpu_comm_bucket_mb": ZERO_CAP_MB})
+    try:
+        _reference_zero_jobs(jobs, jax, Mesh, rfluid, rfleet, Scope, rmp,
+                             rbert, unshard_scope_value, tbert)
+    finally:
+        set_flags(saved)
+
+
+def _reference_zero_jobs(jobs, jax, Mesh, rfluid, rfleet, Scope, rmp,
+                         rbert, unshard_scope_value, tbert):
+    for d, name, world in jobs:
+        if name == "bert_amp":
+            main, _, loss = build_zero_bert(rfluid, rmp, rbert)
+            feed = zero_bert_feed(tbert)
+        elif name == "size1":
+            main, _, loss = build_zero_size1(rfluid, rfleet, nranks=world)
+            feed = zero_size1_feed()
+        else:
+            main, _, loss = build_zero_mlp(rfluid, **ZERO_MLPS[name])
+            feed = zero_mlp_feed()
+        state = _load(d, "zero_" + name)
+        prog = main  # fleet's transpile installed its mesh
+        if name != "size1":
+            main._mesh = Mesh(np.array(jax.devices()[:world]), ("dp",))
+            prog = rfluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name)
+        exe = rfluid.Executor(rfluid.CPUPlace())
+        scope = Scope()
+        for n, v in state.items():
+            scope.set_var(n, jax.numpy.asarray(v))
+        losses = np.stack([np.asarray(exe.run(
+            prog, feed=feed, fetch_list=[loss.name], scope=scope)[0])
+            for _ in range(1 if name == "bert_amp" else ZERO_STEPS)])
+        if main._shard_plan is None:
+            raise RuntimeError("the reference did not shard %s" % name)
+        out = {}
+        for n in state:
+            v = np.asarray(unshard_scope_value(
+                main, n, np.asarray(scope.find_var(n))))
+            out["state." + n] = v.astype("float32") \
+                if v.dtype.name == "bfloat16" else v
+        np.savez(os.path.join(d, "ref_%s.npz" % name), losses=losses,
+                 **out)
+
+
+def start_reference_zero(jobs):
+    """`reference_zero(jobs)` in a process of its own (JAX on the CPU,
+    as many virtual devices as the largest world)."""
+    import subprocess
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO,
+                                                              "tests")]),
+               XLA_FLAGS="--xla_force_host_platform_device_count=%d"
+               % max(w for _, _, w in jobs))
+    code = "import torch_dp_runner as r; r.reference_zero(%r)" % (
+        list(jobs),)
+    return subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                            start_new_session=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
 
 
 def start_cohort(cases, d, nproc=2):

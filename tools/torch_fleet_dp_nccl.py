@@ -1,32 +1,41 @@
 #!/usr/bin/env python3
-"""Fleet DP ResNet50 with one rank a card over NCCL.
+"""Fleet DP ResNet50 with one rank a card over NCCL, with the sharded
+weight update (ZeRO-1, the default) and without it.
 
     python3 tools/torch_fleet_dp_nccl.py [--steps 5] [--batch 128]
+        [--modes dp,dp_eager,dp_eager2,dp_off,dp_eager_off,single]
     python3 tools/torch_fleet_dp_nccl.py --cpu --nprocs 4   # a rehearsal
 
 On a machine with N cards this spawns N ranks over NCCL, each on its own
 card: `chip_smoke.py`'s phase 9 leg a ResNet50 (224 x 224, 1000 classes,
 scan_stages, bf16 AMP O2 over Momentum(0.1, 0.9), fused Momentum)
 through `fleet.distributed_optimizer`, `--batch` images a rank from the
-global batch, 2 warm-up steps and `--steps` timed steps, each with its
-89 NCCL gradient all-reduces. The job runs three times from the same
-startup state: with its block captured (the first step eager, the
-second captured, the rest replays) and twice with `FLAGS_cuda_graphs`
-off (eager). Then one process on card 0 runs the same program without
-fleet at the same per-rank batch, captured, as the yardstick. Prints
-one JSON line: per-rank median step ms of the captured and of the eager
-job, the job's images/s, the single process's figures, peak memory a
-rank, the entries' modes, the captured and eager losses and their
-largest difference beside that of the two eager runs, and whether
-every parameter and optimizer state is bit-equal across the ranks;
-then the cards' names and power limits. Rank 0 reports its progress on
-stderr; `--timeout` bounds each spawn (a rank that outlives it fails
-the run). `--cpu` runs the same path over gloo on the CPU at 32 x 32,
-10 classes, 2 images a rank (eagerly), to rehearse it without cards.
-Exits non-zero if a rank fails, a loss is not finite, the replicas
-differ, or the captured losses differ from the eager ones where the
-two eager runs agree (else by more than twice their difference, the
-rule of `chip_smoke.py` phase 11).
+global batch, 2 warm-up steps and `--steps` timed steps. Each job of
+`--modes` starts from the same startup state: "dp" with its block
+captured (the first step eager, the second captured, the rest replays),
+"dp_eager" and "dp_eager2" with `FLAGS_cuda_graphs` off (eager), all
+three with the sharded update (fleet's 89 gradient all-reduces lowered
+to bucketed reduce-scatters, the velocities and AMP masters held as 1/N
+slices, the params all-gathered); "dp_off" (captured) and
+"dp_eager_off" the same without it (89 all-reduces); "single" one
+process on card 0 without fleet at the same per-rank batch, captured,
+as the yardstick. Prints one JSON line: for each job per-rank median
+step ms, the job's images/s, peak memory a rank, the optimizer-state
+bytes a rank holds against the logical ones, the collectives a step
+(eager jobs: host ms, calls and MB; a captured job's replays run them
+on the card), the entry's mode and losses; the captured against the
+eager job, the two eager jobs, and the sharded update against the
+replicated one (captured and eager), each as equal flags and the
+largest loss and state differences (rank 0's state at its logical
+shape); whether every parameter and optimizer state is bit-equal across
+the ranks; then the cards' names and power limits. Rank 0 reports its
+progress on stderr; `--timeout` bounds each spawn (a rank that outlives
+it fails the run). `--cpu` runs the same path over gloo on the CPU at
+32 x 32, 10 classes, 2 images a rank (eagerly), to rehearse it without
+cards. Exits non-zero if a rank fails, a loss is not finite, the
+replicas differ, or the captured losses or state differ from the eager
+ones where the two eager runs agree (else by more than twice their
+difference, the rule of `chip_smoke.py` phase 11).
 """
 import argparse
 import json
@@ -44,21 +53,30 @@ sys.path.insert(0, _HERE)
 import chip_smoke as cs  # noqa: E402
 
 CPU = dict(img=32, classes=10)
+MODES = ("dp", "dp_eager", "dp_eager2", "dp_off", "dp_eager_off", "single")
 
 
 def worker(out_dir, cfg, mode):
     """One rank of `mode`: "dp" (fleet, captured), "dp_eager" and
-    "dp_eager2" (fleet, FLAGS_cuda_graphs off) or "single" (no fleet,
-    captured)."""
+    "dp_eager2" (fleet, FLAGS_cuda_graphs off), "dp_off" and
+    "dp_eager_off" (the same without the sharded update) or "single"
+    (no fleet, captured)."""
+    import hashlib
+
+    import numpy as np
     import torch
 
     from paddle_tpu_torch import distributed, fleet, fluid
+    from paddle_tpu_torch.core.types import to_numpy
+    from paddle_tpu_torch.ops import collective_ops
 
     fleet_on = mode != "single"
     if cfg["cpu"]:
         torch.set_num_threads(2)
     if mode.startswith("dp_eager"):
         fluid.set_flags({"FLAGS_cuda_graphs": False})
+    fluid.set_flags({"FLAGS_tpu_sharded_weight_update":
+                     not mode.endswith("_off")})
     rank = distributed.get_rank()
     n = distributed.get_world_size()
 
@@ -89,21 +107,33 @@ def worker(out_dir, cfg, mode):
         progress("warm-up step %d: %s" % (k, exe.last_entry.phase))
     if not cfg["cpu"]:
         torch.cuda.reset_peak_memory_stats()
+    collective_ops.reset_stats()
     step_ms = []
     for _ in range(cfg["steps"]):
         t0 = time.perf_counter()
         losses.append(step())
         step_ms.append((time.perf_counter() - t0) * 1e3)
+    stats = {k: dict(v) for k, v in collective_ops.stats.items()}
+    info = exe.last_entry.info()
     names = sorted(v.name for v in main.list_vars() if v.persistable
                    and not v.name.endswith(("_bn_mean", "_bn_var")))
+    # at the logical shape: every rank gathers the sharded vars alike
+    state = {n: exe.read_logical(n, main, scope) for n in names}
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "%s.state.npz" % mode), **{
+            n: v.detach().float().cpu().numpy() for n, v in state.items()})
     cs.fleet_dump(os.path.join(out_dir, "%s%d.json" % (mode, rank)), {
         "losses": losses, "step_ms": step_ms, "device": str(exe.device),
         "peak_mem_bytes": (0 if cfg["cpu"]
                            else torch.cuda.max_memory_allocated()),
         "mode": exe.last_entry.mode, "reason": exe.last_entry.reason,
+        "opt_state": {k: v for k, v in info.items()
+                      if k.startswith(("opt_state", "grad_buckets"))},
+        "collectives": stats,
         "c_allreduce_sum_ops": [op.type for op in main.global_block().ops]
         .count("c_allreduce_sum"),
-        "digest": cs.fleet_state_digest(scope, names)})
+        "digest": {n: hashlib.sha256(to_numpy(v).tobytes()).hexdigest()
+                   for n, v in state.items()}})
 
 
 def main():
@@ -116,6 +146,9 @@ def main():
                     help="ranks (default: the card count)")
     ap.add_argument("--timeout", type=float, default=900,
                     help="seconds each spawn's ranks may take")
+    ap.add_argument("--modes", default=",".join(MODES),
+                    help="the jobs to run, of %s (dp and dp_eager are "
+                    "needed)" % ", ".join(MODES))
     args = ap.parse_args()
     import torch
 
@@ -132,69 +165,100 @@ def main():
         cfg.update(CPU)
     backend = "gloo" if args.cpu else "nccl"
     out_dir = tempfile.mkdtemp(prefix="fleet_nccl_")
-    for mode, nprocs in (("dp", n), ("dp_eager", n), ("dp_eager2", n),
-                         ("single", 1)):
-        distributed.spawn(worker, (out_dir, cfg, mode), nprocs=nprocs,
-                          backend=backend, timeout=args.timeout)
+    modes = args.modes.split(",")
+    for mode in MODES:
+        if mode in modes:
+            distributed.spawn(worker, (out_dir, cfg, mode),
+                              nprocs=1 if mode == "single" else n,
+                              backend=backend, timeout=args.timeout)
 
     def read(name):
         with open(os.path.join(out_dir, name)) as f:
             return json.load(f)
 
     ranks = [read("dp%d.json" % r) for r in range(n)]
-    eager = [read("dp_eager%d.json" % r) for r in range(n)]
-    eager2 = read("dp_eager20.json")
+    eager2 = read("dp_eager20.json") if "dp_eager2" in modes else None
 
     def max_diff(a, b):
         return max(abs(x - y) for sa, sb in zip(a, b) for x, y in zip(sa, sb))
 
-    single = read("single0.json")
-    med = [statistics.median(r["step_ms"]) for r in ranks]
-    eager_med = [statistics.median(r["step_ms"]) for r in eager]
-    single_med = statistics.median(single["step_ms"])
-    differ = sorted(k for k in ranks[0]["digest"] if any(
-        r["digest"][k] != ranks[0]["digest"][k] for r in ranks[1:]))
+    def state_diff(a, b):
+        """The largest absolute difference of rank 0's state after the
+        steps between jobs `a` and `b`, and the var it is in."""
+        import numpy as np
+
+        with np.load(os.path.join(out_dir, a + ".state.npz")) as fa, \
+                np.load(os.path.join(out_dir, b + ".state.npz")) as fb:
+            diffs = {k: float(np.max(np.abs(
+                fa[k].astype("float64") - fb[k].astype("float64"))))
+                for k in fa.files}
+        worst = max(diffs, key=diffs.get)
+        return {"max_abs": diffs[worst], "var": worst,
+                "vars_differing": sum(v > 0 for v in diffs.values())}
+
+    def job(mode, nprocs):
+        rs = [read("%s%d.json" % (mode, r)) for r in range(nprocs)]
+        med = [statistics.median(r["step_ms"]) for r in rs]
+        steps = len(rs[0]["step_ms"])
+        return dict({"median_step_ms": med,
+                     "step_ms": [r["step_ms"] for r in rs],
+                     "images_per_sec": cfg["batch"] * nprocs
+                     / (max(med) / 1e3),
+                     "peak_mem_bytes": [r["peak_mem_bytes"] for r in rs],
+                     "opt_state": rs[0]["opt_state"],
+                     "mode": rs[0]["mode"], "reason": rs[0]["reason"],
+                     "losses": rs[0]["losses"]},
+                    **cs.collectives_per_step(
+                        [r["collectives"] for r in rs], steps))
+
+    def compare(a, b):
+        ra, rb = read(a + "0.json"), read(b + "0.json")
+        return {"losses_equal": ra["losses"] == rb["losses"],
+                "state_equal": ra["digest"] == rb["digest"],
+                "max_loss_diff": max_diff(ra["losses"], rb["losses"]),
+                "state_diff": state_diff(a, b)}
+
+    differ = sorted(
+        "%s:%s" % (m, k) for m in modes if m != "single"
+        for rs in [[read("%s%d.json" % (m, r)) for r in range(n)]]
+        for k in rs[0]["digest"]
+        if any(r["digest"][k] != rs[0]["digest"][k] for r in rs[1:]))
     res = {"tool": "torch_fleet_dp_nccl", "ranks": n, "backend": backend,
            "per_rank_batch": cfg["batch"], "img": cfg["img"],
-           "losses": ranks[0]["losses"], "median_step_ms": med,
-           "step_ms": [r["step_ms"] for r in ranks],
-           "images_per_sec": cfg["batch"] * n / (max(med) / 1e3),
-           "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
            "devices": [r["device"] for r in ranks],
-           "mode": ranks[0]["mode"], "reason": ranks[0]["reason"],
            "c_allreduce_sum_ops": ranks[0]["c_allreduce_sum_ops"],
            "replicas_bit_equal": not differ,
-           "eager": {"median_step_ms": eager_med,
-                     "images_per_sec": cfg["batch"] * n
-                     / (max(eager_med) / 1e3),
-                     "mode": eager[0]["mode"],
-                     "reason": eager[0]["reason"]},
-           "eager_losses": eager[0]["losses"],
-           "losses_equal_eager": ranks[0]["losses"] == eager[0]["losses"],
-           "state_equal_eager": ranks[0]["digest"] == eager[0]["digest"],
-           "max_loss_diff_vs_eager": max_diff(ranks[0]["losses"],
-                                              eager[0]["losses"]),
-           "eager_runs_equal": eager2["losses"] == eager[0]["losses"]
-           and eager2["digest"] == eager[0]["digest"],
-           "max_loss_diff_eager_runs": max_diff(eager2["losses"],
-                                                eager[0]["losses"]),
-           "single": {"median_step_ms": single_med,
-                      "images_per_sec": cfg["batch"] / (single_med / 1e3),
-                      "peak_mem_bytes": single["peak_mem_bytes"],
-                      "mode": single["mode"]}}
-    res["scaling_vs_single"] = res["images_per_sec"] / \
-        res["single"]["images_per_sec"]
+           "env": {k: v for k, v in os.environ.items()
+                   if k.startswith("NCCL_")}}
+    for mode in modes:
+        res[mode] = job(mode, 1 if mode == "single" else n)
+    res["captured_vs_eager"] = compare("dp", "dp_eager")
+    if eager2 is not None:
+        res["eager_vs_eager2"] = compare("dp_eager2", "dp_eager")
+    for on, off in (("dp", "dp_off"), ("dp_eager", "dp_eager_off")):
+        if off in modes:
+            res["sharded_vs_replicated_" + ("captured" if on == "dp"
+                                            else "eager")] = compare(on, off)
+    if "single" in modes:
+        res["scaling_vs_single"] = res["dp"]["images_per_sec"] / \
+            res["single"]["images_per_sec"]
     print(json.dumps(res), flush=True)
     if not args.cpu:
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip(), flush=True)
-    ok = not differ and all(math.isfinite(v) for s in res["losses"]
-                            for v in s) and len(res["losses"][0]) == n \
-        and (res["losses_equal_eager"] or not res["eager_runs_equal"]
-             and res["max_loss_diff_vs_eager"]
-             <= 2 * res["max_loss_diff_eager_runs"])
+    ce, ee = res["captured_vs_eager"], res.get("eager_vs_eager2")
+    eager_equal = ee is not None and ee["losses_equal"] \
+        and ee["state_equal"]
+    ok = not differ and all(math.isfinite(v) for s in res["dp"]["losses"]
+                            for v in s) \
+        and len(res["dp"]["losses"][0]) == n \
+        and (ce["losses_equal"] and ce["state_equal"]
+             or ee is not None and not eager_equal
+             and ce["max_loss_diff"] <= 2 * ee["max_loss_diff"]
+             and ce["state_diff"]["max_abs"]
+             <= 2 * ee["state_diff"]["max_abs"])
     return 0 if ok else 1
 
 
