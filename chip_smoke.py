@@ -217,13 +217,39 @@ Phases, each printing one JSON line:
    bit-equal; per rank the optimizer-state bytes (logical and held),
    the collectives' calls, MB and host ms a step, the step ms, peak
    memory;
-15. kernels — one line listing every ported kernel with its launches on
+15. hybrid — data parallelism over a (dcn 2, ici 2) world of 4 gloo
+   ranks sharing the card (``FLAGS_tpu_dcn_replicas`` 2: gradient sums
+   within the pod, then across pods; the sharded state laid out within
+   the pod; each bucket's exchange launched from the backward) with
+   ``FLAGS_cudnn_deterministic`` on, each rank running every variant from
+   one start state for 1 warm-up and 3 timed steps, each leg on a line
+   of its own (`hybrid_leg`), the phase a closing one. Leg a: BASELINE
+   config 5 (phase 12 leg a's fleet ResNet50) at 32 a rank (cut from 128
+   so that four ranks fit on the one card): the hybrid sharded update
+   bit-equal to the hybrid replicated one (losses and every persistable
+   at its logical shape); against the flat sharded update on 4 ranks
+   (itself against the flat replicated one), the first step's exchanged
+   gradients, read as the Momentum velocities after it, within one bf16
+   unit (2^-8) relative in norm (the gradients are bf16, and the
+   pods-first sum rounds twice where the flat one rounds once; the
+   losses after the later steps are reported beside); a rank holding
+   about half the logical optimizer state, and
+   `Executor.overlap_report` showing bucket 0 launched with backward
+   left to run. Leg b: fluid BERT-base pretraining at S 4096 x
+   1 a rank (phase 14 leg b's program) on the hybrid sharded update
+   against the flat one: losses and state within 1e-2 (each kind of
+   state, masters, first and second moments and the rest, relative in
+   norm as one vector), the flash and dropout kernels' launch counts
+   (zeroed just before the timed steps) above 0. Per rank the step ms,
+   the collectives' calls, MB and host ms a step split by axis (ici,
+   dcn, the world), the optimizer-state bytes held, peak memory;
+16. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, their launches and times on the fluid BERT path and their
    launches a rank on the mesh trainer; the dropout kernel with its
    launches on fluid BERT leg a); launches made by graph replays count;
-16. the last line, ``{"ok": true, "device": {...}}``, printed only when
+17. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -395,6 +421,27 @@ SPMD_C_LOSS_RTOL, SPMD_C_GRAD_RTOL, SPMD_C_GRAD_ATOL = 2e-4, 5e-4, 1e-6
 ZERO_WARMUP, ZERO_STEPS = 1, 3
 ZERO_B = dict(seq=4096, batch=2)
 ZERO_B_RTOL = 1e-2
+#: phase 15, the hybrid (dcn 2, ici 2) world of 4 gloo ranks sharing the
+#: card: leg a config 5 at 32 a rank (the global batch 128; four ranks of
+#: 128 would not fit on one card), leg b phase 14 leg b's BERT at 1 a
+#: rank; the variants each leg runs from one start state (pods, sharded
+#: update). Leg a's bound against the flat world: its bf16 gradients are
+#: summed within the pod and then across pods, each stage rounding to
+#: bf16, where the flat sum rounds once; the first step's exchanged
+#: gradients, read as the Momentum velocities after it, must lie within
+#: one bf16 unit (2^-8) of the flat run's, relative in norm. The losses
+#: after later steps are reported, not bounded: ResNet50 from its random
+#: start amplifies a one-unit gradient difference (ROADMAP Queue 3)
+HYBRID_RANKS, HYBRID_DCN = 4, 2
+HYBRID_A = dict(FLEET_A, batch=32 * HYBRID_RANKS)
+HYBRID_B = dict(seq=4096, batch=HYBRID_RANKS)
+HYBRID_VARIANTS = {"a": [("hier_zero", HYBRID_DCN, True),
+                         ("hier_replicated", HYBRID_DCN, False),
+                         ("flat_zero", 1, True),
+                         ("flat_replicated", 1, False)],
+                   "b": [("hier_zero", HYBRID_DCN, True),
+                         ("flat_zero", 1, True)]}
+HYBRID_A_GRAD_RTOL = 2.0 ** -8
 
 
 def emit(obj):
@@ -2989,6 +3036,266 @@ def phase_zero(torch, name):
     return legs
 
 
+# -- phase 15 -----------------------------------------------------------------
+
+def hybrid_axes(stats):
+    """A rank's `collective_ops.stats` summed by the axis each collective
+    ran along: "ici", "dcn" or "world" (a gather or broadcast over the
+    whole world, and every collective of a flat world)."""
+    out = {}
+    for kind, v in stats.items():
+        axis = kind.rsplit(".", 1)[-1]
+        axis = axis if axis in ("ici", "dcn") else "world"
+        a = out.setdefault(axis, {"calls": 0, "seconds": 0.0, "bytes": 0})
+        for k in a:
+            a[k] += v[k]
+    return out
+
+
+def hybrid_worker(out_dir, leg):
+    """One rank of phase 15: each variant of `HYBRID_VARIANTS[leg]` (pods,
+    sharded update) from the first variant's start state, 1 warm-up and
+    3 timed steps: losses, step ms, collectives a step by axis, the
+    optimizer state held, the exchange record (`overlap_report`), peak
+    memory, the kernels' launches (zeroed just before the timed steps of
+    each variant) and the state at its logical shape (digests; leg b
+    also its distance to the flat run)."""
+    import hashlib
+
+    import torch
+
+    from paddle_tpu_torch import distributed, fleet, fluid
+    from paddle_tpu_torch.core.types import to_numpy
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import collective_ops
+    from paddle_tpu_torch.ops.kernels import dropout, \
+        flash_attention as fa
+
+    rank = distributed.get_rank()
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+    out, start, logical = {}, None, {}
+    for variant, dcn, sharded in HYBRID_VARIANTS[leg]:
+        fluid.set_flags({"FLAGS_tpu_dcn_replicas": dcn,
+                         "FLAGS_tpu_sharded_weight_update": sharded})
+        if leg == "a":
+            c = HYBRID_A
+            main, startup, loss = build_fluid_resnet(
+                fluid, c["img"], c["classes"], c["lr"], True,
+                strategy=fleet.DistributedStrategy())
+            prog = main
+            feed = resnet_feed(c["batch"], c["img"], c["classes"])
+        else:
+            cfg = bert_cfg(HYBRID_B["seq"])
+            main, startup, loss, _ = build_fluid_bert(fluid, cfg,
+                                                      HYBRID_B["seq"], True)
+            prog = fluid.CompiledProgram(main).with_data_parallel()
+            feed = bert.bert_feed(cfg, HYBRID_B["batch"], HYBRID_B["seq"])
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        if start is None:
+            start = {n: scope.find_var(n).clone() for n in names}
+        else:
+            for n in names:
+                scope.set_var(n, start[n].clone())
+
+        def step():
+            return exe.run(prog, feed=feed, fetch_list=[loss],
+                           scope=scope)[0].ravel().tolist()
+
+        losses = [step() for _ in range(ZERO_WARMUP)]
+        if leg == "a" and variant in ("hier_zero", "flat_zero"):
+            # the first step's exchanged gradients, in the velocities
+            logical[variant] = torch.cat([
+                exe.read_logical(n, main, scope).reshape(-1)
+                for n in names if "velocity" in n])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collective_ops.reset_stats()
+        fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+        fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
+        dropout.launches = 0
+        step_ms = []
+        for _ in range(ZERO_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {"flash_forward": fa.fwd_launches,
+                    "flash_dkv": fa.dkv_launches, "flash_dq": fa.dq_launches,
+                    "dropout": dropout.launches}
+        stats = {k: dict(v) for k, v in collective_ops.stats.items()}
+        info = exe.last_entry.info()
+        overlap = exe.overlap_report(prog, feed=feed, fetch_list=[loss],
+                                     scope=scope)
+        state = {n: exe.read_logical(n, main, scope) for n in names}
+        out[variant] = {
+            "losses": losses, "step_ms": step_ms, "launches": launches,
+            "collectives": stats, "by_axis": hybrid_axes(stats),
+            "mode": info["mode"],
+            "pods": list(main._mesh.shape.values()) if main._mesh else None,
+            "opt_state": {k: v for k, v in info.items()
+                          if k.startswith(("opt_state", "grad_buckets"))},
+            "overlap": overlap and dict(
+                {k: v for k, v in overlap.items() if k != "collectives"},
+                bucket0=overlap["collectives"][0],
+                backward_after=[c["backward_after"]
+                                for c in overlap["collectives"]]),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "digest": {n: hashlib.sha256(to_numpy(v).tobytes()).hexdigest()
+                       for n, v in state.items()
+                       if not n.endswith(("_bn_mean", "_bn_var"))}}
+        if leg == "b":
+            logical[variant] = state
+        del exe, scope, prog, main, state
+        torch.cuda.empty_cache()
+    hier, flat = logical["hier_zero"], logical["flat_zero"]
+    if leg == "a":
+        out["first_step_velocity_rel_norm"] = float(
+            (hier.double() - flat.double()).norm()
+            / flat.double().norm())
+    else:
+        # each kind of state as one vector: a var whose bf16 gradient is
+        # rounding noise (the attention's key bias) takes an Adam step of
+        # either sign, so no per-var bound holds (ROADMAP Queue 3)
+        kinds = {}
+        for n in hier:
+            kinds.setdefault("master" if n.endswith("@MASTER") else
+                             "moment1" if "moment1" in n else
+                             "moment2" if "moment2" in n else "other",
+                             []).append(n)
+        out["state_rel_norm"] = {kind: float(
+            torch.cat([(hier[n].double() - flat[n].double()).reshape(-1)
+                       for n in names]).norm()
+            / torch.cat([flat[n].double().reshape(-1)
+                         for n in names]).norm())
+            for kind, names in kinds.items()}
+    fleet_dump(os.path.join(out_dir, "hybrid_%s%d.json" % (leg, rank)), out)
+
+
+def hybrid_leg(distributed, out_dir, leg):
+    fleet_spawn(distributed, hybrid_worker, (out_dir, leg), HYBRID_RANKS,
+                "gloo")
+    ranks = [fleet_read(out_dir, "hybrid_%s%d.json" % (leg, r))
+             for r in range(HYBRID_RANKS)]
+    res = {"leg": leg, "ranks": HYBRID_RANKS, "pods": HYBRID_DCN,
+           "backend": "gloo", "cudnn_deterministic": True,
+           "warmup_steps": ZERO_WARMUP, "timed_steps": ZERO_STEPS,
+           "config": ("BASELINE config 5: fleet ResNet50, 224 x 224, bf16 "
+                      "AMP O2, fused Momentum, 32 a rank (cut from 128 so "
+                      "that 4 ranks fit on one card)" if leg == "a" else
+                      "fluid BERT-base pretraining, S 4096 x 1 a rank, "
+                      "bf16 AMP O2, fused Adam, scan remat")}
+    for variant, _, _ in HYBRID_VARIANTS[leg]:
+        v = [r[variant] for r in ranks]
+        res[variant] = dict(
+            losses=v[0]["losses"], step_ms=[x["step_ms"] for x in v],
+            median_step_ms=[statistics.median(x["step_ms"]) for x in v],
+            mode=v[0]["mode"], pods=v[0]["pods"],
+            opt_state=[x["opt_state"] for x in v],
+            overlap=[x["overlap"] for x in v],
+            launches=[x["launches"] for x in v],
+            peak_mem_bytes=[x["peak_mem_bytes"] for x in v],
+            by_axis=[{a: {"calls": c["calls"] / ZERO_STEPS,
+                          "mb": c["bytes"] / 1e6 / ZERO_STEPS,
+                          "ms": c["seconds"] * 1e3 / ZERO_STEPS}
+                      for a, c in x["by_axis"].items()} for x in v],
+            **collectives_per_step([x["collectives"] for x in v],
+                                   ZERO_STEPS))
+        res[variant]["replicas_bit_equal"] = all(
+            r[variant]["digest"] == ranks[0][variant]["digest"]
+            for r in ranks[1:])
+
+    def rel(a, b):
+        return max(abs(x - y) / max(abs(y), 1e-30) for sa, sb in zip(
+            res[a]["losses"], res[b]["losses"]) for x, y in zip(sa, sb))
+
+    hz = res["hier_zero"]
+    res["flat_max_loss_rel_diff"] = rel("hier_zero", "flat_zero")
+    if leg == "a":
+        res["hier_zero_vs_replicated_bit_equal"] = \
+            hz["losses"] == res["hier_replicated"]["losses"] and all(
+                r["hier_zero"]["digest"] == r["hier_replicated"]["digest"]
+                for r in ranks)
+        fz, fr = res["flat_zero"], res["flat_replicated"]
+        res["flat_zero_vs_replicated_bit_equal"] = \
+            fz["losses"] == fr["losses"] and all(
+                r["flat_zero"]["digest"] == r["flat_replicated"]["digest"]
+                for r in ranks)
+        res["first_step_velocity_rel_norm"] = [
+            r["first_step_velocity_rel_norm"] for r in ranks]
+    else:
+        res["state_rel_norm"] = [r["state_rel_norm"] for r in ranks]
+    emit({"phase": "hybrid_leg", **res})
+    check(all(math.isfinite(x) for s_ in hz["losses"] for x in s_)
+          and len(hz["losses"][0]) == HYBRID_RANKS,
+          "hybrid %s: losses %s" % (leg, hz["losses"]))
+    check(hz["pods"] == [HYBRID_DCN, HYBRID_RANKS // HYBRID_DCN]
+          and res["flat_zero"]["pods"] is None,
+          "hybrid %s: worlds %s / %s" % (leg, hz["pods"],
+                                         res["flat_zero"]["pods"]))
+    check(all(res[v]["replicas_bit_equal"] for v, _, _ in
+              HYBRID_VARIANTS[leg]), "hybrid %s: replicas differ" % leg)
+    check(all(o["opt_state_sharded_vars"] > 0
+              and 2 * o["opt_state_per_replica_bytes"]
+              < 1.01 * o["opt_state_logical_bytes"]
+              and 2.2 * o["opt_state_per_replica_bytes"]
+              > o["opt_state_logical_bytes"] for o in hz["opt_state"]),
+          "hybrid %s: a rank does not hold half the state: %s"
+          % (leg, hz["opt_state"]))
+    check(all(o is not None and o["launched_in_backward"]
+              and o["bucket0"]["bucket"] == 0
+              and o["bucket0"]["backward_after"] > 0
+              for o in hz["overlap"]),
+          "hybrid %s: bucket 0 not launched inside the backward: %s"
+          % (leg, hz["overlap"]))
+    if leg == "a":
+        check(res["hier_zero_vs_replicated_bit_equal"],
+              "hybrid a: hierarchical sharded and replicated differ")
+        check(max(res["first_step_velocity_rel_norm"])
+              <= HYBRID_A_GRAD_RTOL,
+              "hybrid a: the first step's gradients differ from the flat "
+              "run's by %s in norm" % res["first_step_velocity_rel_norm"])
+    else:
+        check(all(x["flash_forward"] > 0 and x["flash_dkv"] > 0
+                  and x["flash_dq"] > 0 and x["dropout"] > 0
+                  for x in hz["launches"]),
+              "hybrid b: kernel launches %s" % hz["launches"])
+        check(res["flat_max_loss_rel_diff"] <= ZERO_B_RTOL
+              and max(v for r in res["state_rel_norm"] for v in r.values())
+              <= ZERO_B_RTOL,
+              "hybrid b: hierarchical and flat differ by %s (losses), %s "
+              "(state)" % (res["flat_max_loss_rel_diff"],
+                           res["state_rel_norm"]))
+    return res
+
+
+def phase_hybrid(torch, name):
+    """Phase 15: hierarchical data parallelism on a (dcn 2, ici 2) world
+    of 4 gloo ranks sharing the card. Leg a: BASELINE config 5; leg b:
+    fluid BERT-base with the flash kernels."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="hybrid_")
+    try:
+        legs = {leg: hybrid_leg(distributed, out_dir, leg) for leg in "ab"}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "hybrid", "seconds": time.perf_counter() - t0,
+          "legs": ["a", "b"], "device": name,
+          "nvidia_smi": nvidia_smi_line(),
+          "median_step_ms": {k: {v: legs[k][v]["median_step_ms"]
+                                 for v, _, _ in HYBRID_VARIANTS[k]}
+                             for k in legs}})
+    return legs
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -3108,6 +3415,7 @@ def main():
     phase_fleet_dp(torch, name, resnet["leg_a"])
     mesh = phase_spmd_mesh(torch, name, train)
     phase_zero(torch, name)
+    phase_hybrid(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

@@ -48,8 +48,16 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         # cuDNN times its algorithms for each new convolution shape and
         # keeps the fastest, as XLA autotunes the reference's convolutions;
-        # a prepared fluid block runs fixed shapes step after step
-        torch.backends.cudnn.benchmark = True
+        # a prepared fluid block runs fixed shapes step after step. The
+        # timed choice can differ from run to run and from rank to rank:
+        # FLAGS_cudnn_deterministic (Paddle's meaning) turns the timing
+        # off and asks cuDNN for deterministic algorithms
+        from ..utils.flags import get_flag
+
+        det = bool(get_flag("FLAGS_cudnn_deterministic", False))
+        torch.backends.cudnn.benchmark = not det
+        if det:
+            torch.backends.cudnn.deterministic = True
     return dev
 
 

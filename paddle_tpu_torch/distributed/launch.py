@@ -3,7 +3,7 @@
 
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 \\
         [--started_port 6170] [--backend nccl|gloo] [--log_dir D] \\
-        train.py [args...]
+        [--num_pods K] train.py [args...]
 
 The reference starts one process per host, which drives every local chip
 over the mesh. The port starts one process per rank, each with the same
@@ -13,13 +13,18 @@ over the mesh. The port starts one process per rank, each with the same
 ``FLAGS_selected_gpus`` (the rank's card: its rank modulo the card
 count, so ranks share a card when there are fewer cards than ranks) and
 ``PADDLE_DISTRI_BACKEND`` when `--backend` names one. NCCL needs a card
-per rank; ranks that share a card run over gloo.
+per rank; ranks that share a card run over gloo. `--num_pods K` (else the
+``PADDLE_NUM_PODS`` env) cuts the ranks into K pods of contiguous ranks
+and gives each worker ``PADDLE_NUM_PODS`` and its ``PADDLE_POD_ID``,
+which make its data-parallel world the hybrid (dcn, ici) mesh
+(`parallel/env.py dcn_replicas`); a count that does not divide the
+ranks warns and runs flat (`_launch_num_pods`).
 
 Supervision fails fast: the first worker that exits non-zero stops the
-rest, and the launcher exits with its code (a signal death as
-128 + signal). SIGINT and SIGTERM stop the cohort. Multi-pod topologies,
-tensor-parallel degrees, elastic restarts and the hang watch are not
-ported (ROADMAP Queue 1 #10): their options raise.
+rest, and the launcher exits with its code (a signal death as 128 +
+signal). SIGINT and SIGTERM stop the cohort. Tensor-parallel degrees,
+elastic restarts and the hang watch are not ported (ROADMAP Queue 1
+#10): their options raise.
 """
 from __future__ import annotations
 
@@ -64,15 +69,17 @@ def _parse_args(argv):
                         "where a card is, else gloo)")
     p.add_argument("--log_dir", type=str, default=None,
                    help="write rank r's output to <log_dir>/workerlog.r")
-    p.add_argument("--num_pods", type=int, default=0)
+    p.add_argument("--num_pods", type=int, default=0,
+                   help="cut the ranks into this many pods of contiguous "
+                        "ranks (0: the PADDLE_NUM_PODS env, else flat); "
+                        "a count that does not divide them runs flat")
     p.add_argument("--mp_degree", type=int, default=0)
     p.add_argument("--min_ranks", type=int, default=0)
     p.add_argument("--hang_timeout", type=float, default=None)
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
-    for opt, unported in (("--num_pods", args.num_pods > 1),
-                          ("--mp_degree", args.mp_degree > 1),
+    for opt, unported in (("--mp_degree", args.mp_degree > 1),
                           ("--min_ranks", args.min_ranks > 0),
                           ("--hang_timeout", args.hang_timeout)):
         if unported:
@@ -81,10 +88,33 @@ def _parse_args(argv):
     return args
 
 
+def _launch_num_pods(args, world):
+    """The pods of a cohort of `world` ranks: `--num_pods`, else the
+    ``PADDLE_NUM_PODS`` env, else 1 (flat). A count that does not divide
+    the world cannot make pods of one size: it warns and runs flat."""
+    npods = args.num_pods
+    if not npods:
+        try:
+            npods = int(os.environ.get("PADDLE_NUM_PODS", "1") or 1)
+        except ValueError:
+            npods = 1
+    if npods <= 1:
+        return 1
+    if world % npods:
+        sys.stderr.write(
+            "paddle_tpu_torch.launch: %d rank(s) not divisible into %d "
+            "pods; running a flat (single-pod) world\n" % (world, npods))
+        return 1
+    return npods
+
+
 def _worker_env(endpoints, tid, restart_no, base_env=None, backend=None,
-                ndev=None):
+                ndev=None, npods=1):
     """The ``PADDLE_*`` contract for worker `tid` of `endpoints`, over
-    `base_env` (default: this process's environment)."""
+    `base_env` (default: this process's environment); with `npods` > 1
+    the pod topology (``PADDLE_NUM_PODS``, ``PADDLE_POD_ID``: contiguous
+    blocks of ranks), which a flat cohort pops so an inherited one does
+    not leak in."""
     env = dict(os.environ if base_env is None else base_env)
     # the reference's supervised workers agree on checkpoint steps
     # across ranks; kept for the contract (checkpoints: Queue 1 #8a)
@@ -105,13 +135,21 @@ def _worker_env(endpoints, tid, restart_no, base_env=None, backend=None,
         env["PADDLE_DISTRI_BACKEND"] = backend
     else:
         env.pop("PADDLE_DISTRI_BACKEND", None)
+    if npods > 1:
+        env.update({"PADDLE_NUM_PODS": str(npods),
+                    "PADDLE_POD_ID": str(tid // (len(endpoints) // npods))})
+    else:
+        env.pop("PADDLE_NUM_PODS", None)
+        env.pop("PADDLE_POD_ID", None)
     return env
 
 
 def _spawn_cohort(args, endpoints, local_ids, restart_no):
     procs, logs = [], []
+    npods = _launch_num_pods(args, len(endpoints))
     for tid in local_ids:
-        env = _worker_env(endpoints, tid, restart_no, backend=args.backend)
+        env = _worker_env(endpoints, tid, restart_no, backend=args.backend,
+                          npods=npods)
         cmd = [sys.executable, "-u", args.training_script] \
             + args.training_script_args
         out = None

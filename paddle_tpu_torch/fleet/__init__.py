@@ -13,9 +13,13 @@ transpiler/collective.py:178-268): the program is marked data-parallel,
 the backward's loss cotangent is scaled by 1/nranks, and one in-place
 `c_allreduce_sum` per gradient follows the backward. The executor runs
 such a program as one rank of the `torch.distributed` world that
-`fleet.init` joins (`distributed.init_parallel_env`). The
-parameter-server, auto-parallel, DGC, LocalSGD, hierarchical-allreduce
-and elastic paths are not ported (ROADMAP Queue 1 #10) and raise, as do
+`fleet.init` joins (`distributed.init_parallel_env`); with more than one
+pod asked for (``FLAGS_tpu_dcn_replicas``, ``PADDLE_NUM_PODS``, or the
+strategy's `use_hierarchical_allreduce` with
+`hierarchical_allreduce_inter_nranks` pods) that world is the hybrid
+(dcn, ici) mesh and the gradient sums run within the pod, then across
+pods. The parameter-server, auto-parallel, DGC, LocalSGD and elastic
+paths are not ported (ROADMAP Queue 1 #10) and raise, as do
 `save_persistables` and `save_inference_model` (Queue 1 #8a).
 """
 from __future__ import annotations
@@ -309,8 +313,7 @@ is_first_worker = fleet.is_first_worker
 
 #: strategy knobs whose path is not ported, -> the ROADMAP item
 _UNPORTED_KNOBS = (("a_sync", "#10"), ("auto", "#10"), ("dgc", "#10"),
-                   ("localsgd", "#10"), ("use_hierarchical_allreduce", "#10"),
-                   ("elastic", "#10"))
+                   ("localsgd", "#10"), ("elastic", "#10"))
 
 
 class CollectiveOptimizer:
@@ -341,6 +344,16 @@ class CollectiveOptimizer:
         for knob, item in _UNPORTED_KNOBS:
             if getattr(st, knob, False):
                 _not_ported("DistributedStrategy.%s" % knob, item)
+        if getattr(st, "use_hierarchical_allreduce", False) and int(getattr(
+                st, "hierarchical_allreduce_inter_nranks", 1) or 1) > 1:
+            # the GPU knob maps onto the hybrid (dcn, ici) world:
+            # inter_nranks is the number of pods; an explicit
+            # FLAGS_tpu_dcn_replicas wins (the reference's `:449-462`)
+            from ..utils.flags import get_flag, set_flags
+
+            if not int(get_flag("FLAGS_tpu_dcn_replicas", 0) or 0):
+                set_flags({"FLAGS_tpu_dcn_replicas": int(
+                    st.hierarchical_allreduce_inter_nranks)})
         inner, self._applied_meta_list = compose(st, self._optimizer)
         optimize_ops, params_grads = inner.minimize(
             loss, startup_program, parameter_list, no_grad_set)
@@ -358,7 +371,11 @@ def transpile_collective(program, nranks=None, k_steps_localsgd=0,
     data-parallel, `sync_batch_norm` turns every batch_norm into
     sync_batch_norm over the dp ring, the backward's loss cotangent is
     scaled by 1/nranks, and one in-place `c_allreduce_sum` per gradient
-    follows the backward."""
+    follows the backward. Where more than one pod is asked for
+    (`parallel/env.py hybrid_shape`) the program's axes are the hybrid
+    ones: it shards over "ici", its ring 0 is the (dcn, ici) pair and
+    sync_batch_norm's moments sync over that pair; with the world up, the
+    program's hybrid mesh is built here (`program_ring`)."""
     if k_steps_localsgd:
         _not_ported("LocalSGD", "#10")
     if dgc_cfg is not None:
@@ -367,16 +384,23 @@ def transpile_collective(program, nranks=None, k_steps_localsgd=0,
         nranks = penv.world_size()
     if nranks <= 1:
         return program
-    program._dp_axis = "dp"
+    world = penv.global_mesh()
+    if world is not None and world.size == nranks:
+        hybrid = penv.program_ring(program).dcn is not None
+    else:
+        hybrid = penv.hybrid_shape(nranks) is not None
+    program._dp_axis, program._dcn_axis = (penv.ICI_AXIS, penv.DCN_AXIS) \
+        if hybrid else ("dp", None)
     program._data_parallel = True
 
     if sync_batch_norm:
+        bn_axis = (penv.DCN_AXIS, penv.ICI_AXIS) if hybrid else "dp"
         n_swapped = 0
         for bi in range(program.num_blocks):
             for op in program.block(bi).ops:
                 if op.type == "batch_norm":
                     op.type = "sync_batch_norm"
-                    op.attrs["axis_name"] = program._dp_axis
+                    op.attrs["axis_name"] = bn_axis
                     n_swapped += 1
         if n_swapped:
             program._version += 1

@@ -4,12 +4,18 @@ reference: `python/paddle/fluid/compiler.py:87-310`).
 `with_data_parallel` marks the program data-parallel: the executor runs
 it as this process's rank of the `torch.distributed` world (one process
 per device, `distributed.launch`), splits each fed global batch along
-axis 0, averages every gradient over the ranks after the backward (one
-all-reduce each, the reference's AllReduceOpHandles) and gathers
-fetches. The build and execution strategies are accepted for the API;
-none of their knobs changes what runs.
+axis 0, averages every gradient over the ranks (one all-reduce each,
+the reference's AllReduceOpHandles, or the sharded update's
+reduce-scatters) and gathers fetches. Where more than one pod is asked
+for (``FLAGS_tpu_dcn_replicas``, ``PADDLE_NUM_PODS``) and a world is up,
+the program's world becomes the hybrid (dcn, ici) mesh here, as the
+reference's compile path makes it (`parallel/env.py program_ring`). The
+build and execution strategies are accepted for the API; none of their
+knobs changes what runs.
 """
 from __future__ import annotations
+
+from ..parallel import env as penv
 
 
 class BuildStrategy:
@@ -76,6 +82,7 @@ class CompiledProgram:
         if build_strategy is not None:
             self._build_strategy = build_strategy
         self._program._data_parallel = True
+        penv.program_ring(self._program)
         return self
 
     def with_inference_optimize(self, config):

@@ -16,7 +16,9 @@ flow, an initializer), every block on the CPU and every block with
 `compiled_blocks` say which and why. Fetches come back as numpy arrays,
 or as tensors on the device (clones of a graph's outputs, which the next
 replay rewrites). `warmup` captures shape buckets ahead of traffic on
-copies of the state.
+copies of the state, or in the background runs a discarded step of each
+on copies (the build of the `csrc` kernels, cuBLAS's handles and cuDNN's
+algorithm choices).
 
 A data-parallel program (`CompiledProgram.with_data_parallel`, fleet's
 `transpile_collective`) runs as this process's rank of the world
@@ -29,12 +31,20 @@ persistable one is this rank's own value. At the program's first run in
 a scope each of its persistables that the scope holds is broadcast from
 rank 0 (once a scope: an evaluation clone keeps the per-rank running
 statistics), and with random_seed 0 every rank takes rank 0's step
-seeds, so the replicas start equal and draw the same dropout masks. The cache key holds the
-world, so an entry compiled for one world never runs in another.
+seeds, so the replicas start equal and draw the same dropout masks. The
+cache key holds the world, so an entry compiled for one world never runs
+in another. With more than one pod asked for (``FLAGS_tpu_dcn_replicas``,
+``PADDLE_NUM_PODS``) the world is the hybrid (dcn, ici) pair
+(`parallel/env.py program_ring`): the batch splits over both axes,
+dcn-major (rank order), gradient sums run within the pod and then
+across pods, and the sharded state is laid out within the pod.
+`overlap_report` says which gradient collectives of the last run began
+while the backward was still producing gradients.
 
 With the sharded weight update (ZeRO-1, `parallel/sharded_update.py`,
-on by default) the scope holds this rank's flat 1/N slice of each
-optimizer moment and AMP master the entry keeps sharded: the first run
+on by default) the scope holds this rank's flat 1/N slice (N the shard
+count: the world's, or the pod's on a hybrid world) of each optimizer
+moment and AMP master the entry keeps sharded: the first run
 lays each out from its logical value after the broadcast, and
 `read_logical` gathers one back at its logical shape (every rank calls
 it alike). `feed_sharding` gives `reader.prefetch_to_device` this rank's
@@ -43,6 +53,8 @@ rows, and a feed the prefetcher already cut to them is left as it is.
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,6 +62,7 @@ import torch
 
 from . import framework, lowering
 from .compiler import CompiledProgram
+from ..core.rng import StepSeed, seed_tensor
 from ..core.scope import global_scope
 from ..ops import collective_ops
 from ..parallel import env as penv
@@ -130,7 +143,7 @@ class Executor:
         return [entry.info() for entry in self._cache.values()]
 
     def warmup(self, program=None, shapes=None, meshes=None,
-               fetch_list=None, scope=None, background=False) -> dict:
+               fetch_list=None, scope=None, background=False):
         """Compile `program` for each feed-shape bucket in `shapes` (a
         list of dicts: feed name -> shape tuple, or an example array)
         before traffic (counterpart: the reference's `warmup`): a graph
@@ -142,19 +155,45 @@ class Executor:
         compiled now, found compiled, and those whose feeds could not be
         built (with the error). A data-parallel program's buckets are
         global batches, each rank warming its own rows (every rank must
-        call it alike). `meshes` and `background` are not ported (ROADMAP
-        Queue 1 #7) and raise."""
+        call it alike).
+
+        ``background=True`` returns a daemon `threading.Thread` named
+        "paddle-tpu-warmup" at once; its ``warmup_report`` (the same
+        report) lands when it ends. There the executor's cache is never
+        touched (the reference's ``use_cache=not in_background``): each
+        bucket's entry is compiled apart and one discarded eager step
+        runs on copies of the state, on a CUDA stream of its own, which
+        warms what the port has in place of the reference's persistent
+        compile tier: the `csrc` kernels' build at first use, cuBLAS's
+        handles and cuDNN's algorithm choices. A data-parallel program's
+        step runs there on this rank's rows without its collectives
+        (issued from a second thread they would break the ranks' one
+        order), its sharded state as zeros of the logical shapes.
+        `meshes` (compiling ahead for other worlds, an elastic
+        restart's) is not ported (ROADMAP Queue 1 #10) and raises."""
         if meshes is not None:
             raise NotImplementedError(
-                "warmup(meshes=...) is not ported: compiling ahead for "
-                "other worlds comes later (ROADMAP Queue 1 #7)")
-        if background:
-            raise NotImplementedError(
-                "warmup(background=True) is not ported (ROADMAP Queue 1 "
-                "#7)")
+                "warmup(meshes=...) is not ported: it compiles ahead for "
+                "the worlds of an elastic restart, which come with "
+                "live_resize and the elastic launch (ROADMAP Queue 1 #10)")
         program = self._program(program)
         scope = scope or global_scope()
         fetch_names = self._fetch_names(fetch_list)
+        if not background:
+            return self._warmup_impl(program, shapes, fetch_names, scope)
+
+        def run():
+            thread.warmup_report = self._warmup_impl(
+                program, shapes, fetch_names, scope, in_background=True)
+
+        thread = threading.Thread(target=run, daemon=True,
+                                  name="paddle-tpu-warmup")
+        thread.warmup_report = None
+        thread.start()
+        return thread
+
+    def _warmup_impl(self, program, shapes, fetch_names, scope,
+                     in_background=False):
         ring = self._dp_ring(program)
         block = program.global_block()
         report = {"compiled": [], "cached": [], "skipped": []}
@@ -168,6 +207,10 @@ class Executor:
                 report["skipped"].append(
                     {"shapes": desc, "error": "%s: %s" % (
                         type(e).__name__, e)})
+                continue
+            if in_background:
+                report["compiled"].append(self._warmup_apart(
+                    program, feeds, fetch_names, scope, ring, desc))
                 continue
             known = self._cache_key(program, feeds, fetch_names,
                                     scope, ring) in self._cache
@@ -188,6 +231,73 @@ class Executor:
                 entry.run(feeds, copies, 0)
             report["compiled"].append(item)
         return report
+
+    def _warmup_apart(self, program, feeds, fetch_names, scope, ring, desc):
+        """The background warmup of one bucket: its report item (the mode
+        and reason its cached entry would have) after one discarded eager
+        step of an entry of its own, without the ring's collectives, on
+        copies of the state on a side stream."""
+        block = program.global_block()
+        mode, reason = lowering.entry_mode(program, block, self.device,
+                                           ring, self._graph_runner)
+        entry = lowering.compile_block(program, block, list(feeds),
+                                       fetch_names, self.device)
+        plan = getattr(program, "_shard_plan", None) \
+            if ring is not None else None
+        stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        with torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext():
+            if stream is not None:
+                stream.wait_stream(torch.cuda.default_stream(self.device))
+            copies = {}
+            for n, v in self._gather_states(entry.state_in, scope).items():
+                info = plan.sharded_state.get(n) if plan is not None \
+                    else None
+                copies[n] = v.clone() if info is None or \
+                    tuple(v.shape) == info.shape else torch.zeros(
+                        info.shape, dtype=v.dtype, device=v.device)
+            entry.fn(feeds, copies, StepSeed(0, seed_tensor(0, self.device)))
+        if stream is not None:
+            stream.synchronize()
+        return {"shapes": desc, "mode": mode, "reason": reason}
+
+    def overlap_report(self, program=None, feed=None, fetch_list=None,
+                       scope=None):
+        """Which gradient collectives of a data-parallel step began while
+        the backward was still producing gradients (counterpart: the
+        reference's `overlap_report`, an audit of its scheduled HLO): the
+        record of the cached entry for these feeds' and fetches' last
+        eager run, or of its capture, which fixes the order every replay
+        launches in (fleet's in-place `c_allreduce_sum` sums are part of
+        that exchange). None for a program without a backward or a
+        world, or an entry that has not run yet. Returns {"collectives": [...],
+        "n_backward", "n_buckets", "overlappable_reduce_scatters",
+        "launched_in_backward", "captured"}; each collective has its
+        "kind" ("reduce_scatter" or "all_reduce"), "bucket" (None for
+        one gradient), "grads", "bytes", "backward_after" (leaf
+        gradients the backward produced after its launch) and
+        "starts_before_final_backward". With buckets, bucket 0 shows
+        ``backward_after > 0``; with `FLAGS_tpu_comm_bucket_mb` 0 the
+        exchange follows the last gradient and every collective shows
+        0."""
+        program = self._program(program)
+        ring = self._dp_ring(program)
+        if ring is None:
+            return None
+        feeds = self._prepare_feed(program.global_block(),
+                                   self._split_feed(feed or {}, ring))
+        entry = self._cache.get(self._cache_key(
+            program, feeds, self._fetch_names(fetch_list),
+            scope or global_scope(), ring))
+        rep = entry.overlap if entry is not None else None
+        if rep is None:
+            return None
+        return dict(rep, collectives=[dict(c) for c in rep["collectives"]],
+                    overlappable_reduce_scatters=sum(
+                        1 for c in rep["collectives"]
+                        if c["kind"] == "reduce_scatter"
+                        and c["backward_after"] > 0))
 
     def read_logical(self, name, program=None, scope=None):
         """The scope's value of `name` at its logical shape, a tensor: a
@@ -216,7 +326,9 @@ class Executor:
         ring = self._dp_ring(self._program(program))
         if ring is None:
             return None
-        return prefetcher.RowShard(ring.rank, ring.size)
+        return prefetcher.RowShard(
+            ring.rank, ring.size,
+            spec=(("dcn", "ici"),) if ring.dcn is not None else ("dp",))
 
     def close(self):
         """Release every entry's graph and static buffers."""
@@ -236,9 +348,11 @@ class Executor:
 
     @staticmethod
     def _dp_ring(program):
-        """The world a data-parallel program runs over (None: a single
-        process)."""
-        return penv.global_mesh() if program._data_parallel else None
+        """The ring a data-parallel program runs over (None: a single
+        process): the world's, or its hybrid (dcn, ici) pair's
+        (`parallel/env.py program_ring`)."""
+        return penv.program_ring(program) if program._data_parallel \
+            else None
 
     @staticmethod
     def _split_feed(feed, ring):

@@ -387,9 +387,15 @@ class Program:
         self._seed_counter = 0
         # data parallelism (`CompiledProgram.with_data_parallel`, fleet's
         # `transpile_collective`): the executor runs the program as this
-        # process's rank of the world, over the "dp" ring
+        # process's rank of the world, over the "dp" ring; on a hybrid
+        # world over the (dcn, ici) pair of `_mesh`
+        # (`parallel/env.create_hybrid_mesh`, decided once for the world
+        # whose uid is `_mesh_world`), sharding over "ici"
         self._data_parallel = False
         self._dp_axis = "dp"
+        self._dcn_axis = None
+        self._mesh = None
+        self._mesh_world = None
         # rank 0's seed base of a data-parallel program with random_seed
         # 0, set by the executor at its first run
         self._shared_seed = None
@@ -460,7 +466,8 @@ class Program:
         p._is_test = for_test
         p._version = self._version
         p._data_parallel = self._data_parallel
-        p._dp_axis = self._dp_axis
+        p._dp_axis, p._dcn_axis = self._dp_axis, self._dcn_axis
+        p._mesh, p._mesh_world = self._mesh, self._mesh_world
         for attr in ("_amp", "_amp_lists", "_amp_dtype", "_amp_master_of"):
             if hasattr(self, attr):
                 setattr(p, attr, getattr(self, attr))

@@ -66,16 +66,25 @@ rank's shards, and the updated params are all-gathered (the deferred
 ones at the end of the step, a bucket at a time, in forward order).
 Where there is no plan (one rank, `FLAGS_tpu_sharded_weight_update` off,
 a program the planner declines) and the program does not sync its
-gradients itself, every gradient is averaged over the ring right after
-the backward, one all-reduce each (the reference's `_dp_pmean`). A
-collective that fails raises; nothing falls back to the replicated
-path mid-step. The port has no dynamic loss scaling (bf16 needs none;
-float16 raises), so there is no found-inf predicate to reduce across
-ranks. Gloo collectives run on the host, so a data-parallel block over
-gloo runs eagerly; over NCCL it is captured with its collectives at any
-number of ranks (at 4 ranks the captured job's losses and state lie
-within the spread of two eager jobs, which already differ at their
-first step: ROADMAP Queue 3).
+gradients itself, every gradient is averaged over the ring, one
+all-reduce each (the reference's `_dp_pmean`; on a hybrid (dcn, ici)
+world a sum within the pod, then across pods, then a division by the
+world). The gradient exchange starts inside the backward
+(`_GradExchange`): each bucket's reduce-scatter, each gradient's
+all-reduce in backward order, and fleet's in-place `c_allreduce_sum`
+sums (which then do not run as ops) are launched by autograd hooks as
+soon as their last gradient exists, in one order on every rank, and
+waited for before the post-backward section; with
+`FLAGS_tpu_comm_bucket_mb` 0 everything is exchanged after the backward
+instead. The values are the same either way. `Executor.overlap_report`
+reads what the last run (or the capture) launched when. A collective
+that fails raises; nothing falls back to the replicated path mid-step.
+The port has no dynamic loss scaling (bf16 needs none; float16 raises),
+so there is no found-inf predicate to reduce across ranks. Gloo
+collectives run on the host, so a data-parallel block over gloo runs
+eagerly; over NCCL it is captured with its collectives at any number of
+ranks (with `FLAGS_cudnn_deterministic` a captured 4-card job equals an
+eager one bit for bit: ROADMAP Queue 3).
 
 Scope semantics: the function is pure over a name -> tensor environment.
 Scope state (params, optimizer moments) enters as inputs and leaves as
@@ -216,9 +225,10 @@ def _exec_op(op, env, seed, op_idx, device, amp=None):
             env[n] = v
 
 
-def _run_ops(ops, env, seed, device, base_idx=0, amp=None):
+def _run_ops(ops, env, seed, device, base_idx=0, amp=None, skip=()):
     for i, op in enumerate(ops):
-        _exec_op(op, env, seed, base_idx + i, device, amp)
+        if id(op) not in skip:
+            _exec_op(op, env, seed, base_idx + i, device, amp)
 
 
 def _sub_block_carry(sub_block, env):
@@ -488,6 +498,157 @@ def _diffable(block, name, env):
     return isinstance(val, torch.Tensor) and val.is_floating_point()
 
 
+class _GradExchange:
+    """The data-parallel gradient exchange of one backward: `units`, each
+    one collective over some gradients (a bucket's reduce-scatter, one
+    gradient's reduce-scatter or all-reduce), launched in the units'
+    order on every rank. With `hooks` a unit launches from inside the
+    backward as soon as its last gradient exists (a multi-grad hook on
+    the `views` through which the forward reads the leaves) and after
+    every unit before it (ready ones queue); `finish` launches the rest
+    once the backward returned and waits for all.
+
+    `records` says, for each launch, its kind, bucket, gradients and
+    bytes, and how many leaf gradients the backward produced after it
+    (`backward_after`, counted by hooks on the same views): the
+    counterpart of the reference's `collective_overlap_audit`.
+
+    A unit is (kind, bucket index or None, diff var names, launch), where
+    ``launch({name: gradient})`` starts the collective and returns a
+    function that waits and gives {grad var name: exchanged value}."""
+
+    def __init__(self, units, views, hooks):
+        from torch.autograd.graph import register_multi_grad_hook
+
+        self.units = units
+        self.views = views
+        self.ready = [None] * len(units)
+        self.waits = []
+        self.next = 0
+        self.produced = 0
+        self.records = []
+        for v in views.values():
+            v.register_hook(self._count)
+        if hooks:
+            for i, unit in enumerate(units):
+                register_multi_grad_hook(
+                    [views[n] for n in unit[2]],
+                    functools.partial(self._ready, i), mode="all")
+
+    def _count(self, grad):
+        self.produced += 1
+
+    def _ready(self, i, grads):
+        # a gradient the backward never produced is zeros, as jax.vjp
+        # gives (every rank leaves out the same ones)
+        self.ready[i] = {
+            n: torch.zeros_like(self.views[n]) if g is None else g
+            for n, g in zip(self.units[i][2], grads)}
+        self._drain()
+
+    def _drain(self):
+        while self.next < len(self.units) and \
+                self.ready[self.next] is not None:
+            kind, bucket, names, launch = self.units[self.next]
+            grads = self.ready[self.next]
+            self.records.append({
+                "kind": kind, "bucket": bucket, "grads": len(names),
+                "bytes": sum(g.numel() * g.element_size()
+                             for g in grads.values()),
+                "launched_after": self.produced})
+            self.waits.append(launch(grads))
+            self.ready[self.next] = True
+            self.next += 1
+
+    def finish(self, grads):
+        """Launch the units the backward did not, with `grads` (diff var
+        name -> gradient, zeros for the unused), wait for every unit and
+        return {grad var name: exchanged value}."""
+        for i in range(self.next, len(self.units)):
+            if self.ready[i] is None:
+                self.ready[i] = {n: grads[n] for n in self.units[i][2]}
+        self._drain()
+        out = {}
+        for wait in self.waits:
+            out.update(wait())
+        for r in self.records:
+            r["backward_after"] = self.produced - r.pop("launched_after")
+            r["starts_before_final_backward"] = r["backward_after"] > 0
+        return out
+
+
+def _exchange_units(diff_names, grad_topo, ring, plan, mean):
+    """The units of a data-parallel step's gradient exchange over `ring`
+    (see `_GradExchange`), in launch order: with a sharded-update `plan`
+    its buckets in backward order (without buckets its gradients one by
+    one), then every other gradient's all-reduce in backward order
+    (descending last forward use, `grad_topo`). `mean` divides each sum
+    by the world (the implicit sync); fleet's explicit sync sums."""
+    gname = {framework.grad_var_name(n): n for n in diff_names}
+    units, taken = [], set()
+    if plan is not None:
+        for b in plan.buckets:
+            names = [gname[e.grad] for e in b.entries if e.grad in gname]
+            if names:
+                units.append(("reduce_scatter", b.index, names,
+                              functools.partial(_launch_bucket, b, plan,
+                                                mean)))
+                taken.update(names)
+        for n in diff_names:
+            if framework.grad_var_name(n) in plan.grad_names | \
+                    plan.rs_targets and n not in taken:
+                units.append(("reduce_scatter", None, [n],
+                              functools.partial(_launch_scatter, plan, mean)))
+                taken.add(n)
+    rest = [(i, n) for i, n in enumerate(diff_names) if n not in taken]
+    rest.sort(key=lambda p: (-int(grad_topo.get(p[1], -1)), -p[0]))
+    units.extend(("all_reduce", None, [n],
+                  functools.partial(_launch_sum, ring, mean))
+                 for _, n in rest)
+    return units
+
+
+def _launch_bucket(bucket, plan, mean, grads):
+    return _su.bucket_reduce_scatter_start(
+        bucket, {framework.grad_var_name(n): g for n, g in grads.items()},
+        plan, mean)
+
+
+def _launch_scatter(plan, mean, grads):
+    (n, g), = grads.items()
+    wait = _su.reduce_scatter_start(g, plan, mean)
+    return lambda: {framework.grad_var_name(n): wait()}
+
+
+def _launch_sum(ring, mean, grads):
+    (n, g), = grads.items()
+    pending = collective_ops.all_reduce_start(g, ring)
+    if mean:
+        return lambda: {framework.grad_var_name(n):
+                        pending.wait() / ring.size}
+    return lambda: {framework.grad_var_name(n): pending.wait()}
+
+
+def _early_syncs(ops, bwd_idx):
+    """Fleet's explicit sync: the ids of the in-place single-gradient
+    `c_allreduce_sum` ops on ring 0 after the backward that no post op
+    before them touches, by gradient. Their sums are launched from the
+    backward instead (`_GradExchange`), and the ops are skipped."""
+    out, touched = {}, set()
+    for op in ops[bwd_idx + 1:] if bwd_idx is not None else []:
+        xs = op.input_names.get("X", [])
+        if op.type == "c_allreduce_sum" and len(xs) == 1 \
+                and op.output_names.get("Out", []) == xs \
+                and xs[0].endswith(framework.GRAD_SUFFIX) \
+                and int(op.attrs.get("ring_id", 0)) == 0 \
+                and xs[0] not in touched and xs[0] not in out:
+            out[xs[0]] = id(op)
+            continue
+        touched.update(op.input_arg_names)
+        touched.update(op.output_arg_names)
+    return out
+
+
 def _has_explicit_sync(ops, bwd_idx):
     """Whether an op after the backward all-reduces a `@GRAD` var (fleet's
     transpiled program syncs its own gradients; a forward collective such
@@ -525,8 +686,16 @@ def build_block_fn(program, block, feed_names, fetch_names,
     amp = _amp_trace_policy(program)
     sync_ring = ring if (
         ring is not None and ring.size > 1
-        and getattr(program, "_data_parallel", False)
-        and not _has_explicit_sync(ops, bwd_idx)) else None
+        and getattr(program, "_data_parallel", False)) else None
+    # fleet's programs sum their own gradients after the backward: those
+    # in-place sums move into the exchange (`_early_syncs`), the rest
+    # stay ops; otherwise every gradient is averaged
+    early = _early_syncs(ops, bwd_idx) \
+        if _has_explicit_sync(ops, bwd_idx) else None
+    skip = frozenset(early.values()) if early else frozenset()
+    # the exchange starts inside the backward unless buckets are off
+    hooks = (shard_plan.bucket_cap if shard_plan is not None
+             else _su.bucket_cap_bytes()) > 0
 
     def _backward_section(env, seed):
         bop = ops[bwd_idx]
@@ -536,7 +705,21 @@ def build_block_fn(program, block, feed_names, fetch_names,
                       if n in env and _diffable(block, n, env)]
         leaves = {n: env[n].detach().requires_grad_(True)
                   for n in diff_names}
+        exchange = None
         env.update(leaves)
+        synced = diff_names if early is None else [
+            n for n in diff_names if framework.grad_var_name(n) in early]
+        if sync_ring is not None and synced:
+            # the forward reads each leaf through a view, whose gradient
+            # hooks see it (hooks on the leaves of torch.autograd.grad
+            # cannot tell an unused one)
+            with torch.enable_grad():
+                views = {n: leaves[n].view_as(leaves[n]) for n in synced}
+            exchange = _GradExchange(
+                _exchange_units(synced, bop.attrs.get("grad_topo", {})
+                                or {}, sync_ring, shard_plan, early is None),
+                views, hooks)
+            env.update(views)
         with torch.enable_grad():
             _run_ops(ops[:bwd_idx], env, seed, device, amp=amp)
             loss = env[loss_name]
@@ -547,32 +730,30 @@ def build_block_fn(program, block, feed_names, fetch_names,
                 loss_sum, [leaves[n] for n in diff_names],
                 grad_outputs=torch.full_like(loss_sum, loss_scale),
                 allow_unused=True)
-        synced = {}
-        for n, g in zip(diff_names, grads):
-            # an unused diff var gets zeros, as jax.vjp gives
-            g = torch.zeros_like(leaves[n]) if g is None else g
-            synced[framework.grad_var_name(n)] = g.to(leaves[n].dtype)
-        if sync_ring is not None:
-            scatter = {}
-            if shard_plan is not None:
-                # the optimizer-bound gradients, one reduce-scatter a
-                # bucket (or a variable), in backward order
-                scatter = _su.bucketed_reduce_scatter(
-                    {gn: g for gn, g in synced.items()
-                     if gn in shard_plan.grad_names}, shard_plan, mean=True)
-            synced = {gn: scatter[gn] if gn in scatter
-                      else collective_ops.all_reduce_mean(g, sync_ring)
-                      for gn, g in synced.items()}
-        env.update(synced)
+        # an unused diff var gets zeros, as jax.vjp gives
+        grads = {n: torch.zeros_like(leaves[n]) if g is None
+                 else g.to(leaves[n].dtype) for n, g in zip(diff_names, grads)}
+        env.update((framework.grad_var_name(n), g)
+                   for n, g in grads.items())
+        if exchange is not None:
+            env.update(exchange.finish(grads))
+            fn.overlap = {
+                "collectives": exchange.records,
+                "n_backward": exchange.produced,
+                "n_buckets": len(shard_plan.buckets)
+                if shard_plan is not None else 0,
+                "launched_in_backward": hooks,
+                "captured": device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()}
         env[framework.grad_var_name(loss_name)] = torch.full(
             tuple(loss.shape), loss_scale, dtype=loss.dtype, device=device)
         if shard_plan is not None:
             _su.run_sharded_post_ops(ops[bwd_idx + 1:], env, seed,
                                      bwd_idx + 1, amp, shard_plan, block,
-                                     device)
+                                     device, skip)
         else:
             _run_ops(ops[bwd_idx + 1:], env, seed, device,
-                     base_idx=bwd_idx + 1, amp=amp)
+                     base_idx=bwd_idx + 1, amp=amp, skip=skip)
 
     def unshard(n, v):
         return _su.unwrap_out(n, v, shard_plan) if shard_plan is not None \
@@ -606,6 +787,9 @@ def build_block_fn(program, block, feed_names, fetch_names,
                         if isinstance(v, (torch.Tensor, _su.ShardVal)))
         return fetches, new_states
 
+    #: the gradient exchange of the last run that had one (see
+    #: `Executor.overlap_report`)
+    fn.overlap = None
     return fn
 
 
@@ -660,6 +844,20 @@ def capture_blocker(program, block, ring=None) -> Optional[str]:
     return "; ".join(reasons.values()) or None
 
 
+def entry_mode(program, block, device, ring=None, graph_runner=None):
+    """(mode, reason) of `block`'s entry on `device`: ("graph", None), or
+    ("eager", why): the CPU without a `graph_runner`, `FLAGS_cuda_graphs`
+    off, or `capture_blocker`'s reason."""
+    reason = None
+    if graph_runner is None:
+        if torch.device(device).type != "cuda":
+            reason = "the CPU runs blocks eagerly (no CUDA graphs)"
+        elif not get_flag("FLAGS_cuda_graphs", True):
+            reason = "FLAGS_cuda_graphs is off"
+    reason = reason or capture_blocker(program, block, ring)
+    return ("eager" if reason else "graph"), reason
+
+
 class CompiledBlock:
     """The executor's cache entry for one (program, block, feed shapes,
     fetches): the block's state analysis and function, run in `mode`
@@ -688,14 +886,8 @@ class CompiledBlock:
                                  list(fetch_names), self.state_in,
                                  self.state_out, self.device, ring,
                                  shard_plan=self.shard_plan)
-        reason = None
-        if graph_runner is None:
-            if self.device.type != "cuda":
-                reason = "the CPU runs blocks eagerly (no CUDA graphs)"
-            elif not get_flag("FLAGS_cuda_graphs", True):
-                reason = "FLAGS_cuda_graphs is off"
-        self.reason = reason or capture_blocker(program, block, ring)
-        self.mode = "eager" if self.reason else "graph"
+        self.mode, self.reason = entry_mode(program, block, self.device,
+                                            ring, graph_runner)
         self._step = None if self.reason else graphs.DonatedStep(
             self.fn, self.device, runner=graph_runner)
 
@@ -712,6 +904,13 @@ class CompiledBlock:
             return self.fn(feeds, states,
                            StepSeed(seed, seed_tensor(seed, self.device)))
         return self._step.step(feeds, states, seed)
+
+    @property
+    def overlap(self) -> Optional[dict]:
+        """The gradient exchange of the entry's last eager run, or of its
+        capture (which fixes what every replay launches when), or None
+        before a run with one (see `_GradExchange`)."""
+        return self.fn.overlap
 
     def info(self) -> dict:
         """Mode, reason, phase, the optimizer state the step keeps

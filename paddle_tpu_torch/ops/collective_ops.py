@@ -18,7 +18,15 @@ host: a CUDA tensor goes through a host copy and comes back (the
 `stage` of `_collective`). Each collective returns a new tensor and
 leaves its input as it was (the executor's environment never changes a
 tensor in place). `stats` counts each collective's calls, host seconds
-and bytes.
+and bytes, under the kind and, for a ring along a hybrid mesh axis, the
+axis (``all_reduce.ici``).
+
+On a hybrid (dcn, ici) world the ring-0 sum runs within the pod and then
+across pods (`all_reduce` over the ring's `ici`, then its `dcn`); a
+gather or broadcast runs over the world's group, whose rank order is the
+pair's. `start` launches a collective without waiting for it (the
+gradient exchange launched from the backward): its `Pending.wait()`
+gives the result.
 """
 from __future__ import annotations
 
@@ -56,6 +64,23 @@ def record(kind, t0, nbytes):
     s["bytes"] += nbytes
 
 
+def _kind(kind, ring):
+    return kind if ring.axis is None else "%s.%s" % (kind, ring.axis)
+
+
+def _operand(ring, x, in_place):
+    """(`t`, staged): a contiguous tensor holding `x` that the ring's
+    backend can read (a host copy for gloo), a copy of its own where the
+    collective writes it."""
+    stage = staged(ring, x)
+    if stage:
+        return x.detach().to("cpu", memory_format=torch.contiguous_format), \
+            True
+    if in_place:
+        return x.detach().clone(memory_format=torch.contiguous_format), False
+    return x.detach().contiguous(), False
+
+
 def _collective(kind, ring, x, fn, in_place=True):
     """Run `fn(t)` on a contiguous `t` holding `x` where the ring's
     backend can read it (a host copy for gloo); returns what `fn`
@@ -63,31 +88,81 @@ def _collective(kind, ring, x, fn, in_place=True):
     (`in_place`) gets a copy; one that only reads it gets `x` itself
     where `x` is contiguous and needs no staging."""
     t0 = time.perf_counter()
-    stage = staged(ring, x)
-    if stage:
-        t = x.detach().to("cpu", memory_format=torch.contiguous_format)
-    elif in_place:
-        t = x.detach().clone(memory_format=torch.contiguous_format)
-    else:
-        t = x.detach().contiguous()
+    t, stage = _operand(ring, x, in_place)
     out = fn(t)
     if stage:
         out = [o.to(x.device) for o in out] if isinstance(out, list) \
             else out.to(x.device)
-    record(kind, t0, x.numel() * x.element_size())
+    record(_kind(kind, ring), t0, x.numel() * x.element_size())
     return out
 
 
+class Pending:
+    """A collective in flight (`start`). `wait()` returns its result on
+    the input's device (over NCCL it only orders the calling stream after
+    the collective) and counts the call in `stats`, with the host time of
+    its launch and its wait."""
+
+    __slots__ = ("kind", "work", "out", "select", "device", "stage",
+                 "seconds", "nbytes")
+
+    def __init__(self, kind, work, out, select, device, stage, seconds,
+                 nbytes):
+        self.kind, self.work, self.out, self.select = kind, work, out, select
+        self.device, self.stage = device, stage
+        self.seconds, self.nbytes = seconds, nbytes
+
+    def wait(self):
+        t0 = time.perf_counter()
+        self.work.wait()
+        out = self.out if self.select is None else self.select(self.out)
+        if self.stage:
+            out = out.to(self.device)
+        record(self.kind, t0 - self.seconds, self.nbytes)
+        return out
+
+
+def start(kind, ring, x, fn, in_place=True, select=None) -> Pending:
+    """Launch `fn(t)` as `_collective` would, where `fn` issues its
+    collective with ``async_op=True`` and returns (work, result); the
+    wait gives ``select(result)`` (default: the result)."""
+    t0 = time.perf_counter()
+    t, stage = _operand(ring, x, in_place)
+    work, out = fn(t)
+    return Pending(_kind(kind, ring), work, out, select, x.device, stage,
+                   time.perf_counter() - t0, x.numel() * x.element_size())
+
+
 def all_reduce(x, ring, op="sum"):
-    """`op` ("sum", "max", "min") of `x` over the ring, on every member."""
+    """`op` ("sum", "max", "min") of `x` over the ring, on every member;
+    on a hybrid world's ring, within the pod and then across pods."""
     if x.device.type == "meta":
         return x.clone()
+    if ring.dcn is not None:
+        if ring.ici is not None:
+            x = all_reduce(x, ring.ici, op)
+        return all_reduce(x, ring.dcn, op)
 
     def fn(t):
         dist.all_reduce(t, op=_REDUCE[op], group=ring.group)
         return t
 
     return _collective("all_reduce", ring, x, fn)
+
+
+def all_reduce_start(x, ring, kind="all_reduce") -> Pending:
+    """The sum of `x` over the ring, launched (`start`). On a hybrid
+    world's ring the sum within the pod runs first and the launch is the
+    sum across pods (over NCCL the first wait orders the streams only)."""
+    if ring.dcn is not None:
+        if ring.ici is not None:
+            x = all_reduce_start(x, ring.ici, kind).wait()
+        ring = ring.dcn
+
+    def fn(t):
+        return dist.all_reduce(t, group=ring.group, async_op=True), t
+
+    return start(kind, ring, x, fn)
 
 
 def all_reduce_mean(x, ring):

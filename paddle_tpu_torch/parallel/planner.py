@@ -2,11 +2,13 @@
 
 The reference's `plan_parallel` runs its three sharding planners in
 their one valid order for a program on a mesh: sparse tables, then
-tensor parallelism, then ZeRO. The port has the ZeRO planner
+tensor parallelism, then ZeRO, each with its axis read from the mesh
+hierarchy. The port has the ZeRO planner
 (`sharded_update.plan_sharded_update`) over the data-parallel world's
-`Ring`; the sparse-table and tensor-parallel plans are None until
-ROADMAP Queue 1 #10 ports those engines (and `param_tp_dims` with
-them).
+`Ring`: on a hybrid (dcn, ici) world it shards over the ring's ici ring
+and sums across pods over its dcn ring. The sparse-table and
+tensor-parallel plans are None until ROADMAP Queue 1 #10 ports those
+engines (and `param_tp_dims` with them).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ class ParallelPlan(NamedTuple):
     sparse_plan: Optional[object]   # None until Queue 1 #10
     tp_plan: Optional[object]       # None until Queue 1 #10
     shard_plan: Optional[object]    # sharded_update.ShardedUpdatePlan
-    hier: Optional[object]          # None: the port's worlds are flat
+    hier: Optional[object]          # env.MeshHierarchy (None: flat)
 
 
 def plan_parallel(program, block, ring) -> ParallelPlan:
@@ -31,6 +33,12 @@ def plan_parallel(program, block, ring) -> ParallelPlan:
     fallback trail (`program._sharded_update_fallback`) is reset here,
     once a compile."""
     program._sharded_update_fallback = []
-    ndev = ring.size if ring is not None else 1
-    shard_plan = _su.plan_sharded_update(program, block, ndev, ring)
-    return ParallelPlan(None, None, shard_plan, None)
+    hier = getattr(ring, "hierarchy", None)
+    if hier is None:
+        shard_plan = _su.plan_sharded_update(
+            program, block, ring.size if ring is not None else 1, ring)
+    else:
+        shard_plan = _su.plan_sharded_update(
+            program, block, hier.dp_size, ring.ici, dcn_axis=hier.dcn_axis,
+            dcn_size=hier.dcn_size, dcn_ring=ring.dcn)
+    return ParallelPlan(None, None, shard_plan, hier)

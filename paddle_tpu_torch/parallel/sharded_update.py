@@ -40,14 +40,24 @@ the reference's, rule for rule:
   order, one reduce-scatter a bucket over a replica-major buffer, so each
   rank's share is its own per-variable slices; the deferred parameter
   all-gathers run at the end of the step in forward order, one a bucket.
+  Each bucket's reduce-scatter can be launched without waiting
+  (`bucket_reduce_scatter_start`): the lowering launches it from inside
+  the backward once the bucket's last gradient exists.
+- On a hybrid (dcn, ici) world the shards are laid out within the pod:
+  the plan's `ring` is this rank's ici ring and `ndev` the pod's size,
+  so a rank holds 1/ici of the state, the same in every pod. Each
+  reduce-scatter over ici is followed by the sum of its shard across
+  pods over `dcn_ring` (`_cross_pod_sum`, 1/ici of the bytes crossing
+  pods), a mean divides by the whole world (`world`), and the
+  all-gathers stay within the pod.
 
-Left for later items, each raising with its name: the dcn axis of a
-hybrid mesh (Queue 1 #7.5), tensor-parallel vars with mp > 1 and the
-sparse-table plan (#10), and `eager_accumulator_sharding`, which is
-dygraph (#8). The reference turns bucketing off for AMP at a world that
-is not a power of two on the JAX CPU backend, where XLA's fusion drifts
-one bf16 step off the per-variable lowering; the port has no such
-fusion, so it keeps its buckets.
+Left for later items, each raising with its name: tensor-parallel vars
+with mp > 1 and the sparse-table plan (#10), and
+`eager_accumulator_sharding`, which is dygraph (#8). The reference turns
+bucketing off for AMP at a world that is not a power of two on the JAX
+CPU backend, where XLA's fusion drifts one bf16 step off the
+per-variable lowering; the port has no such fusion, so it keeps its
+buckets.
 """
 from __future__ import annotations
 
@@ -288,18 +298,25 @@ def plan_buckets(opt_ops, block, ndev, grad_topo, cap_bytes,
 class ShardedUpdatePlan:
     """The plan of one program on one world. `ring` (a
     `parallel.env.Ring`, None when only planning) takes the place of the
-    reference's mesh axis; `ndev` is its size."""
+    reference's shard axis; `ndev` is its size: the world's, or on a
+    hybrid world the pod's (ici). `dcn_axis`, `dcn_size` and `dcn_ring`
+    (this rank's ring across pods) name the hierarchy; None, 1 and None
+    on a flat world."""
 
     __slots__ = ("ring", "ndev", "grad_names", "rs_targets",
                  "sharded_state", "explicit_sync", "opt_op_ids",
                  "buckets", "bucket_of", "defer_gather", "bucket_cap",
-                 "master_of")
+                 "master_of", "dcn_axis", "dcn_size", "dcn_ring")
 
     def __init__(self, ring, ndev, grad_names, rs_targets, sharded_state,
                  explicit_sync, opt_op_ids, buckets=(), defer_gather=(),
-                 bucket_cap=0, master_of=None):
+                 bucket_cap=0, master_of=None, dcn_axis=None, dcn_size=1,
+                 dcn_ring=None):
         self.ring = ring
         self.ndev = int(ndev)
+        self.dcn_axis = dcn_axis
+        self.dcn_size = int(dcn_size or 1)
+        self.dcn_ring = dcn_ring
         # grads reduce-scattered right after the backward (implicit DP)
         self.grad_names: FrozenSet[str] = frozenset(grad_names)
         # grads whose explicit c_allreduce_sum lowers to a reduce-scatter
@@ -321,8 +338,9 @@ class ShardedUpdatePlan:
 
     @property
     def world(self) -> int:
-        """The replica count a mean divides by."""
-        return self.ndev
+        """The replica count a mean divides by: the shard count times the
+        pods."""
+        return self.ndev * self.dcn_size
 
     @property
     def rank(self) -> int:
@@ -369,13 +387,15 @@ def _record_fallback(program, reason, var=None, op_type=None,
 
 
 def plan_sharded_update(program, block, ndev, ring=None, dcn_axis=None,
-                        dcn_size=1, tp_plan=None,
-                        sparse_plan=None) -> Optional[ShardedUpdatePlan]:
+                        dcn_size=1, tp_plan=None, sparse_plan=None,
+                        dcn_ring=None) -> Optional[ShardedUpdatePlan]:
     """The feasibility scan over the post-backward section (the
     reference's, rule for rule). Returns a plan, or None when the program
-    keeps the replicated update (flag off, one rank, an unsupported op on
-    an optimizer-bound gradient or a would-be-sharded state var); each
-    decline or degrade is recorded (`_record_fallback`).
+    keeps the replicated update (flag off, one rank a shard, an
+    unsupported op on an optimizer-bound gradient or a would-be-sharded
+    state var); each decline or degrade is recorded (`_record_fallback`).
+    `ndev` and `ring` are the shard axis (the pod's on a hybrid world),
+    `dcn_axis`, `dcn_size` and `dcn_ring` the axis across pods.
 
     AMP masters (`mixed_precision.decorate` at O2): the optimizer ops'
     Param/ParamOut name fp32 ``@MASTER`` vars; those become sharded
@@ -383,10 +403,6 @@ def plan_sharded_update(program, block, ndev, ring=None, dcn_axis=None,
     ``__amp_param_cast__`` cast, runs in shard space, and the 16-bit
     live param shard it gives is what the (deferred) all-gather
     carries."""
-    if dcn_axis is not None or int(dcn_size or 1) > 1:
-        raise NotImplementedError(
-            "the sharded update over a hybrid (dcn, ici) mesh is not "
-            "ported (ROADMAP Queue 1 #7.5)")
     if tp_plan is not None and int(getattr(tp_plan, "mp", 1)) > 1:
         raise NotImplementedError(
             "the sharded update with tensor parallelism is not ported "
@@ -595,7 +611,8 @@ def plan_sharded_update(program, block, ndev, ring=None, dcn_axis=None,
         rs_targets=rs_targets, sharded_state=sharded_state,
         explicit_sync=explicit, opt_op_ids=opt_ids,
         buckets=buckets, defer_gather=defer, bucket_cap=cap,
-        master_of=master_of)
+        master_of=master_of, dcn_axis=dcn_axis, dcn_size=dcn_size,
+        dcn_ring=dcn_ring)
 
 
 # ---------------------------------------------------------------------------
@@ -618,9 +635,12 @@ def shard_slice(x_full, plan):
     return vec[plan.rank * size:(plan.rank + 1) * size]
 
 
-def _reduce_scatter(vec, plan):
-    """This rank's 1/N slice of the ring's sum of the flat `vec` (NCCL's
-    reduce-scatter; over gloo an all-reduce and a slice)."""
+def _reduce_scatter_start(vec, plan):
+    """Launch the ring's sum of the flat `vec` scattered over the shard
+    ring (NCCL's reduce-scatter; over gloo an all-reduce and a slice),
+    followed on a hybrid world by the sum of this rank's shard across
+    pods (`_cross_pod_sum`). Returns a function that waits and gives
+    this rank's 1/N slice."""
     ring = plan.ring
     size = vec.shape[0] // plan.ndev
     lo = plan.rank * size
@@ -628,14 +648,25 @@ def _reduce_scatter(vec, plan):
     def fn(t):
         if ring.backend == "nccl":
             out = torch.empty(size, dtype=t.dtype, device=t.device)
-            dist.reduce_scatter_tensor(out, t, group=ring.group)
-            return out
-        dist.all_reduce(t, group=ring.group)
-        return t[lo:lo + size]
+            return dist.reduce_scatter_tensor(out, t, group=ring.group,
+                                              async_op=True), out
+        return dist.all_reduce(t, group=ring.group, async_op=True), t
 
     # gloo's stand-in all-reduces `t` in place
-    return co._collective("zero.reduce_scatter", ring, vec, fn,
-                          in_place=ring.backend != "nccl")
+    pending = co.start("zero.reduce_scatter", ring, vec, fn,
+                       in_place=ring.backend != "nccl",
+                       select=None if ring.backend == "nccl"
+                       else (lambda t: t[lo:lo + size]))
+    if plan.dcn_ring is None:
+        return pending.wait
+    return _cross_pod_sum(pending.wait(), plan).wait
+
+
+def _cross_pod_sum(vec, plan):
+    """The second step of a hierarchical reduce-scatter, launched: the
+    sum of this rank's shard over the pods (the one collective that
+    crosses them, 1/ici of the gradient's bytes)."""
+    return co.all_reduce_start(vec, plan.dcn_ring, "zero.all_reduce")
 
 
 def _all_gather(vec, plan):
@@ -656,17 +687,25 @@ def _all_gather(vec, plan):
                           in_place=False)
 
 
+def reduce_scatter_start(g, plan, mean):
+    """Launch the reduce-scatter of one gradient; returns a function that
+    waits and gives its `ShardVal` (the sum, or with `mean` the sum over
+    `plan.world`)."""
+    wait = _reduce_scatter_start(_flat_pad(g, plan.ndev), plan)
+    shape = tuple(g.shape)
+
+    def done():
+        vec = wait()
+        return ShardVal(vec / plan.world if mean else vec, shape)
+
+    return done
+
+
 def reduce_scatter_sum(g, plan):
-    """The ring's sum of this rank's 1/N slice of the padded flat
+    """The world's sum of this rank's 1/N slice of the padded flat
     gradient: half the bytes of the all-reduce it replaces (the
     all-gather half moves to the params)."""
-    return ShardVal(_reduce_scatter(_flat_pad(g, plan.ndev), plan),
-                    tuple(g.shape))
-
-
-def reduce_scatter_mean(g, plan):
-    sv = reduce_scatter_sum(g, plan)
-    return ShardVal(sv.vec / plan.world, sv.shape)
+    return reduce_scatter_start(g, plan, False)()
 
 
 def _bucket_replica_major(vecs, ndev):
@@ -676,51 +715,48 @@ def _bucket_replica_major(vecs, ndev):
     return torch.cat([v.reshape(ndev, -1) for v in vecs], dim=1)
 
 
-def bucket_reduce_scatter(bucket, grads, plan, mean):
-    """One reduce-scatter for a whole bucket. `grads`: grad name -> the
-    full gradient; returns {grad name: ShardVal}. Entries whose dtype
-    differs from the run before them start a new collective. Each
-    element is summed (and divided) as in the per-variable scatter."""
-    entries = [e for e in bucket.entries if e.grad in grads]
-    out = {}
-    run = []
-
-    def flush():
-        if not run:
-            return
+def bucket_reduce_scatter_start(bucket, grads, plan, mean):
+    """Launch one reduce-scatter for a whole bucket (`grads`: grad name ->
+    the full gradient; the bucket's entries it lacks are left out).
+    Entries whose dtype differs from the run before them start a new
+    collective. Returns a function that waits and gives {grad name:
+    ShardVal}; each element is summed (and divided) as in the
+    per-variable scatter."""
+    runs = []
+    for e in bucket.entries:
+        if e.grad not in grads:
+            continue
+        if runs and grads[e.grad].dtype == grads[runs[-1][0].grad].dtype:
+            runs[-1].append(e)
+        else:
+            runs.append([e])
+    launched = []
+    for run in runs:
         buf = _bucket_replica_major(
             [_flat_pad(grads[e.grad], plan.ndev) for e in run],
             plan.ndev).reshape(-1)
-        sc = _reduce_scatter(buf, plan)
-        if mean:
-            sc = sc / plan.world
-        off = 0
-        for e in run:
-            size = e.padded // plan.ndev
-            out[e.grad] = ShardVal(sc[off:off + size],
-                                   tuple(grads[e.grad].shape))
-            off += size
-        del run[:]
+        launched.append((run, [tuple(grads[e.grad].shape) for e in run],
+                         _reduce_scatter_start(buf, plan)))
 
-    for e in entries:
-        if run and grads[e.grad].dtype != grads[run[0].grad].dtype:
-            flush()
-        run.append(e)
-    flush()
-    return out
+    def done():
+        out = {}
+        for run, shapes, wait in launched:
+            sc = wait()
+            if mean:
+                sc = sc / plan.world
+            off = 0
+            for e, shape in zip(run, shapes):
+                size = e.padded // plan.ndev
+                out[e.grad] = ShardVal(sc[off:off + size], shape)
+                off += size
+        return out
+
+    return done
 
 
-def bucketed_reduce_scatter(grads, plan, mean=True):
-    """Reduce-scatter every gradient in `grads`, one collective a bucket
-    in backward order; a gradient no bucket holds is scattered alone."""
-    out = {}
-    for bucket in plan.buckets:
-        out.update(bucket_reduce_scatter(bucket, grads, plan, mean))
-    for n, g in grads.items():
-        if n not in out:
-            out[n] = (reduce_scatter_mean(g, plan) if mean
-                      else reduce_scatter_sum(g, plan))
-    return out
+def bucket_reduce_scatter(bucket, grads, plan, mean):
+    """`bucket_reduce_scatter_start`, waited for."""
+    return bucket_reduce_scatter_start(bucket, grads, plan, mean)()
 
 
 def gather_full(sv: ShardVal, plan):
@@ -788,7 +824,10 @@ def unwrap_out(name, v, plan):
 # ---------------------------------------------------------------------------
 
 def _psum(x, plan):
-    """The ring's sum of `x` (a plan without a ring is a world of one)."""
+    """The shard ring's sum of `x` (a plan without a ring is a world of
+    one). On a hybrid world the pods hold the same shards, so the sum
+    within the pod is the whole tensor's, as the reference's psum over
+    its shard axis."""
     return x if plan.ring is None else co.all_reduce(x, plan.ring)
 
 
@@ -982,10 +1021,12 @@ def exec_sharded_op(op, env, plan, block, device) -> bool:
 
 
 def run_sharded_post_ops(post_ops, env, seed, base_idx, amp, plan, block,
-                         device):
+                         device, skip=frozenset()):
     """The post-backward section in shard space: shard-aware ops run on
     the flat slices, everything else (learning-rate schedules, counters)
-    through the lowering's interpreter on replicated values.
+    through the lowering's interpreter on replicated values; the ops
+    whose ids are in `skip` (explicit syncs the backward already ran) do
+    not run.
 
     An explicit-sync program with buckets holds each c_allreduce_sum on
     a bucketed gradient until the bucket's last member arrives, then
@@ -1003,6 +1044,8 @@ def run_sharded_post_ops(post_ops, env, seed, base_idx, amp, plan, block,
                 plan.buckets[bidx], vals, plan, mean=False))
 
     for i, op in enumerate(post_ops):
+        if id(op) in skip:
+            continue
         if pending or (plan.explicit_sync and plan.buckets):
             if op.type == "c_allreduce_sum":
                 xs = op.input_names.get("X", [])

@@ -85,12 +85,15 @@ def rows_of(x):
 class RowShard:
     """Rank `rank`'s rows [rank B/N, (rank+1) B/N) of a global batch of
     B rows over a world of N (the executor's split of a data-parallel
-    feed)."""
+    feed). `spec` names the mesh axes axis 0 splits over, as the
+    reference's `PartitionSpec`: ("dp",), or (("dcn", "ici"),) on a
+    hybrid world, dcn-major."""
 
-    __slots__ = ("rank", "world")
+    __slots__ = ("rank", "world", "spec")
 
-    def __init__(self, rank, world):
+    def __init__(self, rank, world, spec=("dp",)):
         self.rank, self.world = int(rank), int(world)
+        self.spec = tuple(spec)
 
     def rows(self, n):
         """[lo, hi) of a batch of `n` rows, or None when the world does

@@ -3,9 +3,10 @@
 Only the flags the ported slices read: the ``FLAGS_tpu_serving_*``
 surface of serving, the executor's, the attention gate, CUDA-graph
 capture (``FLAGS_cuda_graphs``, the port's own), the sharded weight
-update with its gradient buckets, and the device prefetcher's depth. Names and defaults are the JAX
-package's, so one environment configures both. Flags ingest ``FLAGS_*``
-environment variables at import."""
+update with its gradient buckets, the hybrid (dcn, ici) data-parallel
+world, the device prefetcher's depth and cuDNN's determinism. Names and
+defaults are the JAX package's, so one environment configures both.
+Flags ingest ``FLAGS_*`` environment variables at import."""
 from __future__ import annotations
 
 import os
@@ -15,6 +16,11 @@ _FLAGS: Dict[str, object] = {
     # Executor.run: after each run, raise if a fetch or an updated
     # persistable holds Inf or NaN (one host copy of each)
     "FLAGS_check_nan_inf": False,
+    # Paddle's meaning on the card: cuDNN runs deterministic algorithms
+    # and stops timing them (cudnn.benchmark off), so two runs of a
+    # program, or two ranks, pick the same convolution algorithms
+    # (`core/place.py resolve_device`); off, cuDNN keeps the fastest
+    "FLAGS_cudnn_deterministic": False,
     # Executor: compiled blocks kept per executor (LRU)
     "FLAGS_tpu_compile_cache_size": 128,
     # Executor and serving: capture each block and serving bucket as a
@@ -33,6 +39,14 @@ _FLAGS: Dict[str, object] = {
     # one reduce-scatter (and one all-gather of the updated parameters)
     # a bucket; 0 = one collective a variable
     "FLAGS_tpu_comm_bucket_mb": 25.0,
+    # data parallelism over pods: > 1 factors the world into a (dcn,
+    # ici) mesh of this many pods of contiguous ranks
+    # (`parallel/env.py create_hybrid_mesh`): gradients are summed
+    # within the pod, then across pods, and the sharded update keeps
+    # its shards within the pod. 0 reads PADDLE_NUM_PODS (the launcher's
+    # --num_pods), else the world is flat; a count that does not divide
+    # the world warns and runs flat
+    "FLAGS_tpu_dcn_replicas": 0,
     # reader.prefetch_to_device: batches in flight ahead of the consumer
     "FLAGS_tpu_prefetch_depth": 2,
     # scaled_dot_product_attention takes the flash kernels on the card at

@@ -393,7 +393,12 @@ def test_spawn_starts_a_world_and_fails_fast(tmp_path):
 
 
 def test_unported_launch_options_raise():
-    for opt in (["--num_pods", "2"], ["--mp_degree", "2"],
-                ["--min_ranks", "1"], ["--hang_timeout", "5"]):
+    """`--num_pods` is ported (the pods of a hybrid world); the options
+    of elastic restarts, tensor parallelism and the hang watch still
+    raise naming their item."""
+    args = tlaunch._parse_args(["--num_pods", "2", "train.py"])
+    assert args.num_pods == 2 and tlaunch._launch_num_pods(args, 4) == 2
+    for opt in (["--mp_degree", "2"], ["--min_ranks", "1"],
+                ["--hang_timeout", "5"]):
         with pytest.raises(NotImplementedError, match="Queue 1 #10"):
             tlaunch._parse_args(opt + ["train.py"])

@@ -348,10 +348,22 @@ def test_warmup_leaves_scope_and_seed_counter():
     e = _run(main, startup, [feed], [loss], False, before)[0]
     main._seed_counter = counter
     np.testing.assert_array_equal(g[0], e[0][0])
-    with pytest.raises(NotImplementedError, match="meshes"):
+    with pytest.raises(NotImplementedError, match="meshes.*#10"):
         exe.warmup(main, shapes=shapes[:1], meshes="elastic")
-    with pytest.raises(NotImplementedError, match="background"):
-        exe.warmup(main, shapes=shapes[:1], background=True)
+    # in the background: a thread whose report is the foreground's, and
+    # the cache, the scope and the seed counter stay as they were
+    blocks = exe.compiled_blocks()
+    before = dump_numpy_state(scope, names)
+    thread = exe.warmup(main, shapes=shapes, fetch_list=[loss], scope=scope,
+                        background=True)
+    assert thread.name == "paddle-tpu-warmup" and thread.daemon
+    thread.join(60)
+    assert thread.warmup_report == rep
+    assert exe.compiled_blocks() == blocks
+    assert main._seed_counter == counter
+    after = dump_numpy_state(scope, names)
+    for n in names:
+        np.testing.assert_array_equal(before[n], after[n], err_msg=n)
 
 
 def test_lru_eviction_releases_and_close_clears():

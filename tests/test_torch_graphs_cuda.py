@@ -295,6 +295,40 @@ def test_warmup_then_first_run_replays(dev, graphs_flag):
     exe.close()
 
 
+def test_background_warmup_on_the_card(dev, graphs_flag):
+    """`warmup(background=True)` runs its discarded step on a side
+    stream while the main thread steps: its report equals a foreground
+    warmup's, the cache keeps only the main thread's entry, and the
+    main thread's steps equal those of a run without the warmup."""
+    graphs_flag(True)
+    main, startup, loss = _mlp("adam")
+    shapes = [{"img": (16, 784), "label": (16, 1)}]
+    r = np.random.RandomState(1)
+    feeds = [{"img": r.rand(16, 784).astype("float32"),
+              "label": r.randint(0, 10, (16, 1)).astype("int64")}
+             for _ in range(4)]
+    want, _, _, state = _steps(main, startup, feeds, [loss], graphs_flag,
+                               True)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    load_numpy_state(scope, state)
+    thread = exe.warmup(main, shapes=shapes, fetch_list=[loss], scope=scope,
+                        background=True)
+    counter = main._seed_counter
+    got = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+           for f in feeds]
+    main._seed_counter = counter
+    thread.join(120)
+    assert thread.name == "paddle-tpu-warmup" and not thread.is_alive()
+    fg = fluid.Executor().warmup(main, shapes=shapes, fetch_list=[loss],
+                                 scope=scope)
+    assert thread.warmup_report == fg
+    assert [b["phase"] for b in exe.compiled_blocks()] == ["captured"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+    exe.close()
+
+
 def test_lookup_gradient_is_deterministic(dev):
     """BERT's position ids repeat every row of the batch: the lookup's
     weight gradient is the same bits run after run (and under a

@@ -207,11 +207,16 @@ def test_one_rank_or_flag_off_plans_nothing(flags_restored):
 
 
 def test_later_items_raise():
+    """The hybrid (dcn, ici) plan (#7.5) is built: shards over the pod,
+    a mean over the whole world; tensor parallelism (#10) and dygraph
+    (#8) still raise naming their items."""
     main = runner.build_zero_mlp(tfluid, "adam")[0]
     block = main.global_block()
-    with pytest.raises(NotImplementedError, match="#7.5"):
-        tsu.plan_sharded_update(main, block, 2, dcn_axis="dcn",
-                                dcn_size=2)
+    plan = tsu.plan_sharded_update(main, block, 2, dcn_axis="dcn",
+                                   dcn_size=2)
+    assert plan is not None and plan.sharded_state and plan.buckets
+    assert (plan.ndev, plan.dcn_axis, plan.dcn_size, plan.world) == \
+        (2, "dcn", 2, 4)
     with pytest.raises(NotImplementedError, match="#10"):
         tsu.ShardInfo("w", (4, 4), "float32", 2, tp_dim=0, mp=2)
     with pytest.raises(NotImplementedError, match="#8"):

@@ -121,14 +121,15 @@ COLLECTIVE_CASES = [
 ]
 
 
-def collective_inputs():
+def collective_inputs(table_rows=10):
     x = np.arange(32, dtype="float32").reshape(8, 4) - 9.0
     signed = np.linspace(-2.0, 2.0, 32).astype("float32").reshape(8, 4)
     signed[3, 1] = 0.0
     signed[6, 2] = -3.0
     pos = np.linspace(0.5, 4.0, 32).astype("float32").reshape(8, 4)
     return {"x": x, "signed": signed, "pos": pos,
-            "table": np.arange(40, dtype="float32").reshape(10, 4),
+            "table": np.arange(4 * table_rows,
+                               dtype="float32").reshape(table_rows, 4),
             "ids": np.array([[0], [4], [9], [5], [2], [7]], "int64")}
 
 
@@ -161,11 +162,11 @@ def zero_mlps(world):
     return list(ZERO_MLPS) if world == 2 else ["adam_reg_fused"]
 
 
-def build_zero_mlp(fluid, opt, reg=False, fuse=False):
+def build_zero_mlp(fluid, opt, reg=False, fuse=False, mp=None):
     """The 31-wide MLP (32-31-4, softmax cross-entropy, mean) over `opt`
     ("adam" at 0.01, "momentum" at 0.1 and 0.9, "sgd" at 0.1), with L2
-    decay 1e-3 and `fuse_optimizer_ops` when asked: (main, startup,
-    loss)."""
+    decay 1e-3 and `fuse_optimizer_ops` when asked, and bf16 AMP O2 when
+    given the `mp` (mixed_precision) module: (main, startup, loss)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = 1234
     with fluid.program_guard(main, startup), fluid.unique_name_guard():
@@ -179,11 +180,14 @@ def build_zero_mlp(fluid, opt, reg=False, fuse=False):
         if reg:
             kw["regularization"] = fluid.regularizer.L2Decay(1e-3)
         O = fluid.optimizer
-        {"adam": lambda: O.AdamOptimizer(learning_rate=0.01, **kw),
-         "momentum": lambda: O.MomentumOptimizer(
-             learning_rate=0.1, momentum=0.9, **kw),
-         "sgd": lambda: O.SGDOptimizer(learning_rate=0.1, **kw)}[opt]() \
-            .minimize(loss)
+        optimizer = {
+            "adam": lambda: O.AdamOptimizer(learning_rate=0.01, **kw),
+            "momentum": lambda: O.MomentumOptimizer(
+                learning_rate=0.1, momentum=0.9, **kw),
+            "sgd": lambda: O.SGDOptimizer(learning_rate=0.1, **kw)}[opt]()
+        if mp is not None:
+            optimizer = mp.decorate(optimizer, use_dynamic_loss_scaling=False)
+        optimizer.minimize(loss)
         if fuse:
             fluid.fuse_optimizer_ops(main)
     return main, startup, loss
@@ -245,17 +249,17 @@ def zero_bert_feed(bert):
 
 # -- the cases, in the worker ------------------------------------------------
 
-def _run_collective(out, rank, world):
+def _run_collective(out, rank, world, table_rows=10):
     """Every collective op in one data-parallel program, fed the global
     inputs and fetching the gathered outputs (the reference's P(dp) in
-    and out specs); c_embedding over this rank's half of the table; the
-    eager API on tensors."""
+    and out specs); c_embedding over this rank's 5 rows of a table of
+    `table_rows` (5 a rank); the eager API on tensors."""
     import torch
 
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch import fluid
 
-    ins = collective_inputs()
+    ins = collective_inputs(table_rows)
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup), fluid.unique_name_guard():
         block = main.global_block()
@@ -598,6 +602,212 @@ def _run_zero_prefetched(out, d):
             losses.append(exe.run(prog, feed=feed, fetch_list=[loss],
                                   scope=scope)[0])
     out["momentum.prefetch.losses"] = np.stack(losses)
+
+
+# -- the hybrid (dcn, ici) world -------------------------------------------
+
+#: the hierarchical cases on 4 ranks, 2 pods of 2: the MLPs of
+#: `ZERO_MLPS`, the Adam MLP at bf16 AMP O2 ("adam_amp"), the size-1 head
+#: through fleet's explicit sync ("size1") and the conv net with
+#: sync_batch_norm through fleet ("cnn"); the variants each world runs
+#: (the hybrid world all of `ZERO_VARIANTS`; the flat one "on")
+HIER_DCN, HIER_WORLD = 2, 4
+HIER_MLPS = dict(ZERO_MLPS, adam_amp=dict(opt="adam", amp=True))
+
+
+def hier_variants(case, dcn):
+    if dcn == 1 or case == "cnn":
+        return ["on"]
+    return ["on", "off"] if case in ("adam_amp", "size1") \
+        else list(ZERO_VARIANTS)
+
+
+def _hier_build(fluid, case):
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.fluid.contrib import mixed_precision as mp
+
+    if case == "size1":
+        return build_zero_size1(fluid, fleet)
+    if case == "cnn":
+        return build_cnn(fluid, fleet_minimize(
+            fluid, fleet, lambda: fluid.optimizer.SGDOptimizer(CNN["lr"]),
+            sync_bn=True))
+    c = dict(HIER_MLPS[case])
+    amp = c.pop("amp", False)
+    return build_zero_mlp(fluid, mp=mp if amp else None, **c)
+
+
+def _hier_feed(case):
+    return zero_size1_feed() if case == "size1" else \
+        image_feed(CNN) if case == "cnn" else zero_mlp_feed()
+
+
+def hier_ranks(d, dcn):
+    """A `distributed.spawn` target: each case of `HIER_MLPS`, "size1"
+    and "cnn" under `hier_variants` on a world of `dcn` pods
+    (FLAGS_tpu_dcn_replicas), from `<d>/zero_<case>.state.npz` (rank 0
+    loads it; the first run broadcasts it): the gathered losses, every
+    persistable after the steps at its logical shape, the entry's
+    `info()` numbers and `overlap_report`, keyed "<case>.<variant>.";
+    the world's layout ("mesh.*") and this rank's rows of a global batch
+    ("rows"); first every collective op's program of `_run_collective`
+    ("coll.*", with the kinds `collective_ops.stats` counted). Results
+    in `<d>/hier<dcn>.rank<r>.npz`."""
+    import json
+
+    import torch
+
+    from paddle_tpu_torch import distributed, fluid
+    from paddle_tpu_torch.core.scope import load_numpy_state
+    from paddle_tpu_torch.parallel import env as penv
+
+    from paddle_tpu_torch.ops import collective_ops
+
+    torch.set_num_threads(1)
+    rank = distributed.get_rank()
+    out = {}
+    fluid.set_flags({"FLAGS_tpu_dcn_replicas": dcn})
+    # every collective op on the program's ring 0 (the pair, hybrid)
+    collective_ops.reset_stats()
+    coll = {}
+    _run_collective(coll, rank, HIER_WORLD, table_rows=5 * HIER_WORLD)
+    out.update(("coll." + k, v) for k, v in coll.items())
+    out["coll.kinds"] = np.array(sorted(collective_ops.stats), dtype=str)
+    for case in list(HIER_MLPS) + ["size1", "cnn"]:
+        state = _load(d, "zero_" + case)
+        for variant in hier_variants(case, dcn):
+            flag, cap = ZERO_VARIANTS[variant]
+            fluid.set_flags({"FLAGS_tpu_sharded_weight_update": flag,
+                             "FLAGS_tpu_comm_bucket_mb": cap})
+            main, startup, loss = _hier_build(fluid, case)
+            exe = fluid.Executor(fluid.CPUPlace())
+            scope = fluid.Scope()
+            exe.run(startup, scope=scope)
+            if rank == 0:
+                load_numpy_state(scope, state, "cpu")
+            prog = main if case in ("size1", "cnn") else \
+                fluid.CompiledProgram(main).with_data_parallel()
+            feed = _hier_feed(case)
+            key = "%s.%s." % (case, variant)
+            out[key + "losses"] = np.stack([
+                exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)[0]
+                for _ in range(ZERO_STEPS)])
+            for n, v in logical_state(exe, main, scope, state).items():
+                out[key + "state." + n] = v.astype("float32") \
+                    if v.dtype.name == "bfloat16" else v
+            for k, v in exe.last_entry.info().items():
+                if k.startswith(("opt_state", "grad_buckets")):
+                    out[key + "info." + k] = np.array(v)
+            plan = main._shard_plan
+            out[key + "local_bytes"] = np.array(sum(
+                scope.find_var(n).numel() * scope.find_var(n).element_size()
+                for n in (plan.sharded_state if plan else ())))
+            out[key + "plan"] = np.array(json.dumps(None if plan is None else {
+                "ndev": plan.ndev, "dcn_axis": plan.dcn_axis,
+                "dcn_size": plan.dcn_size, "world": plan.world,
+                "buckets": len(plan.buckets),
+                "explicit_sync": plan.explicit_sync,
+                "masters": len(plan.master_of)}))
+            out[key + "overlap"] = np.array(json.dumps(exe.overlap_report(
+                prog, feed=feed, fetch_list=[loss], scope=scope)))
+            if case == "cnn":
+                out[key + "bn_axis"] = np.array(json.dumps([
+                    op.attrs.get("axis_name") for op in
+                    main.global_block().ops if op.type == "sync_batch_norm"]))
+            if case == "sgd" and variant == "on":
+                ring = penv.program_ring(main)
+                mesh = main._mesh
+                out["mesh"] = np.array(json.dumps(None if mesh is None else {
+                    "axis_names": mesh.axis_names, "shape": mesh.shape,
+                    "coords": mesh.coords,
+                    "hierarchy": penv.mesh_hierarchy(mesh),
+                    "ici": mesh.ring("ici").ranks,
+                    "dcn": mesh.ring("dcn").ranks,
+                    "dp_axis": main._dp_axis, "dcn_axis": main._dcn_axis}))
+                shard = exe.feed_sharding(prog)
+                out["rows"] = np.array(
+                    [ring.rank, ring.size] + list(shard.rows(64)))
+                out["spec"] = np.array(json.dumps(shard.spec))
+    np.savez(os.path.join(d, "hier%d.rank%d.npz" % (dcn, rank)), **out)
+
+
+def reference_hier(d):
+    """The JAX package's hierarchical sharded update on a (dcn 2, ici 2)
+    mesh of 4 virtual CPU devices, from the start states in `<d>`: for
+    each MLP of `HIER_MLPS` bucketed ("on", `ZERO_CAP_MB`), the Adam MLP
+    one collective a variable too ("cap0"), and the size-1 head through
+    fleet with FLAGS_tpu_dcn_replicas 2 (its transpile builds the hybrid
+    mesh). Writes `<d>/ref_hier_<case>.<variant>.npz` (losses, every
+    persistable at its logical shape)."""
+    import jax
+    from jax.sharding import Mesh
+
+    jax.config.update("jax_platforms", "cpu")
+    import paddle_tpu.fluid as rfluid
+    from paddle_tpu import fleet as rfleet
+    from paddle_tpu.core.scope import Scope
+    from paddle_tpu.fluid.contrib import mixed_precision as rmp
+    from paddle_tpu.parallel.sharded_update import unshard_scope_value
+    from paddle_tpu.utils.flags import set_flags
+
+    jobs = [(c, "on", ZERO_CAP_MB) for c in HIER_MLPS] + [
+        ("adam_reg_fused", "cap0", 0.0), ("size1", "on", ZERO_CAP_MB)]
+    for case, variant, cap in jobs:
+        set_flags({"FLAGS_tpu_comm_bucket_mb": cap,
+                   "FLAGS_tpu_sharded_weight_update": True,
+                   "FLAGS_tpu_dcn_replicas": HIER_DCN if case == "size1"
+                   else 0})
+        if case == "size1":
+            main, _, loss = build_zero_size1(rfluid, rfleet,
+                                             nranks=HIER_WORLD)
+            prog = main
+        else:
+            c = dict(HIER_MLPS[case])
+            amp = c.pop("amp", False)
+            main, _, loss = build_zero_mlp(rfluid, mp=rmp if amp else None,
+                                           **c)
+            main._mesh = Mesh(np.array(jax.devices()[:HIER_WORLD]).reshape(
+                HIER_DCN, HIER_WORLD // HIER_DCN), ("dcn", "ici"))
+            prog = rfluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name)
+        state = _load(d, "zero_" + case)
+        exe = rfluid.Executor(rfluid.CPUPlace())
+        scope = Scope()
+        for n, v in state.items():
+            scope.set_var(n, jax.numpy.asarray(v))
+        feed = _hier_feed(case)
+        losses = np.stack([np.asarray(exe.run(
+            prog, feed=feed, fetch_list=[loss.name], scope=scope)[0])
+            for _ in range(ZERO_STEPS)])
+        plan = main._shard_plan
+        if plan is None or plan.dcn_axis != "dcn":
+            raise RuntimeError("the reference did not shard %s over the "
+                               "hybrid mesh" % case)
+        out = {}
+        for n in state:
+            v = np.asarray(unshard_scope_value(
+                main, n, np.asarray(scope.find_var(n))))
+            out["state." + n] = v.astype("float32") \
+                if v.dtype.name == "bfloat16" else v
+        np.savez(os.path.join(d, "ref_hier_%s.%s.npz" % (case, variant)),
+                 losses=losses, **out)
+
+
+def start_reference_hier(d):
+    """`reference_hier(d)` in a process of its own (JAX on the CPU, 4
+    virtual devices)."""
+    import subprocess
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO,
+                                                              "tests")]),
+               XLA_FLAGS="--xla_force_host_platform_device_count=%d"
+               % HIER_WORLD)
+    return subprocess.Popen(
+        [sys.executable, "-c", "import torch_dp_runner as r; "
+         "r.reference_hier(%r)" % d], env=env, cwd=REPO,
+        start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
 
 
 CASES = {

@@ -4,6 +4,7 @@ weight update (ZeRO-1, the default) and without it.
 
     python3 tools/torch_fleet_dp_nccl.py [--steps 5] [--batch 128]
         [--modes dp,dp_eager,dp_eager2,dp_off,dp_eager_off,single]
+        [--dcn 2]
     python3 tools/torch_fleet_dp_nccl.py --cpu --nprocs 4   # a rehearsal
 
 On a machine with N cards this spawns N ranks over NCCL, each on its own
@@ -16,26 +17,35 @@ captured (the first step eager, the second captured, the rest replays),
 "dp_eager" and "dp_eager2" with `FLAGS_cuda_graphs` off (eager), all
 three with the sharded update (fleet's 89 gradient all-reduces lowered
 to bucketed reduce-scatters, the velocities and AMP masters held as 1/N
-slices, the params all-gathered); "dp_off" (captured) and
-"dp_eager_off" the same without it (89 all-reduces); "single" one
-process on card 0 without fleet at the same per-rank batch, captured,
-as the yardstick. Prints one JSON line: for each job per-rank median
-step ms, the job's images/s, peak memory a rank, the optimizer-state
-bytes a rank holds against the logical ones, the collectives a step
-(eager jobs: host ms, calls and MB; a captured job's replays run them
-on the card), the entry's mode and losses; the captured against the
-eager job, the two eager jobs, and the sharded update against the
-replicated one (captured and eager), each as equal flags and the
-largest loss and state differences (rank 0's state at its logical
-shape); whether every parameter and optimizer state is bit-equal across
-the ranks; then the cards' names and power limits. Rank 0 reports its
-progress on stderr; `--timeout` bounds each spawn (a rank that outlives
-it fails the run). `--cpu` runs the same path over gloo on the CPU at
-32 x 32, 10 classes, 2 images a rank (eagerly), to rehearse it without
-cards. Exits non-zero if a rank fails, a loss is not finite, the
-replicas differ, or the captured losses or state differ from the eager
-ones where the two eager runs agree (else by more than twice their
-difference, the rule of `chip_smoke.py` phase 11).
+slices, the params all-gathered); "dp_off" (captured) and "dp_eager_off"
+the same without it (89 all-reduces); "single" one process on card 0
+without fleet at the same per-rank batch, captured, as the yardstick.
+Prints one JSON line: for each job per-rank median step ms, the job's
+images/s, peak memory a rank, the optimizer-state bytes a rank holds
+against the logical ones, the collectives a step (eager jobs: host ms,
+calls and MB; a captured job's replays run them on the card), the
+entry's mode and losses; the captured against the eager job, the two
+eager jobs, and the sharded update against the replicated one (captured
+and eager), each where both jobs ran, as equal flags and the largest
+loss and state differences (rank 0's state at its logical shape); every
+job's first losses (the forward of one start state, before any update);
+whether every parameter and optimizer state is bit-equal across the
+ranks; then the cards' names and power limits. `--dcn K` runs the fleet
+jobs on a hybrid world of K pods (``FLAGS_tpu_dcn_replicas``: the
+gradient sums within the pod, then across pods, the sharded state laid
+out within the pod); each job also reports the pods, the optimizer-state
+bytes a rank holds and `Executor.overlap_report` (bucket 0, and every
+collective's launch against the backward), and the collectives a step
+split by axis. Set ``FLAGS_cudnn_deterministic=1`` in the environment
+for jobs that repeat bit for bit (cuDNN's timed algorithm choice
+otherwise differs between runs). Rank 0 reports its progress on stderr;
+`--timeout` bounds each spawn (a rank that outlives it fails the run).
+`--cpu` runs the same path over gloo on the CPU at 32 x 32, 10 classes,
+2 images a rank (eagerly), to rehearse it without cards. Exits non-zero
+if a rank fails, a loss is not finite, the replicas differ, or the
+captured losses or state differ from the eager ones where the two eager
+runs agree (else by more than twice their difference, the rule of
+`chip_smoke.py` phase 11).
 """
 import argparse
 import json
@@ -73,6 +83,8 @@ def worker(out_dir, cfg, mode):
     fleet_on = mode != "single"
     if cfg["cpu"]:
         torch.set_num_threads(2)
+    if fleet_on and cfg["dcn"] > 1:
+        fluid.set_flags({"FLAGS_tpu_dcn_replicas": cfg["dcn"]})
     if mode.startswith("dp_eager"):
         fluid.set_flags({"FLAGS_cuda_graphs": False})
     fluid.set_flags({"FLAGS_tpu_sharded_weight_update":
@@ -115,6 +127,12 @@ def worker(out_dir, cfg, mode):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     stats = {k: dict(v) for k, v in collective_ops.stats.items()}
     info = exe.last_entry.info()
+    # (getattr: the tool also drives an older checkout, timed against
+    # this one in the same call, whose executor has no overlap_report)
+    overlap = getattr(exe, "overlap_report", lambda *a, **k: None)(
+        main, feed=feed, fetch_list=[loss], scope=scope) if fleet_on \
+        else None
+    mesh = getattr(main, "_mesh", None)
     names = sorted(v.name for v in main.list_vars() if v.persistable
                    and not v.name.endswith(("_bn_mean", "_bn_var")))
     # at the logical shape: every rank gathers the sharded vars alike
@@ -130,6 +148,8 @@ def worker(out_dir, cfg, mode):
         "opt_state": {k: v for k, v in info.items()
                       if k.startswith(("opt_state", "grad_buckets"))},
         "collectives": stats,
+        "pods": list(mesh.shape.values()) if mesh else None,
+        "overlap": overlap,
         "c_allreduce_sum_ops": [op.type for op in main.global_block().ops]
         .count("c_allreduce_sum"),
         "digest": {n: hashlib.sha256(to_numpy(v).tobytes()).hexdigest()
@@ -146,9 +166,10 @@ def main():
                     help="ranks (default: the card count)")
     ap.add_argument("--timeout", type=float, default=900,
                     help="seconds each spawn's ranks may take")
+    ap.add_argument("--dcn", type=int, default=1,
+                    help="pods of the fleet jobs' world (1: flat)")
     ap.add_argument("--modes", default=",".join(MODES),
-                    help="the jobs to run, of %s (dp and dp_eager are "
-                    "needed)" % ", ".join(MODES))
+                    help="the jobs to run, of %s" % ", ".join(MODES))
     args = ap.parse_args()
     import torch
 
@@ -160,7 +181,7 @@ def main():
         return 1
     n = args.nprocs or (1 if args.cpu else torch.cuda.device_count())
     cfg = dict(cs.FLEET_A, batch=args.batch or (2 if args.cpu else 128),
-               steps=args.steps, cpu=args.cpu)
+               steps=args.steps, cpu=args.cpu, dcn=args.dcn)
     if args.cpu:
         cfg.update(CPU)
     backend = "gloo" if args.cpu else "nccl"
@@ -176,7 +197,8 @@ def main():
         with open(os.path.join(out_dir, name)) as f:
             return json.load(f)
 
-    ranks = [read("dp%d.json" % r) for r in range(n)]
+    first = next(m for m in MODES if m in modes and m != "single")
+    ranks = [read("%s%d.json" % (first, r)) for r in range(n)]
     eager2 = read("dp_eager20.json") if "dp_eager2" in modes else None
 
     def max_diff(a, b):
@@ -200,12 +222,20 @@ def main():
         rs = [read("%s%d.json" % (mode, r)) for r in range(nprocs)]
         med = [statistics.median(r["step_ms"]) for r in rs]
         steps = len(rs[0]["step_ms"])
+        ov = rs[0]["overlap"]
         return dict({"median_step_ms": med,
                      "step_ms": [r["step_ms"] for r in rs],
                      "images_per_sec": cfg["batch"] * nprocs
                      / (max(med) / 1e3),
                      "peak_mem_bytes": [r["peak_mem_bytes"] for r in rs],
                      "opt_state": rs[0]["opt_state"],
+                     "pods": rs[0]["pods"],
+                     "overlap": ov and dict(
+                         {k: v for k, v in ov.items() if k != "collectives"},
+                         bucket0=ov["collectives"][0] if ov["collectives"]
+                         else None,
+                         backward_after=[c["backward_after"]
+                                         for c in ov["collectives"]]),
                      "mode": rs[0]["mode"], "reason": rs[0]["reason"],
                      "losses": rs[0]["losses"]},
                     **cs.collectives_per_step(
@@ -225,14 +255,18 @@ def main():
         if any(r["digest"][k] != rs[0]["digest"][k] for r in rs[1:]))
     res = {"tool": "torch_fleet_dp_nccl", "ranks": n, "backend": backend,
            "per_rank_batch": cfg["batch"], "img": cfg["img"],
+           "dcn": cfg["dcn"],
            "devices": [r["device"] for r in ranks],
            "c_allreduce_sum_ops": ranks[0]["c_allreduce_sum_ops"],
            "replicas_bit_equal": not differ,
            "env": {k: v for k, v in os.environ.items()
-                   if k.startswith("NCCL_")}}
+                   if k.startswith(("NCCL_", "FLAGS_", "CUBLAS_"))}}
     for mode in modes:
         res[mode] = job(mode, 1 if mode == "single" else n)
-    res["captured_vs_eager"] = compare("dp", "dp_eager")
+    # every job's first losses: the forward of the same start state
+    res["step0_losses"] = {m: res[m]["losses"][0] for m in modes}
+    if "dp" in modes and "dp_eager" in modes:
+        res["captured_vs_eager"] = compare("dp", "dp_eager")
     if eager2 is not None:
         res["eager_vs_eager2"] = compare("dp_eager2", "dp_eager")
     for on, off in (("dp", "dp_off"), ("dp_eager", "dp_eager_off")):
@@ -248,13 +282,13 @@ def main():
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip(), flush=True)
-    ce, ee = res["captured_vs_eager"], res.get("eager_vs_eager2")
+    ce, ee = res.get("captured_vs_eager"), res.get("eager_vs_eager2")
     eager_equal = ee is not None and ee["losses_equal"] \
         and ee["state_equal"]
-    ok = not differ and all(math.isfinite(v) for s in res["dp"]["losses"]
-                            for v in s) \
-        and len(res["dp"]["losses"][0]) == n \
-        and (ce["losses_equal"] and ce["state_equal"]
+    ok = not differ and all(
+        math.isfinite(v) and len(s) == (1 if m == "single" else n)
+        for m in modes for s in res[m]["losses"] for v in s) \
+        and (ce is None or ce["losses_equal"] and ce["state_equal"]
              or ee is not None and not eager_equal
              and ce["max_loss_diff"] <= 2 * ee["max_loss_diff"]
              and ce["state_diff"]["max_abs"]
