@@ -158,7 +158,7 @@ Phases, each printing one JSON line:
    256, with the sharded weight update (the default: ZeRO-1, fleet's
    gradient all-reduces lowered to bucketed reduce-scatters, the
    Momentum velocities and AMP masters held as 1/N slices, the params
-   all-gathered): 2 warm-up and 5 timed steps, eager (gloo collectives
+   all-gathered): 2 warm-up and 3 timed steps, eager (gloo collectives
    run on the host, so the block is not captured, and the leg checks
    that it says so); every gathered loss finite, every parameter and
    optimizer state (read at its logical shape) bit-equal across the
@@ -182,8 +182,8 @@ Phases, each printing one JSON line:
    its own (`spmd_mesh_leg`), the phase a closing one. Leg a: the
    default `SPMDConfig` (phase 6's widths, bf16, remat, random weights
    from seed 0), Megatron sequence parallelism on dp1 pp2 tp2 (4 ranks),
-   4 microbatches of the global batch of 8 (GPipe), 1 warm-up and 2
-   timed steps: the loss finite and the same on every rank; the flash
+   4 microbatches of the global batch of 8 (GPipe), 1 warm-up and 1
+   timed step: the loss finite and the same on every rank; the flash
    launches a rank, zeroed just before the timed steps, exactly
    2 x 6 layers x 4 microbatches forward (remat) and 6 x 4 each of dK/dV
    and dQ a step, all on tensor cores at [8, 6, 512, 64]; per-rank median
@@ -200,7 +200,7 @@ Phases, each printing one JSON line:
    alike; a rank that fails fails the phase;
 14. zero — the sharded weight update (ZeRO-1) against the replicated
    one, on 2 gloo ranks sharing the card (`distributed.spawn`), each
-   rank running both from the same start state for 1 warm-up and 3
+   rank running both from the same start state for 1 warm-up and 2
    timed steps, each leg on a line of its own (`zero_leg`), the phase a
    closing one. Leg a:
    BASELINE config 5 (phase 12 leg a's fleet ResNet50, 128 a rank):
@@ -222,7 +222,7 @@ Phases, each printing one JSON line:
    within the pod, then across pods; the sharded state laid out within
    the pod; each bucket's exchange launched from the backward) with
    ``FLAGS_cudnn_deterministic`` on, each rank running every variant from
-   one start state for 1 warm-up and 3 timed steps, each leg on a line
+   one start state for 1 warm-up and 2 timed steps, each leg on a line
    of its own (`hybrid_leg`), the phase a closing one. Leg a: BASELINE
    config 5 (phase 12 leg a's fleet ResNet50) at 32 a rank (cut from 128
    so that four ranks fit on the one card): the hybrid sharded update
@@ -243,13 +243,43 @@ Phases, each printing one JSON line:
    (zeroed just before the timed steps) above 0. Per rank the step ms,
    the collectives' calls, MB and host ms a step split by axis (ici,
    dcn, the world), the optimizer-state bytes held, peak memory;
-16. kernels — one line listing every ported kernel with its launches on
+16. ckpt — checkpoints and model io with ``FLAGS_cudnn_deterministic``
+   on, each leg on a line of its own (`ckpt_leg`), the phase a closing
+   one with every leg's bit-equality and leg c's agreed steps. Leg a:
+   phase 9 leg a's config 5 (batch 128) in one process, captured: 3
+   steps, `checkpoint.save_checkpoint`, then an `AsyncCheckpointer` save
+   of the same state with the next 3 steps running meanwhile (losses A);
+   the checkpoint loaded into the live scope of the captured block and
+   into a fresh executor and scope, each followed by the same 3 steps:
+   both bit-equal to A, and the async checkpoint bit-equal to the
+   synchronous one. Leg b: phase 8 leg b's BERT-base S 4096 x 2 (the
+   flash kernels on every layer, launched: their counts zeroed before
+   the leg and read after) with both dropout probabilities 0 (the step
+   seed is not saved): `fluid.save` and `fluid.load` of the whole
+   program state around 2 steps, bit-equal to the uninterrupted ones;
+   `save_inference_model` and `load_inference_model`: the pruned
+   program's loss bit-equal to the for_test clone's on the same feed.
+   Then one spawn of 2 gloo ranks sharing the card runs legs c and d.
+   Leg c: config 5 through fleet with the sharded update (128 a rank):
+   `save_persistables` from both ranks (rank 0 writes each var at its
+   logical shape; every file bit-equal to `read_logical`), a fresh
+   executor and scope loaded from the files repeating the next 2 steps
+   bit for bit, and two numbered checkpoints a rank with rank 1's newest
+   truncated: `load_checkpoint` under ``PADDLE_CKPT_AGREE=1`` takes the
+   older step on both ranks. Leg d: the default `SPMDConfig` (Megatron)
+   on a tp2 mesh: `ShardedCheckpointManager.save` at step 2, the step
+   restored into the same layout repeating the next 2 steps bit for
+   bit, and restored whole in this process: every param bit-equal to
+   the tp2 params gathered at the save. Each leg reports the MB written
+   and the save, load (and `save_async`) ms beside the card's name and
+   power limit;
+17. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, their launches and times on the fluid BERT path and their
    launches a rank on the mesh trainer; the dropout kernel with its
    launches on fluid BERT leg a); launches made by graph replays count;
-17. the last line, ``{"ok": true, "device": {...}}``, printed only when
+18. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -382,7 +412,7 @@ GRAPH_EAGER_RUNS = 3
 #: and the CPU drifted 9.8e-3 apart in the third loss); leg c: NCCL at
 #: world 1
 FLEET_A = dict(img=224, classes=1000, batch=256, lr=0.1)
-FLEET_WARMUP, FLEET_STEPS = 2, 5
+FLEET_WARMUP, FLEET_STEPS = 2, 3
 FLEET_B = dict(img=32, classes=10, batch=8, lr=3e-3, steps=3)
 FLEET_B_RTOL = 1e-3          # phase 9 leg b's tolerance
 FLEET_C_STEPS = 8
@@ -394,11 +424,11 @@ FLEET_C_OPS = [("c_reduce_sum", {"root_id": 0}), ("alltoall", {}),
 FLEET_TIMEOUT_S = 420        # a spawn's ranks, joined
 #: phase 13, the SPMD trainer over a mesh of ranks sharing the card over
 #: gloo. Legs a and b: the default SPMDConfig, 4 microbatches of the
-#: global batch of 8, 1 warm-up and 2 timed steps; leg a Megatron on
+#: global batch of 8, 1 warm-up and 1 timed step; leg a Megatron on
 #: dp1 pp2 tp2 (4 ranks), leg b Ulysses on dp1 pp1 tp2 (2 ranks)
 SPMD_A = dict(dp=1, pp=2, tp=2, sp_mode="megatron")
 SPMD_B = dict(dp=1, pp=1, tp=2, sp_mode="ulysses")
-SPMD_MICRO, SPMD_BATCH, SPMD_WARMUP, SPMD_STEPS = 4, 8, 1, 2
+SPMD_MICRO, SPMD_BATCH, SPMD_WARMUP, SPMD_STEPS = 4, 8, 1, 1
 #: phase 5's case at the shapes and layouts each leg gives the flash
 #: kernels ([8, 6, 512, 64] bf16 causal)
 SPMD_FLASH_CASES = {"a": "megatron_tp2_bf16_causal",
@@ -418,7 +448,7 @@ SPMD_C_LOSS_RTOL, SPMD_C_GRAD_RTOL, SPMD_C_GRAD_ATOL = 2e-4, 5e-4, 1e-6
 #: (1 a rank; phase 8 leg b's program: bf16 AMP O2, fused Adam, scan
 #: remat, the flash kernels); leg b's tolerance, losses and the state
 #: relative in norm, where its runs are not bit-equal
-ZERO_WARMUP, ZERO_STEPS = 1, 3
+ZERO_WARMUP, ZERO_STEPS = 1, 2
 ZERO_B = dict(seq=4096, batch=2)
 ZERO_B_RTOL = 1e-2
 #: phase 15, the hybrid (dcn 2, ici 2) world of 4 gloo ranks sharing the
@@ -442,6 +472,15 @@ HYBRID_VARIANTS = {"a": [("hier_zero", HYBRID_DCN, True),
                    "b": [("hier_zero", HYBRID_DCN, True),
                          ("flat_zero", 1, True)]}
 HYBRID_A_GRAD_RTOL = 2.0 ** -8
+#: phase 16, checkpoints and model io with FLAGS_cudnn_deterministic on:
+#: leg a config 5 in one process, 3 steps between saves and loads; leg b
+#: BERT-base S 4096 x 2 with dropout 0 (the step seed is not saved:
+#: a resumed run repeats the uninterrupted one only without dropout), 2
+#: steps; leg c config 5 on 2 gloo ranks with the sharded update, 2
+#: steps; leg d the default SPMDConfig on tp2 (2 gloo ranks), 2 steps
+CKPT_STEPS = 3
+CKPT_B = dict(seq=4096, batch=2)
+CKPT_B_STEPS = CKPT_C_STEPS = CKPT_D_STEPS = 2
 
 
 def emit(obj):
@@ -2240,17 +2279,28 @@ def phase_graphs(torch, name):
 
 # -- phase 12 -----------------------------------------------------------------
 
+def host_bits(v):
+    """A tensor's or array's bits as a numpy array on the host (bfloat16
+    as uint16: numpy has no bfloat16, and the port does not import
+    `ml_dtypes`)."""
+    from paddle_tpu_torch.fluid import io
+
+    return io._host_array(v)[0]
+
+
+def digest(v):
+    """sha256 of a value's bits."""
+    import hashlib
+
+    return hashlib.sha256(host_bits(v).tobytes()).hexdigest()
+
+
 def fleet_state_digest(exe, program, scope, names):
     """name -> sha256 of the value's bytes at its logical shape
     (bit-equality across ranks without moving the values; the moments
     and masters the sharded update keeps as 1/N slices are gathered
     first, so every rank calls this alike)."""
-    import hashlib
-
-    from paddle_tpu_torch.core.types import to_numpy
-
-    return {n: hashlib.sha256(to_numpy(exe.read_logical(
-        n, program, scope)).tobytes()).hexdigest() for n in names}
+    return {n: digest(exe.read_logical(n, program, scope)) for n in names}
 
 
 def fleet_dump(path, obj):
@@ -2260,7 +2310,7 @@ def fleet_dump(path, obj):
 
 def fleet_worker_a(out_dir):
     """Leg a, one rank: ResNet50 at phase 9 leg a's size through fleet,
-    2 warm-up and 5 timed steps of the global batch, eager (gloo)."""
+    2 warm-up and 3 timed steps of the global batch, eager (gloo)."""
     import torch
 
     from paddle_tpu_torch import distributed, fleet, fluid
@@ -2855,12 +2905,10 @@ def zero_worker(out_dir, leg):
     collectives a step, the optimizer state a rank holds, the kernels'
     launch counts (zeroed just before the steps, read just after) and,
     against the other run, the state at its logical shape."""
-    import hashlib
 
     import torch
 
     from paddle_tpu_torch import distributed, fleet, fluid
-    from paddle_tpu_torch.core.types import to_numpy
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import collective_ops
     from paddle_tpu_torch.ops.kernels import dropout, \
@@ -2927,8 +2975,7 @@ def zero_worker(out_dir, leg):
                           if k.startswith(("opt_state", "grad_buckets"))},
             "masters_sharded": len(plan.master_of) if plan else 0,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "digest": {n: hashlib.sha256(to_numpy(v).tobytes()).hexdigest()
-                       for n, v in logical[variant].items()
+            "digest": {n: digest(v) for n, v in logical[variant].items()
                        if not n.endswith(("_bn_mean", "_bn_var"))}}
         del exe, scope, prog, main
         torch.cuda.empty_cache()
@@ -3055,17 +3102,15 @@ def hybrid_axes(stats):
 def hybrid_worker(out_dir, leg):
     """One rank of phase 15: each variant of `HYBRID_VARIANTS[leg]` (pods,
     sharded update) from the first variant's start state, 1 warm-up and
-    3 timed steps: losses, step ms, collectives a step by axis, the
+    2 timed steps: losses, step ms, collectives a step by axis, the
     optimizer state held, the exchange record (`overlap_report`), peak
     memory, the kernels' launches (zeroed just before the timed steps of
     each variant) and the state at its logical shape (digests; leg b
     also its distance to the flat run)."""
-    import hashlib
 
     import torch
 
     from paddle_tpu_torch import distributed, fleet, fluid
-    from paddle_tpu_torch.core.types import to_numpy
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.ops import collective_ops
     from paddle_tpu_torch.ops.kernels import dropout, \
@@ -3143,8 +3188,7 @@ def hybrid_worker(out_dir, leg):
                 backward_after=[c["backward_after"]
                                 for c in overlap["collectives"]]),
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "digest": {n: hashlib.sha256(to_numpy(v).tobytes()).hexdigest()
-                       for n, v in state.items()
+            "digest": {n: digest(v) for n, v in state.items()
                        if not n.endswith(("_bn_mean", "_bn_var"))}}
         if leg == "b":
             logical[variant] = state
@@ -3296,6 +3340,427 @@ def phase_hybrid(torch, name):
     return legs
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+def ckpt_dir_mb(path):
+    """MB of the files under `path`."""
+    total = 0
+    for root, _, files in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    return total / 1e6
+
+
+def ckpt_equal(a, b):
+    """Names of the entries of two {name: value} dicts that differ in
+    their bits (or that one of them lacks)."""
+    import numpy as np
+
+    names = set(a) | set(b)
+    return sorted(n for n in names if n not in a or n not in b
+                  or not np.array_equal(host_bits(a[n]), host_bits(b[n])))
+
+
+def ckpt_pickle(root):
+    """The values of the newest checkpoint under `root`."""
+    from paddle_tpu_torch.fluid import checkpoint, io
+
+    return io._load_pickle(os.path.join(
+        checkpoint.latest_checkpoint_dir(root), "persistables.pkl"))
+
+
+def ckpt_timed(torch, fn):
+    """(fn's result, its ms on the host clock, the card synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ckpt_leg_a(torch, fluid, out_dir):
+    """Leg a: config 5 in one process (phase 9 leg a's program at batch
+    128), captured: 3 steps; `save_checkpoint`; an `AsyncCheckpointer`
+    save of the same state with the next 3 steps running meanwhile
+    (losses A); the checkpoint loaded into the live scope of the captured
+    block, and into a fresh executor and scope, each followed by the
+    same 3 steps."""
+    from paddle_tpu_torch.fluid import checkpoint
+
+    c = RESNET_A
+    main, startup, loss = build_fluid_resnet(fluid, c["img"], c["classes"],
+                                             c["lr"], c["amp"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = resnet_feed(c["batch"], c["img"], c["classes"])
+
+    def steps(e, s):
+        return [float(e.run(main, feed=feed, fetch_list=[loss],
+                            scope=s)[0][0]) for _ in range(CKPT_STEPS)]
+
+    first = steps(exe, scope)
+    check(exe.last_entry.phase == "captured",
+          "ckpt a: the step is %s, not captured" % exe.last_entry.phase)
+    sync_root = os.path.join(out_dir, "a_sync")
+    async_root = os.path.join(out_dir, "a_async")
+    status = checkpoint.TrainStatus(0, CKPT_STEPS)
+    _, save_ms = ckpt_timed(torch, lambda: checkpoint.save_checkpoint(
+        exe, sync_root, status, main, scope=scope))
+    writer = checkpoint.AsyncCheckpointer(async_root, main, scope=scope)
+    _, snapshot_ms = ckpt_timed(torch, lambda: writer.save_async(status))
+    a = steps(exe, scope)
+    _, close_ms = ckpt_timed(torch, writer.close)
+    async_differ = ckpt_equal(ckpt_pickle(sync_root),
+                              ckpt_pickle(async_root))
+    _, load_live_ms = ckpt_timed(torch, lambda: checkpoint.load_checkpoint(
+        exe, sync_root, main, scope=scope))
+    live = steps(exe, scope)
+    live_phase = exe.last_entry.phase
+    exe.close()
+    del exe, scope
+    torch.cuda.empty_cache()
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    st, load_fresh_ms = ckpt_timed(torch, lambda: checkpoint.load_checkpoint(
+        exe, sync_root, main, scope=scope))
+    fresh = steps(exe, scope)
+    res = {"leg": "a", "config": "BASELINE config 5: ResNet50, 224 x 224, "
+           "batch 128, bf16 AMP O2, fused Momentum, captured",
+           "first_losses": first, "losses": a, "live_losses": live,
+           "fresh_losses": fresh, "live_bit_equal": live == a,
+           "live_phase": live_phase, "fresh_bit_equal": fresh == a,
+           "async_bit_equal": not async_differ,
+           "async_differ": async_differ[:5],
+           "status_step": st.step_no, "mb": ckpt_dir_mb(sync_root),
+           "save_ms": save_ms, "save_async_ms": snapshot_ms,
+           "close_ms": close_ms, "load_live_ms": load_live_ms,
+           "load_fresh_ms": load_fresh_ms}
+    exe.close()
+    emit({"phase": "ckpt_leg", **res})
+    check(all(math.isfinite(x) for x in first + a), "ckpt a: losses %s"
+          % (first + a))
+    check(res["live_bit_equal"] and live_phase == "captured",
+          "ckpt a: loaded into the captured block: %s against %s (%s)"
+          % (live, a, live_phase))
+    check(res["fresh_bit_equal"], "ckpt a: fresh executor: %s against %s"
+          % (fresh, a))
+    check(res["async_bit_equal"], "ckpt a: the async checkpoint differs "
+          "from the sync one in %s" % async_differ[:5])
+    check(st.step_no == CKPT_STEPS, "ckpt a: status %s" % st.step_no)
+    return res
+
+
+def ckpt_leg_b(torch, fluid, out_dir):
+    """Leg b: fluid BERT-base at S 4096 x 2 (phase 8 leg b's program,
+    captured, the flash kernels on every layer) with both dropout
+    probabilities 0: `fluid.save` and `fluid.load` of the whole program
+    state around 2 steps; then `save_inference_model` and
+    `load_inference_model`: the pruned program's loss against the
+    for_test clone's on the same feed."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid import io
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert_cfg(CKPT_B["seq"])
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    main, startup, total, _ = build_fluid_bert(fluid, cfg, CKPT_B["seq"],
+                                               True)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.bert_feed(cfg, CKPT_B["batch"], CKPT_B["seq"])
+
+    def steps():
+        return [float(exe.run(main, feed=feed, fetch_list=[total],
+                              scope=scope)[0][0])
+                for _ in range(CKPT_B_STEPS)]
+
+    zero_attention_launches()
+    first = steps()
+    path = os.path.join(out_dir, "b", "bert")
+    with fluid.scope_guard(scope):
+        _, save_ms = ckpt_timed(torch, lambda: io.save(main, path))
+    a = steps()
+    with fluid.scope_guard(scope):
+        _, load_ms = ckpt_timed(torch, lambda: io.load(main, path, exe))
+    b = steps()
+    phase = exe.last_entry.phase
+    test = main.clone(for_test=True)
+    want = exe.run(test, feed=feed, fetch_list=[total], scope=scope)[0]
+    infer = os.path.join(out_dir, "b_infer")
+    with fluid.scope_guard(scope):
+        _, infer_save_ms = ckpt_timed(torch, lambda: io.save_inference_model(
+            infer, sorted(feed), [total], exe, main))
+    other = fluid.Scope()
+    with fluid.scope_guard(other):
+        (prog, feeds, fetch), infer_load_ms = ckpt_timed(
+            torch, lambda: io.load_inference_model(infer, exe))
+    got = exe.run(prog, feed=feed, fetch_list=fetch, scope=other)[0]
+    launches = attention_launches()
+    res = {"leg": "b", "config": "fluid BERT-base pretraining, S 4096 x 2, "
+           "bf16 AMP O2, fused Adam, scan remat, dropout 0",
+           "first_losses": first, "losses": a, "loaded_losses": b,
+           "bit_equal": a == b, "phase_after_load": phase,
+           "mb": ckpt_dir_mb(os.path.dirname(path)), "save_ms": save_ms,
+           "load_ms": load_ms, "inference_mb": ckpt_dir_mb(infer),
+           "inference_save_ms": infer_save_ms,
+           "inference_load_ms": infer_load_ms,
+           "inference_ops": len(prog.global_block().ops),
+           "for_test_ops": len(test.global_block().ops),
+           "inference_loss": float(np.ravel(got)[0]),
+           "for_test_loss": float(np.ravel(want)[0]),
+           "inference_bit_equal": bool(np.array_equal(got, want)),
+           "launches": launches}
+    exe.close()
+    emit({"phase": "ckpt_leg", **res})
+    check(all(math.isfinite(x) for x in first + a), "ckpt b: losses %s"
+          % (first + a))
+    check(res["bit_equal"], "ckpt b: after fluid.load %s against %s"
+          % (b, a))
+    check(res["inference_bit_equal"], "ckpt b: the inference model gives "
+          "%s, the for_test clone %s" % (res["inference_loss"],
+                                          res["for_test_loss"]))
+    check(all(launches["flash_attention_" + k] > 0
+              for k in ("forward", "dkv", "dq")),
+          "ckpt b: flash launches %s" % launches)
+    return res
+
+
+def ckpt_worker_c(out_dir):
+    """Leg c, one rank: config 5 through fleet with the sharded weight
+    update, 1 step; `save_persistables` from every rank (rank 0 writes;
+    rank 0 holds each file against `read_logical`); 2 steps (losses A);
+    a fresh executor and scope loaded from the files and the same 2
+    steps; then two numbered checkpoints in a directory of each rank's,
+    rank 1's newest truncated, and `load_checkpoint` under
+    ``PADDLE_CKPT_AGREE=1``."""
+    import torch
+
+    from paddle_tpu_torch import distributed, fleet, fluid
+    from paddle_tpu_torch.fluid import checkpoint, io
+
+    rank = distributed.get_rank()
+    fluid.set_flags({"FLAGS_tpu_sharded_weight_update": True})
+    c = FLEET_A
+    main, startup, loss = build_fluid_resnet(
+        fluid, c["img"], c["classes"], c["lr"], True,
+        strategy=fleet.DistributedStrategy())
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    feed = resnet_feed(c["batch"], c["img"], c["classes"])
+
+    def steps(e, s, k):
+        return [e.run(main, feed=feed, fetch_list=[loss],
+                      scope=s)[0].ravel().tolist() for _ in range(k)]
+
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    first = steps(exe, scope, 1)
+    info = exe.last_entry.info()
+    logical = {n: exe.read_logical(n, main, scope) for n in names}
+    persist = os.path.join(out_dir, "c_persist")
+    with fluid.scope_guard(scope):
+        _, save_ms = ckpt_timed(torch, lambda: io.save_persistables(
+            exe, persist, main))
+    files_differ = None
+    if rank == 0:
+        files_differ = ckpt_equal(io._load_dict(persist), logical)
+    del logical
+    a = steps(exe, scope, CKPT_C_STEPS)
+    exe2 = fluid.Executor()
+    scope2 = fluid.Scope()
+    with fluid.scope_guard(scope2):
+        _, load_ms = ckpt_timed(torch, lambda: io.load_persistables(
+            exe2, persist, main))
+    b = steps(exe2, scope2, CKPT_C_STEPS)
+    root = os.path.join(out_dir, "c_rank%d" % rank)
+    ckpt_ms = []
+    for k in (1, 2):
+        _, ms = ckpt_timed(torch, lambda: checkpoint.save_checkpoint(
+            exe2, root, checkpoint.TrainStatus(0, k), main, scope=scope2))
+        ckpt_ms.append(ms)
+    distributed.barrier()
+    if rank == 1:
+        with open(os.path.join(checkpoint.latest_checkpoint_dir(root),
+                               "persistables.pkl"), "wb") as f:
+            f.write(b"\x00truncated")
+    distributed.barrier()
+    st, agree_ms = ckpt_timed(torch, lambda: checkpoint.load_checkpoint(
+        exe2, root, main, scope=scope2))
+    fleet_dump(os.path.join(out_dir, "ckpt_c%d.json" % rank), {
+        "first": first, "losses": a, "loaded_losses": b,
+        "files_differ": files_differ, "mb": ckpt_dir_mb(persist),
+        "save_ms": save_ms, "load_ms": load_ms, "checkpoint_ms": ckpt_ms,
+        "checkpoint_mb": ckpt_dir_mb(root), "agreed_step": st.step_no,
+        "agree_load_ms": agree_ms,
+        "agree_env": os.environ.get("PADDLE_CKPT_AGREE"),
+        "opt_state_sharded_vars": info["opt_state_sharded_vars"],
+        "mode": info["mode"]})
+
+
+def ckpt_worker_cd(out_dir):
+    """Legs c and d, one rank each, in one spawn of 2 gloo ranks."""
+    import torch
+
+    ckpt_worker_c(out_dir)
+    torch.cuda.empty_cache()
+    ckpt_worker_d(out_dir)
+
+
+def ckpt_leg_c(out_dir):
+    ranks = [fleet_read(out_dir, "ckpt_c%d.json" % r) for r in range(2)]
+    r0 = ranks[0]
+    res = {"leg": "c", "ranks": 2, "backend": "gloo",
+           "config": "BASELINE config 5 through fleet, 128 a rank, "
+                     "the sharded weight update (ZeRO-1)",
+           "losses": r0["losses"], "loaded_losses": r0["loaded_losses"],
+           "bit_equal": all(r["losses"] == r["loaded_losses"]
+                            for r in ranks),
+           "files_match_read_logical": r0["files_differ"] == [],
+           "files_differ": (r0["files_differ"] or [])[:5],
+           "mb": r0["mb"], "save_ms": [r["save_ms"] for r in ranks],
+           "load_ms": [r["load_ms"] for r in ranks],
+           "checkpoint_ms": [r["checkpoint_ms"] for r in ranks],
+           "checkpoint_mb": [r["checkpoint_mb"] for r in ranks],
+           "agreed_steps": [r["agreed_step"] for r in ranks],
+           "agree_load_ms": [r["agree_load_ms"] for r in ranks],
+           "agree_env": [r["agree_env"] for r in ranks],
+           "opt_state_sharded_vars": r0["opt_state_sharded_vars"],
+           "mode": r0["mode"]}
+    emit({"phase": "ckpt_leg", **res})
+    check(r0["opt_state_sharded_vars"] > 0, "ckpt c: state not sharded")
+    check(res["files_match_read_logical"], "ckpt c: files differ from "
+          "read_logical in %s" % res["files_differ"])
+    check(res["bit_equal"], "ckpt c: reloaded %s against %s"
+          % (r0["loaded_losses"], r0["losses"]))
+    check(res["agreed_steps"] == [1, 1], "ckpt c: agreed on %s, not on "
+          "step 1 everywhere" % res["agreed_steps"])
+    return res
+
+
+def ckpt_worker_d(out_dir):
+    """Leg d, one rank: the default SPMDConfig on a tp2 mesh, 2 steps;
+    `ShardedCheckpointManager.save` of the params and Adam moments at
+    step 2; 2 steps (losses A); the step restored into the same mesh's
+    layout and the same 2 steps; the sha256 of every param gathered to
+    its global shape at the save."""
+    import torch
+
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.distributed import ShardedCheckpointManager
+    from paddle_tpu_torch.parallel import transformer as tt
+
+    rank = distributed.get_rank()
+    cfg = tt.SPMDConfig(tp=2)
+    mesh = cfg.mesh(device=DEV)
+    params = tt.shard_params(tt.init_params(cfg, seed=0, device=mesh.device),
+                             cfg, mesh)
+    opt = tt.init_opt_state(params)
+    step = tt.make_train_step(cfg, mesh)
+    tokens, labels = tt.demo_batch(cfg, SPMD_BATCH, seed=0)
+    specs = tt.param_specs(cfg)
+    tree_specs = {"params": specs, "opt": (specs, specs)}
+
+    def run(p, o, k0):
+        losses = []
+        for k in range(CKPT_D_STEPS):
+            p, o, loss = step(p, o, tokens, labels, k0 + k)
+            losses.append(float(loss))
+        return p, o, losses
+
+    params, opt, first = run(params, opt, 0)
+    mgr = ShardedCheckpointManager(os.path.join(out_dir, "d_ckpt"))
+    state = {"params": params, "opt": opt}
+    _, save_ms = ckpt_timed(torch, lambda: mgr.save(
+        CKPT_D_STEPS, state, specs=tree_specs, mesh=mesh))
+    digests = {k: digest(v) for k, v in
+               leaves(tt.params_to_numpy(params, cfg, mesh))}
+    _, _, a = run(params, opt, CKPT_D_STEPS)
+    template = {"params": tt._tree_map(torch.empty_like, params),
+                "opt": tuple(tt._tree_map(torch.empty_like, m)
+                             for m in opt)}
+    back, restore_ms = ckpt_timed(torch, lambda: mgr.restore(
+        template=template, specs=tree_specs, mesh=mesh))
+    _, _, b = run(back["params"], tuple(back["opt"]), CKPT_D_STEPS)
+    fleet_dump(os.path.join(out_dir, "ckpt_d%d.json" % rank), {
+        "first": first, "losses": a, "restored_losses": b,
+        "save_ms": save_ms, "restore_ms": restore_ms, "digest": digests,
+        "coords": list(mesh.coords)})
+
+
+def ckpt_leg_d(torch, out_dir):
+    from paddle_tpu_torch.distributed import ShardedCheckpointManager
+
+    ranks = [fleet_read(out_dir, "ckpt_d%d.json" % r) for r in range(2)]
+    r0 = ranks[0]
+    root = os.path.join(out_dir, "d_ckpt")
+    mgr = ShardedCheckpointManager(root)
+    whole, one_ms = ckpt_timed(torch, mgr.restore)
+    got = {k: digest(v) for k, v in leaves(whole["params"])}
+    differ = sorted(k for k in r0["digest"] if got.get(k) != r0["digest"][k])
+    res = {"leg": "d", "ranks": 2, "backend": "gloo",
+           "config": "the default SPMDConfig (Megatron) on dp1 pp1 tp2",
+           "losses": r0["losses"], "restored_losses": r0["restored_losses"],
+           "bit_equal": all(r["losses"] == r["restored_losses"]
+                            for r in ranks),
+           "one_process_bit_equal": not differ, "differ": differ[:5],
+           "mb": ckpt_dir_mb(root),
+           "save_ms": [r["save_ms"] for r in ranks],
+           "restore_ms": [r["restore_ms"] for r in ranks],
+           "one_process_restore_ms": one_ms,
+           "steps": mgr.all_steps()}
+    emit({"phase": "ckpt_leg", **res})
+    check(all(math.isfinite(x) for x in r0["first"] + r0["losses"]),
+          "ckpt d: losses %s" % (r0["first"] + r0["losses"]))
+    check(res["bit_equal"], "ckpt d: restored %s against %s"
+          % (r0["restored_losses"], r0["losses"]))
+    check(res["one_process_bit_equal"], "ckpt d: one process differs from "
+          "the gathered tp2 params in %s" % differ[:5])
+    return res
+
+
+def phase_ckpt(torch, name):
+    """Phase 16: checkpoints and model io on the card, with
+    ``FLAGS_cudnn_deterministic`` on: leg a config 5 in one process, leg
+    b BERT-base S 4096, then one spawn of 2 gloo ranks for leg c (config
+    5 with ZeRO) and leg d (the mesh trainer, tp2)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import distributed, fluid
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    before = fluid.get_flags("FLAGS_cudnn_deterministic")
+    os.environ["FLAGS_cudnn_deterministic"] = "1"
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+    out_dir = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        legs = {"a": ckpt_leg_a(torch, fluid, out_dir),
+                "b": ckpt_leg_b(torch, fluid, out_dir)}
+        fleet_spawn(distributed, ckpt_worker_cd, (out_dir,), 2, "gloo")
+        legs["c"] = ckpt_leg_c(out_dir)
+        legs["d"] = ckpt_leg_d(torch, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        fluid.set_flags(before)
+        os.environ.pop("FLAGS_cudnn_deterministic", None)
+    emit({"phase": "ckpt", "seconds": time.perf_counter() - t0,
+          "legs": ["a", "b", "c", "d"], "device": name,
+          "nvidia_smi": nvidia_smi_line(),
+          "bit_equal": {"a": legs["a"]["live_bit_equal"]
+                        and legs["a"]["fresh_bit_equal"]
+                        and legs["a"]["async_bit_equal"],
+                        "b": legs["b"]["bit_equal"]
+                        and legs["b"]["inference_bit_equal"],
+                        "c": legs["c"]["bit_equal"],
+                        "d": legs["d"]["bit_equal"]
+                        and legs["d"]["one_process_bit_equal"]},
+          "agreed_steps": legs["c"]["agreed_steps"]})
+    return legs
+
+
 def leaves(tree, prefix=""):
     """(path, tensor) for every leaf of a nested dict, in order."""
     for key, val in tree.items():
@@ -3416,6 +3881,7 @@ def main():
     mesh = phase_spmd_mesh(torch, name, train)
     phase_zero(torch, name)
     phase_hybrid(torch, name)
+    phase_ckpt(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

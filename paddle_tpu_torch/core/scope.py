@@ -101,7 +101,7 @@ def load_numpy_state(scope: Scope, state: Dict[str, np.ndarray],
 
 def dump_numpy_state(scope: Scope, names: Iterable[str]):
     """`{name: numpy array}` of the named scope values (copied to the
-    host; bfloat16 as ``ml_dtypes.bfloat16``, bit for bit)."""
+    host; bfloat16 as `types.to_numpy` gives it)."""
     out = {}
     for name in names:
         v = scope.find_var(name)

@@ -9,15 +9,25 @@ gives int32).
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
-try:
-    import ml_dtypes
 
-    _BF16 = np.dtype(ml_dtypes.bfloat16)
-except ImportError:  # pragma: no cover
-    _BF16 = np.dtype("float32")
+def _bf16_numpy():
+    """numpy's bfloat16 dtype where the process has one: the port never
+    imports `ml_dtypes`, but a process that did (JAX imports it) hands
+    bfloat16 arrays across, and those are taken and given back bit for
+    bit. None where it has none."""
+    ml = sys.modules.get("ml_dtypes")
+    return np.dtype(ml.bfloat16) if ml is not None else None
+
+
+def is_bf16_array(arr) -> bool:
+    """Whether `arr` is a numpy array of bfloat16 (an ``ml_dtypes``
+    dtype, recognised by its name)."""
+    return isinstance(arr, np.ndarray) and arr.dtype.name == "bfloat16"
 
 # Canonical string names used throughout the framework.
 _STR_TO_NP = {
@@ -28,7 +38,7 @@ _STR_TO_NP = {
     "int32": np.dtype("int32"),
     "int64": np.dtype("int64"),
     "float16": np.dtype("float16"),
-    "bfloat16": _BF16,
+    "bfloat16": None,  # `_bf16_numpy()` where there is one
     "float32": np.dtype("float32"),
     "float64": np.dtype("float64"),
     "complex64": np.dtype("complex64"),
@@ -119,39 +129,48 @@ def normalize_dtype(dtype) -> str:
     if isinstance(dtype, int):
         return _PROTO_TO_STR[dtype]
     npdt = np.dtype(dtype)
-    if npdt == _BF16:
-        return "bfloat16"
     name = npdt.name
+    if name == "bfloat16":
+        return name
     if name not in _STR_TO_NP:
         raise ValueError("unsupported dtype %r" % (dtype,))
     return name
 
 
 def to_numpy_dtype(dtype) -> np.dtype:
-    return _STR_TO_NP[normalize_dtype(dtype)]
+    """The numpy dtype of `dtype`; bfloat16 is ``ml_dtypes``' where the
+    process has loaded it, else float32 (which holds every bfloat16
+    value)."""
+    name = normalize_dtype(dtype)
+    if name == "bfloat16":
+        return _bf16_numpy() or np.dtype("float32")
+    return _STR_TO_NP[name]
 
 
 def from_numpy(arr, device) -> torch.Tensor:
     """A numpy array as a new tensor on `device`, in the dtype a var of
     its dtype holds there. A bfloat16 array (``ml_dtypes.bfloat16``, what
-    JAX hands back) crosses bit for bit through a uint16 view, never
+    JAX hands back) crosses bit for bit through an int16 view, never
     through float32."""
     arr = np.asarray(arr)
-    if arr.dtype == _BF16 and arr.dtype != np.float32:
-        return torch.tensor(arr.view(np.uint16), device=device).view(
+    if is_bf16_array(arr):
+        return torch.tensor(arr.view(np.int16), device=device).view(
             torch.bfloat16)
     return torch.tensor(arr, dtype=to_torch_dtype(arr.dtype), device=device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a host numpy array; bfloat16 as ``ml_dtypes.bfloat16``,
-    bit for bit."""
+    bit for bit, where the process has loaded ``ml_dtypes``, else as
+    float32 (numpy has no bfloat16; float32 holds every bfloat16 value
+    exactly)."""
     t = t.detach().cpu()
     if t.dtype != torch.bfloat16:
         return t.numpy()
-    if _BF16 == np.float32:
-        raise RuntimeError("a bfloat16 tensor needs ml_dtypes on the host")
-    return t.view(torch.int16).numpy().view(_BF16)
+    bf16 = _bf16_numpy()
+    if bf16 is None:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().view(bf16)
 
 
 def to_torch_dtype(dtype) -> torch.dtype:

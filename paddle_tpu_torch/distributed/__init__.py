@@ -8,7 +8,8 @@ with `jax.distributed.initialize`. The port runs one process per device:
 starts such a world on this machine) and installs it as ring 0 of
 `parallel/env.py`. NCCL runs on the card and needs one card per rank;
 gloo runs on the CPU, and also takes CUDA tensors through host copies,
-so several ranks can share one card over it.
+so several ranks can share one card over it. `ShardedCheckpointManager`
+saves and restores a mesh's sharded state (`sharded_checkpoint.py`).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from ..parallel import env as penv
 
 __all__ = ["init_parallel_env", "shutdown_parallel_env", "get_rank",
            "get_world_size", "all_reduce", "broadcast", "all_gather",
-           "reduce_scatter", "barrier", "spawn", "ParallelEnv"]
+           "reduce_scatter", "barrier", "spawn", "ParallelEnv",
+           "ShardedCheckpointManager"]
 
 
 class ParallelEnv:
@@ -278,3 +280,6 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
     if join:
         sc.join(options.get("timeout"))
     return sc
+
+
+from .sharded_checkpoint import ShardedCheckpointManager  # noqa: E402,F401

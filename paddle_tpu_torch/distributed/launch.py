@@ -116,8 +116,9 @@ def _worker_env(endpoints, tid, restart_no, base_env=None, backend=None,
     blocks of ranks), which a flat cohort pops so an inherited one does
     not leak in."""
     env = dict(os.environ if base_env is None else base_env)
-    # the reference's supervised workers agree on checkpoint steps
-    # across ranks; kept for the contract (checkpoints: Queue 1 #8a)
+    # the workers agree on the checkpoint step to restore across ranks
+    # (fluid.checkpoint.load_checkpoint, ShardedCheckpointManager.restore);
+    # PADDLE_CKPT_AGREE=0 in the launcher's environment opts out
     env.setdefault("PADDLE_CKPT_AGREE", "1")
     env.update({
         "PADDLE_TRAINER_ID": str(tid),

@@ -18,9 +18,14 @@ pod asked for (``FLAGS_tpu_dcn_replicas``, ``PADDLE_NUM_PODS``, or the
 strategy's `use_hierarchical_allreduce` with
 `hierarchical_allreduce_inter_nranks` pods) that world is the hybrid
 (dcn, ici) mesh and the gradient sums run within the pod, then across
-pods. The parameter-server, auto-parallel, DGC, LocalSGD and elastic
-paths are not ported (ROADMAP Queue 1 #10) and raise, as do
-`save_persistables` and `save_inference_model` (Queue 1 #8a).
+pods. `save_persistables` and `save_inference_model` are `fluid.io`'s
+(every rank calls them, rank 0 writes), and the strategy's `elastic`
+knob checkpoints the program every ``elastic_configs["save_steps"]``
+steps and resumes it from the newest checkpoint at its first run (the
+executor's `_elastic_resume` / `_elastic_tick`). The parameter-server,
+auto-parallel, DGC and LocalSGD paths and the elastic restart itself
+(`live_resize`, the elastic warmup) are not ported (ROADMAP Queue 1 #10)
+and raise.
 """
 from __future__ import annotations
 
@@ -285,13 +290,27 @@ class _Fleet:
         util._util._set_strategy(self._strategy)
         return CollectiveOptimizer(optimizer, self._strategy)
 
+    # -- checkpoints (reference: fleet/collective/__init__.py:236,294) ------
+    def save_inference_model(self, executor, dirname, feeded_var_names,
+                             target_vars, main_program=None,
+                             export_for_deployment=True):
+        """`fluid.io.save_inference_model` (every rank calls it, rank 0
+        writes)."""
+        from ..fluid import io
+
+        return io.save_inference_model(dirname, feeded_var_names,
+                                       target_vars, executor, main_program,
+                                       export_for_deployment=
+                                       export_for_deployment)
+
+    def save_persistables(self, executor, dirname, main_program=None):
+        """`fluid.io.save_persistables`: every persistable at its logical
+        shape (every rank calls it, rank 0 writes)."""
+        from ..fluid import io
+
+        return io.save_persistables(executor, dirname, main_program)
+
     # -- not ported --------------------------------------------------------
-    def save_inference_model(self, *a, **k):
-        _not_ported("fleet.save_inference_model (fluid io)", "#8a")
-
-    def save_persistables(self, *a, **k):
-        _not_ported("fleet.save_persistables (fluid io)", "#8a")
-
     def init_worker(self, *a, **k):
         _not_ported("fleet.init_worker (parameter servers)", "#10")
 
@@ -313,7 +332,7 @@ is_first_worker = fleet.is_first_worker
 
 #: strategy knobs whose path is not ported, -> the ROADMAP item
 _UNPORTED_KNOBS = (("a_sync", "#10"), ("auto", "#10"), ("dgc", "#10"),
-                   ("localsgd", "#10"), ("elastic", "#10"))
+                   ("localsgd", "#10"))
 
 
 class CollectiveOptimizer:
@@ -360,6 +379,11 @@ class CollectiveOptimizer:
         transpile_collective(loss.block.program,
                              sync_batch_norm=getattr(st, "sync_batch_norm",
                                                      False))
+        if getattr(st, "elastic", False):
+            # a checkpoint every save_steps and auto-resume
+            # (fluid/checkpoint.py, read by the executor)
+            loss.block.program._elastic_cfg = dict(
+                getattr(st, "elastic_configs", {}) or {})
         return optimize_ops, params_grads
 
 

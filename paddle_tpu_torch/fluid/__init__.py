@@ -8,8 +8,10 @@ control flow `While`, `while_loop`, `cond`, `switch_case` and `case`,
 the learning-rate schedules and `rnn_decode`), `append_backward`, the
 eager `Executor` (with `CompiledProgram.with_data_parallel`), the SGD,
 Momentum and Adam optimizers, weight decay (`regularizer`),
-`fuse_optimizer_ops`, and bf16 mixed precision
-(`contrib.mixed_precision`). What is not ported yet is absent.
+`fuse_optimizer_ops`, bf16 mixed precision (`contrib.mixed_precision`),
+saving and loading (`io`, in the reference's formats), numbered
+checkpoints (`checkpoint`) and `Executor.train_from_dataset`. What is
+not ported yet is absent.
 """
 from . import framework  # noqa: F401
 from .framework import (  # noqa: F401
@@ -34,6 +36,12 @@ from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 from .initializer import (  # noqa: F401
     Constant, Uniform, Normal, TruncatedNormal, Xavier, MSRA,
 )
+from . import io  # noqa: F401
+from .io import (  # noqa: F401
+    save_persistables, load_persistables, save_params, load_params,
+    save_inference_model, load_inference_model,
+)
+from . import checkpoint  # noqa: F401
 from ..utils.flags import get_flags, set_flags  # noqa: F401
 
 

@@ -1,6 +1,7 @@
 """Executor: feed -> compiled block -> fetch (counterpart:
-`paddle_tpu/fluid/executor.py`, its core and `warmup`: no profiler
-phases, observability, elastic, parameter-server or report surfaces).
+`paddle_tpu/fluid/executor.py`, its core, `warmup`, `train_from_dataset`
+and the checkpoint half of `strategy.elastic`: no profiler phases,
+observability, elastic restart, parameter-server or report surfaces).
 
 `run` compiles the block once per (program version, feed shapes and
 dtypes, fetch names, scope) with `lowering.compile_block` and keeps the
@@ -40,6 +41,11 @@ dcn-major (rank order), gradient sums run within the pod and then
 across pods, and the sharded state is laid out within the pod.
 `overlap_report` says which gradient collectives of the last run began
 while the backward was still producing gradients.
+
+A program that fleet marked elastic (``strategy.elastic``,
+``program._elastic_cfg``) loads the newest checkpoint under its
+``checkpoint_dir`` before its first step and saves one in the background
+every ``save_steps`` steps (`fluid/checkpoint.py`).
 
 With the sharded weight update (ZeRO-1, `parallel/sharded_update.py`,
 on by default) the scope holds this rank's flat 1/N slice (N the shard
@@ -108,6 +114,11 @@ class Executor:
                   use_program_cache):
         program = self._program(program)
         scope = scope or global_scope()
+        # strategy.elastic: resume from the newest checkpoint before the
+        # program's first step
+        ecfg = getattr(program, "_elastic_cfg", None)
+        if ecfg is not None and not ecfg.get("_resumed"):
+            self._elastic_resume(program, ecfg, scope)
         fetch_names = self._fetch_names(fetch_list)
         ring = self._dp_ring(program)
         feed = feed or {}
@@ -126,6 +137,8 @@ class Executor:
         fetches, new_states = entry.run(feeds, states, seed % (2**31))
         for n, v in new_states.items():
             scope.set_var(n, v)
+        if ecfg is not None:
+            self._elastic_tick(program, ecfg, scope)
         if get_flag("FLAGS_check_nan_inf"):
             self._check_nan_inf(fetch_names, fetches, new_states)
         if ring is not None:
@@ -305,16 +318,10 @@ class Executor:
         plan, ``program._shard_plan``) is gathered over the world's ring
         and unsharded, so every rank must call this alike; any other var
         is the scope's tensor as it is."""
-        program = self._program(program)
-        scope = scope or global_scope()
-        v = scope.find_var(name)
+        v = (scope or global_scope()).find_var(name)
         if v is None:
             raise KeyError("var %r is not in the scope" % name)
-        plan = getattr(program, "_shard_plan", None)
-        info = plan.sharded_state.get(name) if plan is not None else None
-        if info is None or tuple(v.shape) == info.shape:
-            return v
-        return _su.gather_logical(v, info, plan)
+        return _su.logical_value(self._program(program), name, v)
 
     def feed_sharding(self, program=None):
         """The rows of a global batch this process's run of `program`
@@ -329,6 +336,75 @@ class Executor:
         return prefetcher.RowShard(
             ring.rank, ring.size,
             spec=(("dcn", "ici"),) if ring.dcn is not None else ("dp",))
+
+    # -- dataset training (reference: executor.py:1454) --------------------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, checkpoint_dir=None,
+                           checkpoint_every_n_steps=0, checkpoint_num=3):
+        """`fluid/trainer.py train_from_dataset` with this executor
+        (`thread`, `debug`, `fetch_info` and `fetch_handler` are the
+        reference's and unread: one prepared step runs a batch)."""
+        from .trainer import train_from_dataset as _tfd
+
+        return _tfd(self, program, dataset, scope, fetch_list, print_period,
+                    checkpoint_dir=checkpoint_dir,
+                    checkpoint_every_n_steps=checkpoint_every_n_steps,
+                    checkpoint_num=checkpoint_num)
+
+    def infer_from_dataset(self, *args, **kwargs):
+        return self.train_from_dataset(*args, **kwargs)
+
+    # -- strategy.elastic: the checkpoint half (reference: executor.py
+    # _elastic_resume, _elastic_tick); the elastic restart itself
+    # (live_resize, the elastic warmup) is ROADMAP Queue 1 #10 -------------
+    def _elastic_resume(self, program, ecfg, scope):
+        """Load the newest checkpoint under the config's
+        ``checkpoint_dir`` (if any) and count the steps on from it; marked
+        resumed only once the load succeeded or found nothing."""
+        from . import checkpoint as ckpt
+
+        root = ecfg.get("checkpoint_dir") or "elastic_checkpoints"
+        status = ckpt.load_checkpoint(self, root, main_program=program,
+                                      scope=scope)
+        ecfg["_resumed"] = True
+        if status is not None:
+            ecfg["_step"] = status.step_no + 1
+            ckpt._log.info("elastic: resumed at step %d from %r",
+                           status.step_no, root)
+        else:
+            ecfg.setdefault("_step", 0)
+
+    def live_resize(self, program, mesh=None, ndev=None, scope=None):
+        """Not ported: moving a running program to another world comes
+        with the elastic launch (ROADMAP Queue 1 #10)."""
+        raise NotImplementedError(
+            "live_resize is not ported: it comes with the elastic launch "
+            "(ROADMAP Queue 1 #10)")
+
+    def _elastic_tick(self, program, ecfg, scope):
+        """After each step: every ``save_steps`` steps an asynchronous
+        checkpoint of the state (its writer flushed at exit)."""
+        from . import checkpoint as ckpt
+
+        step = ecfg.get("_step", 0)
+        ecfg["_step"] = step + 1
+        every = int(ecfg.get("save_steps", 100) or 100)
+        if (step + 1) % every:
+            return
+        cp = ecfg.get("_ckpt")
+        if cp is None:
+            import atexit
+
+            root = ecfg.get("checkpoint_dir") or "elastic_checkpoints"
+            cp = ckpt.AsyncCheckpointer(
+                root, main_program=program,
+                checkpoint_num=int(ecfg.get("max_checkpoints", 3) or 3),
+                scope=scope)
+            ecfg["_ckpt"] = cp
+            atexit.register(cp.close)
+        cp.save_async(ckpt.TrainStatus(epoch_no=0, step_no=step))
 
     def close(self):
         """Release every entry's graph and static buffers."""
@@ -452,6 +528,12 @@ class Executor:
         if entry is not None:
             self._cache.move_to_end(key)
             return entry
+        if int(get_flag("FLAGS_tpu_warmup_elastic_variants", 0) or 0) > 0:
+            raise NotImplementedError(
+                "FLAGS_tpu_warmup_elastic_variants is not ported: it "
+                "compiles ahead for the worlds of an elastic restart, which "
+                "come with live_resize and the elastic launch (ROADMAP "
+                "Queue 1 #10)")
         entry = lowering.compile_block(
             program, program.global_block(), list(feeds), fetch_names,
             self.device, graph_runner=self._graph_runner, ring=ring)

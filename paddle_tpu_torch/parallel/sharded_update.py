@@ -1099,6 +1099,18 @@ def gather_logical(value, info: ShardInfo, plan):
     return info.unshard(_all_gather(value.reshape(-1), plan))
 
 
+def logical_value(program, name, value):
+    """`value` of `name` at its logical shape: a flat slice that
+    `program`'s last plan keeps sharded is gathered over the plan's ring
+    (a collective: every rank calls this alike); any other value as it
+    is."""
+    plan = getattr(program, "_shard_plan", None)
+    info = plan.sharded_state.get(name) if plan is not None else None
+    if info is None or tuple(value.shape) == info.shape:
+        return value
+    return gather_logical(value, info, plan)
+
+
 def unshard_scope_value(program, name, value):
     """If `name` is sharded state of `program`, `value` (the whole flat
     buffer, every rank's slice in rank order) at its logical shape;

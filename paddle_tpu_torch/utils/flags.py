@@ -47,6 +47,10 @@ _FLAGS: Dict[str, object] = {
     # --num_pods), else the world is flat; a count that does not divide
     # the world warns and runs flat
     "FLAGS_tpu_dcn_replicas": 0,
+    # the reference compiles this many elastic world sizes ahead after a
+    # block's first step; the elastic restart is not ported (ROADMAP
+    # Queue 1 #10): > 0 raises at a block's first compile
+    "FLAGS_tpu_warmup_elastic_variants": 0,
     # reader.prefetch_to_device: batches in flight ahead of the consumer
     "FLAGS_tpu_prefetch_depth": 2,
     # scaled_dot_product_attention takes the flash kernels on the card at

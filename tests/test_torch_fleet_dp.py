@@ -316,6 +316,16 @@ def test_unported_strategy_knobs_raise(knob):
     setattr(st, knob, True)
     if knob == "recompute":
         st.recompute_configs = {"checkpoints": ["x"]}
+    if knob == "elastic":
+        # its checkpoint half is ported: the program is marked, and the
+        # elastic restart it leads to (live_resize) still raises
+        main = runner.build_mlp(tfluid, 1, lambda loss:
+                                tfleet.distributed_optimizer(
+                                    _sgd(tfluid, 0.1)(), st).minimize(loss))[0]
+        assert main._elastic_cfg["save_steps"] == 100
+        with pytest.raises(NotImplementedError, match="Queue 1 #"):
+            tfluid.Executor(tfluid.CPUPlace()).live_resize(main)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 #"):
         runner.build_mlp(tfluid, 1, lambda loss: tfleet.distributed_optimizer(
             _sgd(tfluid, 0.1)(), st).minimize(loss))

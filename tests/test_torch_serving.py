@@ -338,8 +338,10 @@ def test_port_imports_no_jax():
     it then decodes with beam search, launches a 2-rank gloo
     data-parallel MLP step (the sharded Adam update, fed by the device
     prefetcher) and a 2-stage pipeline step of the trainer on a mesh of
-    those ranks, which import neither, and has imported neither jax nor
-    anything of paddle_tpu."""
+    those ranks, which import neither, saves and loads the BERT scope
+    (bf16 params) through `fluid.io` and `fluid.checkpoint` and a tree
+    through `ShardedCheckpointManager`, and has imported neither jax,
+    ml_dtypes, orbax nor anything of paddle_tpu."""
     code = (
         "import math, sys\n"
         "from paddle_tpu_torch import serving\n"
@@ -386,6 +388,21 @@ def test_port_imports_no_jax():
         "    fluid.fuse_optimizer_ops(fluid.default_main_program())\n"
         "    exe.run(fluid.default_startup_program())\n"
         "    b = exe.run(feed=bert.bert_feed(c, 2, 16), fetch_list=[t])\n"
+        "    import tempfile\n"
+        "    from paddle_tpu_torch.fluid import checkpoint as fck, io as fio\n"
+        "    td = tempfile.mkdtemp()\n"
+        "    bm = fluid.default_main_program()\n"
+        "    fio.save(bm, td + '/b')\n"
+        "    fio.save_persistables(exe, td + '/p', bm)\n"
+        "    fio.load(bm, td + '/b', exe)\n"
+        "    fio.load_persistables(exe, td + '/p', bm)\n"
+        "    fck.save_checkpoint(exe, td + '/c', fck.TrainStatus(0, 1), bm)\n"
+        "    assert fck.load_checkpoint(exe, td + '/c', bm).step_no == 1\n"
+        "    from paddle_tpu_torch.distributed import "
+        "ShardedCheckpointManager\n"
+        "    mg = ShardedCheckpointManager(td + '/s')\n"
+        "    mg.save(0, {'w': p['embed']})\n"
+        "    assert mg.restore()['w'].shape == p['embed'].shape\n"
         "assert math.isfinite(float(b[0][0])), b\n"
     "from paddle_tpu_torch.models import resnet\n"
     "with fluid.program_guard(fluid.Program(), fluid.Program()):\n"
@@ -446,7 +463,8 @@ def test_port_imports_no_jax():
         "      '*tt.demo_batch(c, 2), 0)[2]\\n'\n"
         "      'assert np.isfinite(float(ml)), ml\\n'\n"
         "      'bad = [m for m in sys.modules if m.split(\".\")[0] in '\n"
-        "      '(\"jax\", \"jaxlib\", \"paddle_tpu\")]\\n'\n"
+        "      '(\"jax\", \"jaxlib\", \"paddle_tpu\", \"ml_dtypes\", '\n"
+        "      '\"orbax\")]\\n'\n"
         "      'assert not bad, bad\\n'\n"
         "      'print(\"DP-CLEAN\", fleet.worker_index())\\n')\n"
         "with tempfile.NamedTemporaryFile('w', suffix='.py',\n"
@@ -459,7 +477,8 @@ def test_port_imports_no_jax():
         "assert rr.returncode == 0 and rr.stdout.count('DP-CLEAN') == 2, (\n"
         "    rr.stdout + rr.stderr)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu',\n"
+        "                                    'ml_dtypes', 'orbax'))\n"
         "assert not bad, bad\n"
         "print('CLEAN')\n")
     env = dict(os.environ, PYTHONPATH=_REPO)

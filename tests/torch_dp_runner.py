@@ -16,6 +16,11 @@ import sys
 
 import numpy as np
 
+try:  # bfloat16 values come back as numpy arrays (`core.types.to_numpy`)
+    import ml_dtypes  # noqa: F401
+except ImportError:  # the GPU machine: no bfloat16 arrays asked for there
+    pass
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 

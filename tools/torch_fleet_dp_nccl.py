@@ -41,7 +41,26 @@ for jobs that repeat bit for bit (cuDNN's timed algorithm choice
 otherwise differs between runs). Rank 0 reports its progress on stderr;
 `--timeout` bounds each spawn (a rank that outlives it fails the run).
 `--cpu` runs the same path over gloo on the CPU at 32 x 32, 10 classes,
-2 images a rank (eagerly), to rehearse it without cards. Exits non-zero
+2 images a rank (eagerly), to rehearse it without cards.
+
+    python3 tools/torch_fleet_dp_nccl.py --checkpoint [--steps 3]
+    python3 tools/torch_fleet_dp_nccl.py --checkpoint --cpu --nprocs 4
+
+runs the checkpoint mode instead, with ``FLAGS_cudnn_deterministic`` on
+and the sharded update: a flat job (captured) takes `--steps` steps,
+`fluid.checkpoint.save_checkpoint` (every rank, rank 0 writes), and
+`--steps` more (the uninterrupted losses); a fresh executor and scope
+of the same world load the checkpoint and take the same steps (must be
+bit-equal); then a job on 2 pods (``FLAGS_tpu_dcn_replicas`` 2) loads
+the flat job's checkpoint and takes them too. Its first step's exchanged
+gradients, read from the Momentum velocities (after the step, less 0.9
+times the loaded ones), must lie within one bf16 unit (2^-8) of the flat
+resume's, relative in norm, the bound `chip_smoke.py` phase 15 holds a
+hybrid step to: the pods-first bf16 sums round twice where the flat sum
+rounds once, and ResNet50 amplifies that in the later losses, which are
+reported beside `HYBRID_GAP`. Prints one JSON line with the losses, the
+checkpoint's MB, the save, load and step ms, then the cards' names and
+power limits. Exits non-zero
 if a rank fails, a loss is not finite, the replicas differ, or the
 captured losses or state differ from the eager ones where the two eager
 runs agree (else by more than twice their difference, the rule of
@@ -64,6 +83,12 @@ import chip_smoke as cs  # noqa: E402
 
 CPU = dict(img=32, classes=10)
 MODES = ("dp", "dp_eager", "dp_eager2", "dp_off", "dp_eager_off", "single")
+#: the checkpoint mode's report of the hybrid resume against the flat
+#: one: the gap in the losses between the hybrid and the flat jobs that
+#: `--dcn 2` measured on four cards from one start state
+HYBRID_GAP = 3.7e-3
+#: Momentum's coefficient in `chip_smoke.build_fluid_resnet`
+MOMENTUM = 0.9
 
 
 def worker(out_dir, cfg, mode):
@@ -71,13 +96,10 @@ def worker(out_dir, cfg, mode):
     "dp_eager2" (fleet, FLAGS_cuda_graphs off), "dp_off" and
     "dp_eager_off" (the same without the sharded update) or "single"
     (no fleet, captured)."""
-    import hashlib
-
     import numpy as np
     import torch
 
     from paddle_tpu_torch import distributed, fleet, fluid
-    from paddle_tpu_torch.core.types import to_numpy
     from paddle_tpu_torch.ops import collective_ops
 
     fleet_on = mode != "single"
@@ -152,13 +174,158 @@ def worker(out_dir, cfg, mode):
         "overlap": overlap,
         "c_allreduce_sum_ops": [op.type for op in main.global_block().ops]
         .count("c_allreduce_sum"),
-        "digest": {n: hashlib.sha256(to_numpy(v).tobytes()).hexdigest()
-                   for n, v in state.items()}})
+        "digest": {n: cs.digest(v) for n, v in state.items()}})
+
+
+def ckpt_worker(out_dir, cfg, job):
+    """One rank of the checkpoint mode: "flat" (steps, save, steps, then
+    a fresh executor and scope loaded from the checkpoint, the same
+    steps) or "hybrid" (2 pods: the flat job's checkpoint loaded, the
+    same steps)."""
+    import torch
+
+    from paddle_tpu_torch import distributed, fleet, fluid
+    from paddle_tpu_torch.fluid import checkpoint
+
+    if cfg["cpu"]:
+        torch.set_num_threads(2)
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True,
+                     "FLAGS_tpu_sharded_weight_update": True})
+    if job == "hybrid":
+        fluid.set_flags({"FLAGS_tpu_dcn_replicas": 2})
+    rank = distributed.get_rank()
+    n = distributed.get_world_size()
+    main, startup, loss = cs.build_fluid_resnet(
+        fluid, cfg["img"], cfg["classes"], 0.1, not cfg["cpu"],
+        strategy=fleet.DistributedStrategy())
+    feed = cs.resnet_feed(cfg["batch"] * n, cfg["img"], cfg["classes"])
+    root = os.path.join(out_dir, "ckpt")
+
+    def executor():
+        return fluid.Executor(fluid.CPUPlace() if cfg["cpu"] else None)
+
+    def sync():
+        if not cfg["cpu"]:
+            torch.cuda.synchronize()
+
+    def steps(exe, scope, k=cfg["steps"]):
+        out, ms = [], []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            out.append(exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=scope)[0].ravel().tolist())
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    res = {}
+    if job == "flat":
+        exe, scope = executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        res["first"], _ = steps(exe, scope)
+        _, res["save_ms"] = timed(lambda: checkpoint.save_checkpoint(
+            exe, root, checkpoint.TrainStatus(0, cfg["steps"]), main,
+            scope=scope))
+        res["losses"], res["step_ms"] = steps(exe, scope)
+        res["phase"] = exe.last_entry.phase
+        res["opt_state"] = {k: v for k, v in exe.last_entry.info().items()
+                            if k.startswith("opt_state")}
+        exe.close()
+        del exe, scope
+    exe, scope = executor(), fluid.Scope()
+    st, res["load_ms"] = timed(lambda: checkpoint.load_checkpoint(
+        exe, root, main, scope=scope))
+    res["status_step"] = st.step_no
+    velocities = [n for n in sorted(v.name for v in main.list_vars()
+                                    if v.persistable) if "velocity" in n]
+    v0 = torch.cat([scope.find_var(n).reshape(-1).float()
+                    for n in velocities])
+    first, first_ms = steps(exe, scope, 1)
+    # the first step's exchanged gradients (every rank gathers alike)
+    grads = torch.cat([exe.read_logical(n, main, scope).reshape(-1).float()
+                       for n in velocities]) - MOMENTUM * v0
+    if rank == 0:
+        torch.save(grads.cpu(), os.path.join(out_dir, job + ".grads.pt"))
+    del v0, grads
+    rest, rest_ms = steps(exe, scope, cfg["steps"] - 1)
+    res["resumed"], res["resumed_step_ms"] = first + rest, first_ms + rest_ms
+    res["resumed_phase"] = exe.last_entry.phase
+    mesh = getattr(main, "_mesh", None)
+    res["pods"] = list(mesh.shape.values()) if mesh else None
+    res["mb"] = cs.ckpt_dir_mb(root)
+    cs.fleet_dump(os.path.join(out_dir, "%s%d.json" % (job, rank)), res)
+
+
+def checkpoint_mode(args, cfg, n, backend):
+    import torch
+
+    from paddle_tpu_torch import distributed
+
+    out_dir = tempfile.mkdtemp(prefix="fleet_ckpt_")
+    for job in ("flat", "hybrid"):
+        distributed.spawn(ckpt_worker, (out_dir, cfg, job), nprocs=n,
+                          backend=backend, timeout=args.timeout)
+
+    def read(name):
+        with open(os.path.join(out_dir, name)) as f:
+            return json.load(f)
+
+    flat = [read("flat%d.json" % r) for r in range(n)]
+    hybrid = [read("hybrid%d.json" % r) for r in range(n)]
+    f0, h0 = flat[0], hybrid[0]
+    gap = max(abs(x - y) for a, b in zip(h0["resumed"], f0["losses"])
+              for x, y in zip(a, b))
+    g_flat = torch.load(os.path.join(out_dir, "flat.grads.pt")).double()
+    g_hybrid = torch.load(os.path.join(out_dir, "hybrid.grads.pt")).double()
+    grad_rel = float((g_hybrid - g_flat).norm() / g_flat.norm())
+    res = {"tool": "torch_fleet_dp_nccl", "mode": "checkpoint", "ranks": n,
+           "backend": backend, "per_rank_batch": cfg["batch"],
+           "img": cfg["img"], "steps": cfg["steps"],
+           "devices": [str(torch.cuda.get_device_name(0))]
+           if not args.cpu else ["cpu"],
+           "first_losses": f0["first"], "losses": f0["losses"],
+           "resumed_losses": f0["resumed"],
+           "resumed_bit_equal": all(r["losses"] == r["resumed"]
+                                    for r in flat),
+           "hybrid_losses": h0["resumed"], "hybrid_pods": h0["pods"],
+           "hybrid_max_loss_diff": gap, "hybrid_gap_pr14": HYBRID_GAP,
+           "hybrid_within_pr14_gap": gap <= HYBRID_GAP,
+           "hybrid_first_step_grad_rel_norm": grad_rel,
+           "hybrid_grad_bound": cs.HYBRID_A_GRAD_RTOL,
+           "phase": f0["phase"], "resumed_phase": f0["resumed_phase"],
+           "hybrid_phase": h0["resumed_phase"],
+           "opt_state": f0["opt_state"], "mb": f0["mb"],
+           "save_ms": [r["save_ms"] for r in flat],
+           "load_ms": [r["load_ms"] for r in flat],
+           "hybrid_load_ms": [r["load_ms"] for r in hybrid],
+           "step_ms": [r["step_ms"] for r in flat],
+           "resumed_step_ms": [r["resumed_step_ms"] for r in flat],
+           "status_step": [r["status_step"] for r in flat + hybrid]}
+    print(json.dumps(res), flush=True)
+    if not args.cpu:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
+    ok = res["resumed_bit_equal"] and grad_rel <= cs.HYBRID_A_GRAD_RTOL \
+        and all(
+        math.isfinite(v) for s in f0["losses"] for v in s) \
+        and all(s == cfg["steps"] for s in res["status_step"])
+    return 0 if ok else 1
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="timed steps (default 5); the checkpoint mode's "
+                         "steps before and after the save (default 3)")
     ap.add_argument("--batch", type=int, default=None,
                     help="images a rank (default 128; 2 with --cpu)")
     ap.add_argument("--cpu", action="store_true")
@@ -170,6 +337,8 @@ def main():
                     help="pods of the fleet jobs' world (1: flat)")
     ap.add_argument("--modes", default=",".join(MODES),
                     help="the jobs to run, of %s" % ", ".join(MODES))
+    ap.add_argument("--checkpoint", action="store_true",
+                    help="the checkpoint mode (see the module docstring)")
     args = ap.parse_args()
     import torch
 
@@ -181,10 +350,13 @@ def main():
         return 1
     n = args.nprocs or (1 if args.cpu else torch.cuda.device_count())
     cfg = dict(cs.FLEET_A, batch=args.batch or (2 if args.cpu else 128),
-               steps=args.steps, cpu=args.cpu, dcn=args.dcn)
+               steps=args.steps or (3 if args.checkpoint else 5),
+               cpu=args.cpu, dcn=args.dcn)
     if args.cpu:
         cfg.update(CPU)
     backend = "gloo" if args.cpu else "nccl"
+    if args.checkpoint:
+        return checkpoint_mode(args, cfg, n, backend)
     out_dir = tempfile.mkdtemp(prefix="fleet_nccl_")
     modes = args.modes.split(",")
     for mode in MODES:
