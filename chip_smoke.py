@@ -38,11 +38,13 @@ Phases, each printing one JSON line:
    (d) fp32 with a key bias and dropout 0.1 at a fixed seed, (e) bf16 at
    the trainer's widths with a key bias and dropout 0.1, (f) the fluid
    BERT path's long leg (B 2, H 12, S 4096, D 64, bf16, key bias,
-   dropout 0.1, q, k, v as views of one [B, S, 3H] projection). Tolerances: fp32
-   forward 2e-5 and gradients 3e-4, bf16 2e-2. Each kernel's time beside
-   its plain version's, the least time the card could take, its rate on
-   the attending pairs (TFLOP/s), its design (bf16 on tensor cores,
-   "wgmma bf16"; fp32 "simt"), and `scaled_dot_product_attention`'s
+   dropout 0.1, q, k, v as views of one [B, S, 3H] projection), (g) the
+   same in float16 (phase 17 leg b's), then the mesh trainer's shapes.
+   Tolerances: fp32 forward 2e-5 and gradients 3e-4, bf16 2e-2, float16
+   5e-3. Each kernel's time beside its plain version's, the least time
+   the card could take, its rate on the attending pairs (TFLOP/s), its
+   design (bf16 and fp16 on tensor cores, "wgmma bf16" and "wgmma f16";
+   fp32 "simt"), and `scaled_dot_product_attention`'s
    forward and backward as a yardstick; then the dropout kernel against
    its plain version at fluid BERT leg a's shapes (the hidden dropout,
    bf16 [256, 128, 768], and the attention probabilities, fp32 [256, 12,
@@ -158,7 +160,7 @@ Phases, each printing one JSON line:
    256, with the sharded weight update (the default: ZeRO-1, fleet's
    gradient all-reduces lowered to bucketed reduce-scatters, the
    Momentum velocities and AMP masters held as 1/N slices, the params
-   all-gathered): 2 warm-up and 3 timed steps, eager (gloo collectives
+   all-gathered): 2 warm-up and 2 timed steps, eager (gloo collectives
    run on the host, so the block is not captured, and the leg checks
    that it says so); every gathered loss finite, every parameter and
    optimizer state (read at its logical shape) bit-equal across the
@@ -170,43 +172,48 @@ Phases, each printing one JSON line:
    gloo on the card and 2 on the CPU from one startup state, once
    without and once with `sync_batch_norm`: 3 steps' gathered losses and
    rank 0's running statistics within 1e-3 relative, replicas
-   bit-equal. Leg c: an NCCL world of one rank; a data-parallel program
+   bit-equal (the four spawns of the two runs and leg c's run together:
+   these legs check numbers, not times). Leg c: an NCCL world of one
+   rank; a data-parallel program
    of every single-input collective op runs eagerly, then captured and
    replayed (bit-equal to the eager run, which equals the ops' identity
    outside a world); then the MNIST MLP trains 8 steps through
    `with_data_parallel`, captured, with losses bit-equal to the plain
-   program's;
+   program's, and again under float16 AMP O2 with dynamic loss scaling
+   (the found-inf count's all-reduce in the eager step, then captured);
 13. spmd_mesh — the SPMD trainer (`parallel.transformer` with a
    `parallel.env.Mesh`) over ranks that share the card over gloo
    (`distributed.spawn`; NCCL needs a card a rank), each leg on a line of
    its own (`spmd_mesh_leg`), the phase a closing one. Leg a: the
    default `SPMDConfig` (phase 6's widths, bf16, remat, random weights
-   from seed 0), Megatron sequence parallelism on dp1 pp2 tp2 (4 ranks),
+   from seed 0) cut to 2 of its 12 layers (`SPMD_LAYERS`), Megatron
+   sequence parallelism on dp1 pp2 tp2 (4 ranks),
    4 microbatches of the global batch of 8 (GPipe), 1 warm-up and 1
    timed step: the loss finite and the same on every rank; the flash
    launches a rank, zeroed just before the timed steps, exactly
-   2 x 6 layers x 4 microbatches forward (remat) and 6 x 4 each of dK/dV
+   2 x 1 layer x 4 microbatches forward (remat) and 1 x 4 each of dK/dV
    and dQ a step, all on tensor cores at [8, 6, 512, 64]; per-rank median
    step ms, tokens/s, the host ms a step spent in collectives (gloo
    stages through the host), peak memory per rank, beside phase 6's
    single-process figures. Leg b: Ulysses on dp1 pp1 tp2 (2 ranks),
-   the same widths and checks (12 layers a rank, flash at [8, 6, 512,
+   the same widths and checks (2 layers a rank, flash at [8, 6, 512,
    64] after the all-to-all). Leg c: the CPU tests' widths (vocab 64,
    d_model 32, 4 heads, d_ff 64, seq 16, 4 layers, 4 microbatches, fp32)
    with the kernels on, on dp1 pp2 tp2 (Megatron) and dp2 pp1 tp2
-   (Ulysses), from the params of one process on the card: 3 steps'
-   losses within 2e-4 and the step-0 gradients, gathered, within 5e-4
+   (Ulysses; the two meshes' ranks run together), from the params of one
+   process on the card: 3 steps' losses within 2e-4 and the step-0 gradients, gathered, within 5e-4
    of that process's, with the kernels and with `attn_impl="reference"`
    alike; a rank that fails fails the phase;
 14. zero — the sharded weight update (ZeRO-1) against the replicated
    one, on 2 gloo ranks sharing the card (`distributed.spawn`), each
-   rank running both from the same start state for 1 warm-up and 2
-   timed steps, each leg on a line of its own (`zero_leg`), the phase a
+   rank running both from the same start state for 1 warm-up and 1
+   timed step, each leg on a line of its own (`zero_leg`), the phase a
    closing one. Leg a:
    BASELINE config 5 (phase 12 leg a's fleet ResNet50, 128 a rank):
    losses and every persistable at its logical shape bit-equal on
-   against off. Leg b: fluid BERT-base pretraining at S 4096 x 2 (1 a
-   rank; phase 8 leg b's program: bf16 AMP O2, fused Adam, scan remat,
+   against off. Leg b: fluid BERT-base pretraining at S 4096 x 2, cut to
+   2 of its 12 layers (1 a rank; phase 8 leg b's program: bf16 AMP O2,
+   fused Adam, scan remat,
    the flash kernels with the key bias and dropout) through
    `with_data_parallel`: the fp32 masters and the moments sharded, the
    flash and dropout kernels' launch counts (zeroed just before the
@@ -222,7 +229,7 @@ Phases, each printing one JSON line:
    within the pod, then across pods; the sharded state laid out within
    the pod; each bucket's exchange launched from the backward) with
    ``FLAGS_cudnn_deterministic`` on, each rank running every variant from
-   one start state for 1 warm-up and 2 timed steps, each leg on a line
+   one start state for 1 warm-up and 1 timed step, each leg on a line
    of its own (`hybrid_leg`), the phase a closing one. Leg a: BASELINE
    config 5 (phase 12 leg a's fleet ResNet50) at 32 a rank (cut from 128
    so that four ranks fit on the one card): the hybrid sharded update
@@ -236,7 +243,8 @@ Phases, each printing one JSON line:
    about half the logical optimizer state, and
    `Executor.overlap_report` showing bucket 0 launched with backward
    left to run. Leg b: fluid BERT-base pretraining at S 4096 x
-   1 a rank (phase 14 leg b's program) on the hybrid sharded update
+   1 a rank (phase 14 leg b's program, 2 layers) on the hybrid sharded
+   update
    against the flat one: losses and state within 1e-2 (each kind of
    state, masters, first and second moments and the rest, relative in
    norm as one vector), the flash and dropout kernels' launch counts
@@ -273,13 +281,45 @@ Phases, each printing one JSON line:
    the tp2 params gathered at the save. Each leg reports the MB written
    and the save, load (and `save_async`) ms beside the card's name and
    power limit;
-17. kernels — one line listing every ported kernel with its launches on
+17. fluid_bert_fp16_lamb — BERT pretraining as Paddle trains it on a
+   GPU: phase 8's BERT-base (vocab 30522, hidden 768, 12 layers, 12
+   heads, FFN 3072, the startup's random_seed 1, bench.py's masked-LM
+   feed) through `bert_pretrain_loss` -> `LambOptimizer(1e-4,
+   lamb_weight_decay=0.01, exclude_from_weight_decay_fn=` the reference's
+   exclusions`, grad_clip=GradientClipByGlobalNorm(1.0))` ->
+   `mixed_precision.decorate(amp_dtype="float16", amp_level="O2",
+   init_loss_scaling=2^15, use_dynamic_loss_scaling=True)` -> `minimize`
+   -> `fuse_optimizer_ops` -> `Executor.run`, captured. Legs a (S 128 x
+   256, composite attention) and b (S 4096 x 2, scan remat, the three
+   flash kernels in float16 with the key bias and dropout 0.1): phase
+   8's checks and figures, the loss scale, its good and bad counts and
+   the skipped steps; leg b's launches, zeroed just before the timed
+   steps, exactly 2L forward, L dK/dV and L dQ a step, every one a
+   float16 launch on tensor cores ("wgmma f16"), and no float16 CUDA
+   tensor reaching the plain attention (its functions watched through
+   the whole leg); leg a 1 + 3L dropouts a step. Leg c: the S 4096
+   program at 2 layers, captured, `decr_every_n_nan_or_inf` 1 and
+   `incr_every_n_steps` 2: after two clean steps the scale is set to
+   2^40 and one replayed step must leave every param, master and moment
+   bit-equal, multiply the scale by `decr_ratio` and fetch a global norm
+   of 0; then from a scale of 1 two clean replays double it; the same
+   steps run eagerly from the same start are bit-equal (losses and every
+   persistable). Leg d: that program, one step with the kernels and one
+   with their plain version from the same params: loss within 1e-2 and
+   every unscaled gradient within 2e-2 relative in norm. Leg e: the card
+   against the CPU in fp32 with AMP off, LAMB with the clip at
+   BertConfig.tiny's widths (2 layers, hidden 64), S 32, batch 4,
+   dropout 0, 3 steps: losses and the fetched global norm within 1e-4
+   relative. Each leg prints its own line (`fluid_bert_fp16_lamb_leg`);
+18. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, their launches and times on the fluid BERT path and their
-   launches a rank on the mesh trainer; the dropout kernel with its
-   launches on fluid BERT leg a); launches made by graph replays count;
-18. the last line, ``{"ok": true, "device": {...}}``, printed only when
+   launches a rank on the mesh trainer; the float16 flash kernels with
+   their launches on phase 17 leg b and their times at phase 5 case g;
+   the dropout kernel with its launches on fluid BERT leg a); launches
+   made by graph replays count;
+19. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -320,7 +360,8 @@ FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py"
 DROPOUT_SOURCE = "paddle_tpu_torch/csrc/dropout.cu"
 DROPOUT_REF = "paddle_tpu/ops/nn_ops.py:421"
 #: dtype -> (forward tol, gradient tol), atol = rtol
-FLASH_TOL = {"float32": (2e-5, 3e-4), "bfloat16": (2e-2, 2e-2)}
+FLASH_TOL = {"float32": (2e-5, 3e-4), "bfloat16": (2e-2, 2e-2),
+             "float16": (5e-3, 5e-3)}
 FLASH_CASES = [
     dict(name="trainer_bf16_causal", B=8, H=12, S=512, D=64,
          dtype="bfloat16", causal=True, bias=False, p=0.0, qkv_views=True),
@@ -333,6 +374,9 @@ FLASH_CASES = [
     dict(name="bias_dropout_bf16", B=8, H=12, S=512, D=64, dtype="bfloat16",
          causal=False, bias=True, p=0.1),
     dict(name="bert_s4096_bf16", B=2, H=12, S=4096, D=64, dtype="bfloat16",
+         causal=False, bias=True, p=0.1, qkv_views=True),
+    # phase 17 leg b's: float16 BERT at S 4096
+    dict(name="bert_s4096_f16", B=2, H=12, S=4096, D=64, dtype="float16",
          causal=False, bias=True, p=0.1, qkv_views=True),
     # the mesh trainer's: Megatron at tp 2 (6 heads, views of the rank's
     # qkv), Ulysses at tp 2 and 4 (6 and 3 heads after the all-to-all)
@@ -412,7 +456,7 @@ GRAPH_EAGER_RUNS = 3
 #: and the CPU drifted 9.8e-3 apart in the third loss); leg c: NCCL at
 #: world 1
 FLEET_A = dict(img=224, classes=1000, batch=256, lr=0.1)
-FLEET_WARMUP, FLEET_STEPS = 2, 3
+FLEET_WARMUP, FLEET_STEPS = 2, 2
 FLEET_B = dict(img=32, classes=10, batch=8, lr=3e-3, steps=3)
 FLEET_B_RTOL = 1e-3          # phase 9 leg b's tolerance
 FLEET_C_STEPS = 8
@@ -429,6 +473,9 @@ FLEET_TIMEOUT_S = 420        # a spawn's ranks, joined
 SPMD_A = dict(dp=1, pp=2, tp=2, sp_mode="megatron")
 SPMD_B = dict(dp=1, pp=1, tp=2, sp_mode="ulysses")
 SPMD_MICRO, SPMD_BATCH, SPMD_WARMUP, SPMD_STEPS = 4, 8, 1, 1
+#: legs a and b run the default SPMDConfig's widths at 2 of its 12 layers
+#: (a gloo mesh step at 12 layers took 10-14 s on one card)
+SPMD_LAYERS = 2
 #: phase 5's case at the shapes and layouts each leg gives the flash
 #: kernels ([8, 6, 512, 64] bf16 causal)
 SPMD_FLASH_CASES = {"a": "megatron_tp2_bf16_causal",
@@ -448,8 +495,9 @@ SPMD_C_LOSS_RTOL, SPMD_C_GRAD_RTOL, SPMD_C_GRAD_ATOL = 2e-4, 5e-4, 1e-6
 #: (1 a rank; phase 8 leg b's program: bf16 AMP O2, fused Adam, scan
 #: remat, the flash kernels); leg b's tolerance, losses and the state
 #: relative in norm, where its runs are not bit-equal
-ZERO_WARMUP, ZERO_STEPS = 1, 2
-ZERO_B = dict(seq=4096, batch=2)
+ZERO_WARMUP, ZERO_STEPS = 1, 1
+#: leg b at 2 of BERT-base's 12 layers
+ZERO_B = dict(seq=4096, batch=2, layers=2)
 ZERO_B_RTOL = 1e-2
 #: phase 15, the hybrid (dcn 2, ici 2) world of 4 gloo ranks sharing the
 #: card: leg a config 5 at 32 a rank (the global batch 128; four ranks of
@@ -464,7 +512,7 @@ ZERO_B_RTOL = 1e-2
 #: start amplifies a one-unit gradient difference (ROADMAP Queue 3)
 HYBRID_RANKS, HYBRID_DCN = 4, 2
 HYBRID_A = dict(FLEET_A, batch=32 * HYBRID_RANKS)
-HYBRID_B = dict(seq=4096, batch=HYBRID_RANKS)
+HYBRID_B = dict(seq=4096, batch=HYBRID_RANKS, layers=2)
 HYBRID_VARIANTS = {"a": [("hier_zero", HYBRID_DCN, True),
                          ("hier_replicated", HYBRID_DCN, False),
                          ("flat_zero", 1, True),
@@ -472,6 +520,23 @@ HYBRID_VARIANTS = {"a": [("hier_zero", HYBRID_DCN, True),
                    "b": [("hier_zero", HYBRID_DCN, True),
                          ("flat_zero", 1, True)]}
 HYBRID_A_GRAD_RTOL = 2.0 ** -8
+#: phase 17, BERT pretraining as Paddle trains it on a GPU: float16 AMP O2
+#: with dynamic loss scaling (Paddle's defaults but the scale's floor:
+#: init 2^15, x2 every 1000 clean steps, x0.8 after 2 overflows), LAMB with
+#: the reference's exclusions from weight decay, global-norm clipping at
+#: 1.0. Legs a and b: phase 8's cells; leg c the S 4096 program at 2 layers
+#: captured, an overflow forced at a scale of 2^40 (float16 ends at 65504)
+#: and the growth from a scale of 1 every 2 clean steps; leg d kernels vs
+#: plain at 2 layers (phase 8 leg c's bounds); leg e the card against the
+#: CPU in fp32 with AMP off at BertConfig.tiny's widths
+F16_LEGS = [dict(name="a_s128", seq=128, batch=256, remat=False),
+            dict(name="b_s4096", seq=4096, batch=2, remat=True)]
+F16_SCALE = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=1000,
+                 decr_every_n_nan_or_inf=2, incr_ratio=2.0, decr_ratio=0.8)
+F16_LAMB = dict(lr=1e-4, weight_decay=0.01, clip=1.0)
+F16_C = dict(seq=4096, batch=2, layers=2, overflow=2.0 ** 40,
+             incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+F16_E = dict(seq=32, batch=4, steps=3, rtol=1e-4)
 #: phase 16, checkpoints and model io with FLAGS_cudnn_deterministic on:
 #: leg a config 5 in one process, 3 steps between saves and loads; leg b
 #: BERT-base S 4096 x 2 with dropout 0 (the step seed is not saved:
@@ -483,8 +548,13 @@ CKPT_B = dict(seq=4096, batch=2)
 CKPT_B_STEPS = CKPT_C_STEPS = CKPT_D_STEPS = 2
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line, with `t_s`, the seconds since the script started."""
+    print(json.dumps(dict(obj, t_s=round(time.perf_counter() - _T0, 1))),
+          flush=True)
 
 
 class SmokeFailure(Exception):
@@ -896,11 +966,12 @@ def flash_bounds(case):
     (bf16 tensor cores, or fp32); the larger of the two."""
     B, H, S, D = case["B"], case["H"], case["S"], case["D"]
     BH = B * H
-    elt = 2 if case["dtype"] == "bfloat16" else 4
+    elt = 4 if case["dtype"] == "float32" else 2
     tile = BH * S * D * elt           # one of q, k, v, o, do, dq, dk, dv
     rows = BH * S * 4                 # lse, delta or the bias, float32
     bias = rows if case["bias"] else 0
-    peak, peak_name = ((BF16_FLOPS_PER_S, "bf16 tensor cores 989 TFLOP/s")
+    peak, peak_name = ((BF16_FLOPS_PER_S, "%s tensor cores 989 TFLOP/s"
+                        % ("fp16" if case["dtype"] == "float16" else "bf16"))
                        if elt == 2 else (FP32_FLOPS_PER_S,
                                          "fp32 67 TFLOP/s"))
     pairs = BH * flash_pairs(case)
@@ -919,9 +990,10 @@ def flash_bounds(case):
 
 
 def flash_design(kname, dtype):
-    """How the wrapper runs a kernel for this dtype: every bf16 kernel
-    (forward, dK/dV, dQ) on tensor cores, fp32 SIMT."""
-    return "wgmma bf16" if dtype == "bfloat16" else "simt fp32"
+    """How the wrapper runs a kernel for this dtype: every bf16 and fp16
+    kernel (forward, dK/dV, dQ) on tensor cores, fp32 SIMT."""
+    return {"bfloat16": "wgmma bf16", "float16": "wgmma f16"}.get(
+        dtype, "simt fp32")
 
 
 def flash_library(torch, q, k, v, do, bias, case):
@@ -1169,7 +1241,8 @@ def fluid_mnist_data(n=512):
 
 def build_fluid_mlp(fluid, kind):
     """The MNIST MLP of tests/test_mnist_mlp.py in fresh programs, with
-    its optimizer: (main, startup, loss, accuracy)."""
+    its optimizer ("sgd", "adam", or "sgd_f16": SGD under float16 AMP O2
+    with dynamic loss scaling): (main, startup, loss, accuracy)."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = FLUID_INIT_SEED
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
@@ -1183,8 +1256,12 @@ def build_fluid_mlp(fluid, kind):
         acc = fluid.layers.accuracy(input=fluid.layers.softmax(logits),
                                     label=label)
         opt = (fluid.optimizer.SGDOptimizer(learning_rate=0.5)
-               if kind == "sgd"
+               if kind.startswith("sgd")
                else fluid.optimizer.AdamOptimizer(learning_rate=1e-3))
+        if kind == "sgd_f16":
+            from paddle_tpu_torch.fluid.contrib import mixed_precision
+
+            opt = mixed_precision.decorate(opt, amp_dtype="float16")
         opt.minimize(loss)
     return main, startup, loss, acc
 
@@ -1481,6 +1558,390 @@ def phase_fluid_bert(torch, name):
     res["kernels_vs_plain"] = fluid_bert_kernels_vs_plain(torch, fluid)
     res.update(device=name, nvidia_smi=nvidia_smi_line())
     emit(res)
+    return res
+
+
+# -- phase 17 -----------------------------------------------------------------
+
+def build_fluid_bert_f16(fluid, cfg, seq, remat, attention_impl="auto",
+                         amp=True, **scale):
+    """BERT pretraining as Paddle trains it on a GPU, in fresh programs:
+    `bert_pretrain_loss` (scan encoder), LAMB (the reference's exclusions
+    from weight decay) with `GradientClipByGlobalNorm`, float16 AMP O2
+    with dynamic loss scaling (`F16_SCALE`, updated by `scale`; `amp`
+    False leaves the program in fp32), `minimize`, `fuse_optimizer_ops`.
+    Returns (main, startup, total loss, gradient names, the decorated
+    optimizer or None, the global norm's var name)."""
+    from paddle_tpu_torch.fluid.contrib import mixed_precision
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = BERT_INIT_SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        total, _, _, _ = bert.bert_pretrain_loss(
+            cfg, seq, scan_layers=True, scan_remat=remat,
+            attention_impl=attention_impl)
+        opt = fluid.optimizer.LambOptimizer(
+            learning_rate=F16_LAMB["lr"],
+            lamb_weight_decay=F16_LAMB["weight_decay"],
+            exclude_from_weight_decay_fn=bert.exclude_from_weight_decay,
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(F16_LAMB["clip"]))
+        dec = None
+        if amp:
+            opt = dec = mixed_precision.decorate(
+                opt, amp_dtype="float16", amp_level="O2",
+                use_dynamic_loss_scaling=True, **dict(F16_SCALE, **scale))
+        _, params_grads = opt.minimize(total)
+        fluid.fuse_optimizer_ops(main)
+    norm = next(n for op in main.global_block().ops if op.type == "sqrt"
+                for n in op.output_arg_names)
+    return (main, startup, total, [g.name for _, g in params_grads], dec,
+            norm)
+
+
+def scale_state(scope, dec):
+    """(scale, good, bad) of a decorated optimizer's state in `scope`."""
+    st = dec._scale_state
+    return (float(scope.find_var(st["scale"]).reshape(-1)[0]),
+            int(scope.find_var(st["good"]).reshape(-1)[0]),
+            int(scope.find_var(st["bad"]).reshape(-1)[0]))
+
+
+@contextlib.contextmanager
+def plain_attention_watch(torch):
+    """Counts the calls of the plain attention (the composite
+    `reference_attention` and the flash kernels' plain versions) that
+    receive float16 CUDA tensors while the block is open."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    mod = sys.modules[fa.__module__]
+    names = ("reference_attention", "flash_attention_fwd_reference",
+             "flash_attention_bwd_dkv_reference",
+             "flash_attention_bwd_dq_reference")
+    saved = {n: getattr(mod, n) for n in names}
+    calls = {"f16_cuda": 0}
+
+    def wrap(fn):
+        def counted(q, *args, **kwargs):
+            if q.is_cuda and q.dtype == torch.float16:
+                calls["f16_cuda"] += 1
+            return fn(q, *args, **kwargs)
+        return counted
+
+    for n, fn in saved.items():
+        setattr(mod, n, wrap(fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
+
+
+def f16_leg(torch, fluid, leg):
+    """One leg of phase 17 at full width on the card, as `fluid_bert_leg`
+    runs phase 8's (warm-up, timed steps with the launch counts zeroed
+    just before them, one profiled step), with the loss-scale state read
+    after each step (scale, good and bad counts, the skipped steps) and
+    the plain attention watched for float16 CUDA inputs."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops.kernels import dropout, \
+        flash_attention as fa
+
+    t0 = time.perf_counter()
+    cfg = bert_cfg(leg["seq"])
+    main, startup, total, _, dec, _ = build_fluid_bert_f16(
+        fluid, cfg, leg["seq"], leg["remat"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.bert_feed(cfg, leg["batch"], leg["seq"])
+    n_pred = feed["mask_pos"].shape[1]
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[total],
+                             scope=scope)[0][0])
+
+    states = [scale_state(scope, dec)]
+    with plain_attention_watch(torch) as plain:
+        losses = []
+        for _ in range(BERT_WARMUP):
+            losses.append(step())
+            states.append(scale_state(scope, dec))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fwd_launches = fa.dkv_launches = fa.dq_launches = 0
+        fa.tc_launches = dict.fromkeys(fa.tc_launches, 0)
+        fa.dtype_launches = {}
+        dropout.launches = 0
+        dropout.dtype_launches = {}
+        step_ms = []
+        for _ in range(BERT_STEPS):
+            t1 = time.perf_counter()
+            losses.append(step())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            states.append(scale_state(scope, dec))
+        launches = {"forward": fa.fwd_launches, "dkv": fa.dkv_launches,
+                    "dq": fa.dq_launches}
+        tc_launches = dict(fa.tc_launches)
+        f16_launches = dict(fa.dtype_launches.get(
+            "float16", dict.fromkeys(launches, 0)))
+        drop = dict(dropout.dtype_launches, total=dropout.launches)
+    entry = exe.last_entry.info()
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, kernels = device_busy_share(torch, step)
+    L = cfg.num_hidden_layers
+    flash = leg["seq"] >= fluid.get_flags(
+        "FLAGS_flash_attention_min_seq")["FLAGS_flash_attention_min_seq"]
+    fwd_per_step = (2 if leg["remat"] else 1) * L if flash else 0
+    want = {"forward": fwd_per_step * BERT_STEPS,
+            "dkv": (L if flash else 0) * BERT_STEPS,
+            "dq": (L if flash else 0) * BERT_STEPS}
+    drop_per_step = 1 + 2 * L * (2 if leg["remat"] else 1) \
+        + (0 if flash else L)
+    skipped = sum(1 for a, b in zip(states, states[1:])
+                  if b[2] > a[2] or b[0] < a[0])
+    median_s = statistics.median(step_ms) / 1e3
+    flops = bert_model_flops(cfg, leg["batch"], leg["seq"], n_pred)
+    res = {"phase": "fluid_bert_fp16_lamb_leg", "leg": leg["name"],
+           "seq": leg["seq"], "batch": leg["batch"], "layers": L,
+           "attention": "flash kernels (float16)" if flash
+           else "composite", "losses": losses, "step_ms": step_ms,
+           "median_step_ms": median_s * 1e3,
+           "tokens_per_sec": leg["batch"] * leg["seq"] / median_s,
+           "model_flops_per_step": flops,
+           "mfu_vs_fp16_peak": flops / median_s / BF16_FLOPS_PER_S,
+           "peak_mem_bytes": peak, "profiled_step": {
+               "wall_us": wall, "device_busy_us": busy,
+               "device_busy_share": busy / wall, "kernels": kernels},
+           "loss_scale": states[-1][0], "good_steps": states[-1][1],
+           "bad_steps": states[-1][2], "skipped_steps": skipped,
+           "scale_history": [s_[0] for s_ in states],
+           "launches": launches, "launches_expected": want,
+           "tensor_core_launches": tc_launches,
+           "float16_launches": f16_launches,
+           "design": flash_design("forward", "float16") if flash else None,
+           "plain_attention_f16_cuda_calls": plain["f16_cuda"],
+           "dropout_launches": drop,
+           "dropout_launches_expected": drop_per_step * BERT_STEPS,
+           "entry": {k: entry[k] for k in ("mode", "phase")},
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    name = "fluid_bert_fp16_lamb %s" % leg["name"]
+    first_want = math.log(cfg.vocab_size) + math.log(2)
+    check(all(math.isfinite(x) for x in losses),
+          "%s: non-finite loss %s" % (name, losses))
+    check(abs(losses[0] - first_want) <= BERT_LOSS0_TOL,
+          "%s: first loss %g, expected %g +- %g" % (
+              name, losses[0], first_want, BERT_LOSS0_TOL))
+    check(launches == want and tc_launches == want and f16_launches == want,
+          "%s: flash launches %s (tensor cores %s, float16 %s), expected %s"
+          % (name, launches, tc_launches, f16_launches, want))
+    check(plain["f16_cuda"] == 0 or not flash,
+          "%s: %d float16 CUDA calls reached the plain attention" % (
+              name, plain["f16_cuda"]))
+    check(drop["total"] == drop_per_step * BERT_STEPS,
+          "%s: dropout launches %s, expected %d" % (
+              name, drop, drop_per_step * BERT_STEPS))
+    check(entry["mode"] == "graph" and entry["phase"] == "captured",
+          "%s: the step is %s, not captured" % (name, entry))
+    del exe, scope
+    torch.cuda.empty_cache()
+    return res
+
+
+def f16_leg_c(torch, fluid):
+    """The S 4096 program at 2 layers, captured: a replay at a scale of
+    2^40 must skip (every param, master and moment bit-equal; the scale
+    times decr_ratio), then from a scale of 1 two clean replays double
+    it; the same steps run eagerly from the same start are bit-equal to
+    the captured ones."""
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    c = F16_C
+    cfg = bert_cfg(c["seq"], c["layers"])
+    feed = bert.bert_feed(cfg, c["batch"], c["seq"])
+    main, startup, total, _, dec, norm = build_fluid_bert_f16(
+        fluid, cfg, c["seq"], True,
+        incr_every_n_steps=c["incr_every_n_steps"],
+        decr_every_n_nan_or_inf=c["decr_every_n_nan_or_inf"])
+    st = dec._scale_state
+    scope0 = fluid.Scope()
+    fluid.Executor().run(startup, scope=scope0)
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    start = {n: scope0.find_var(n).clone() for n in names}
+    del scope0
+    # (scale set before the step or None, steps)
+    plan = [(None, 2), (c["overflow"], 1), (1.0, 2)]
+
+    def run(graphs):
+        graph_flag(fluid, graphs)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        for n, v in start.items():
+            scope.set_var(n, v.clone())
+        counter = main._seed_counter
+        out = {"losses": [], "norms": [], "states": [], "skips": []}
+        for scale, steps in plan:
+            for i in range(steps):
+                if scale is not None and i == 0:
+                    scope.set_var(st["scale"], torch.full(
+                        (1,), scale, dtype=torch.float32, device=DEV))
+                before = {n: scope.find_var(n).clone() for n in names}
+                loss, gn = exe.run(main, feed=feed, fetch_list=[total, norm],
+                                   scope=scope)
+                out["losses"].append(float(loss.reshape(-1)[0]))
+                out["norms"].append(float(gn.reshape(-1)[0]))
+                out["states"].append(scale_state(scope, dec))
+                out["skips"].append(all(
+                    torch.equal(before[n], scope.find_var(n))
+                    for n in names if n not in st.values()))
+                out.setdefault("phases", []).append(exe.last_entry.phase)
+        out["final"] = {n: scope.find_var(n).clone() for n in names}
+        out["mode"] = exe.last_entry.mode
+        main._seed_counter = counter
+        graph_flag(fluid, True)
+        return out
+
+    graph, eager = run(True), run(False)
+    decr = float(torch.tensor(c["overflow"], dtype=torch.float32)
+                 * torch.tensor(F16_SCALE["decr_ratio"],
+                                dtype=torch.float32))
+    want_states = [graph["states"][0], graph["states"][1],
+                   (decr, 0, 0), (1.0, 1, 0), (2.0, 0, 0)]
+    bit_equal = graph["losses"] == eager["losses"] and all(
+        torch.equal(graph["final"][n], eager["final"][n]) for n in names)
+    res = {"leg": "c", "seq": c["seq"], "batch": c["batch"],
+           "layers": c["layers"], "losses": graph["losses"],
+           "global_norms": graph["norms"], "states": graph["states"],
+           "skipped": graph["skips"], "phases": graph["phases"],
+           "mode": graph["mode"], "overflow_scale": c["overflow"],
+           "replay_skip_bit_equal": graph["skips"][2],
+           "captured_equals_eager": bit_equal,
+           "seconds": time.perf_counter() - t0}
+    emit(dict(res, phase="fluid_bert_fp16_lamb_leg"))
+    check(graph["mode"] == "graph" and graph["phases"][2:] ==
+          ["captured"] * 3, "fluid_bert_fp16_lamb c: not replayed: %s"
+          % graph["phases"])
+    check(graph["skips"] == [False, False, True, False, False]
+          and graph["norms"][2] == 0.0,
+          "fluid_bert_fp16_lamb c: skips %s (global norms %s), expected "
+          "only the third" % (graph["skips"], graph["norms"]))
+    check(graph["states"][2:] == want_states[2:],
+          "fluid_bert_fp16_lamb c: scale states %s, expected %s" % (
+              graph["states"], want_states))
+    check(bit_equal, "fluid_bert_fp16_lamb c: captured steps differ from "
+          "eager ones (losses %s / %s)" % (graph["losses"],
+                                           eager["losses"]))
+    return res
+
+
+def f16_leg_d(torch, fluid):
+    """The S 4096 program at 2 layers, one step with the flash kernels and
+    one with their plain version from the same params: the loss and
+    every unscaled gradient (phase 8 leg c's bounds)."""
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    c = F16_C
+    cfg = bert_cfg(c["seq"], c["layers"])
+    feed = bert.bert_feed(cfg, c["batch"], c["seq"])
+    out, state = {}, None
+    for impl in ("auto", "reference"):
+        main, startup, total, grads, dec, _ = build_fluid_bert_f16(
+            fluid, cfg, c["seq"], True, attention_impl=impl)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        if state is None:
+            exe.run(startup, scope=scope)
+            state = {n: scope.find_var(n).clone()
+                     for n in scope.local_var_names()}
+        else:
+            for n, v in state.items():
+                scope.set_var(n, v.clone())
+        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
+                       scope=scope, return_numpy=False)
+        out[impl] = (float(vals[0].reshape(-1)[0]),
+                     dict(zip(grads, (v.float() for v in vals[1:]))),
+                     scale_state(scope, dec))
+    lk, gk, sk = out["auto"]
+    lp, gp, sp = out["reference"]
+    grad_err = {n: float((gk[n] - gp[n]).norm()
+                         / gp[n].norm().clamp_min(1e-30)) for n in gp}
+    finite = all(bool(torch.isfinite(g).all()) for g in gk.values())
+    res = {"leg": "d", "loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "max_grad_rel_err": max(grad_err.values()),
+           "scale_states": [sk, sp], "grads_finite": finite,
+           "tol": {"loss": BERT_CHECK_LOSS_RTOL,
+                   "grads": BERT_CHECK_GRAD_RTOL},
+           "seconds": time.perf_counter() - t0}
+    emit(dict(res, phase="fluid_bert_fp16_lamb_leg"))
+    check(finite and sk == sp and math.isfinite(lk)
+          and res["loss_rel_err"] <= BERT_CHECK_LOSS_RTOL
+          and res["max_grad_rel_err"] <= BERT_CHECK_GRAD_RTOL,
+          "fluid_bert_fp16_lamb d: kernels vs plain: %s" % res)
+    return res
+
+
+def f16_leg_e(torch, fluid):
+    """LAMB with global-norm clipping in fp32 (AMP off) on the card and on
+    the CPU from one startup state, at BertConfig.tiny's widths (2 layers,
+    hidden 64), S 32, batch 4, dropout 0: the losses and the fetched
+    global norm of 3 steps within 1e-4 relative."""
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    e = F16_E
+    cfg = bert.BertConfig.tiny()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    feed = bert.bert_feed(cfg, e["batch"], e["seq"])
+    main, startup, total, _, _, norm = build_fluid_bert_f16(
+        fluid, cfg, e["seq"], False, amp=False)
+    runs, state = {}, None
+    for where in ("card", "cpu"):
+        exe = fluid.Executor() if where == "card" else \
+            fluid.Executor(fluid.CPUPlace())
+        scope = fluid.Scope()
+        if state is None:
+            exe.run(startup, scope=scope)
+            state = {n: scope.find_var(n).detach().cpu().clone()
+                     for n in scope.local_var_names()}
+        else:
+            for n, v in state.items():
+                scope.set_var(n, v.clone())
+        runs[where] = [[float(v.reshape(-1)[0]) for v in exe.run(
+            main, feed=feed, fetch_list=[total, norm], scope=scope)]
+            for _ in range(e["steps"])]
+    errs = [abs(a - b) / max(abs(b), 1e-30) for ra, rb in
+            zip(runs["card"], runs["cpu"]) for a, b in zip(ra, rb)]
+    res = {"leg": "e", "card": runs["card"], "cpu": runs["cpu"],
+           "max_rel_err": max(errs), "tol": e["rtol"],
+           "seconds": time.perf_counter() - t0}
+    emit(dict(res, phase="fluid_bert_fp16_lamb_leg"))
+    check(res["max_rel_err"] <= e["rtol"],
+          "fluid_bert_fp16_lamb e: card vs CPU %s" % res)
+    return res
+
+
+def phase_fluid_bert_fp16_lamb(torch, name):
+    """Phase 17: BERT-base pretraining under float16 AMP O2 with dynamic
+    loss scaling, LAMB and global-norm clipping (legs a, b), the overflow
+    under replay (c), kernels vs plain (d), card vs CPU (e)."""
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    legs = [f16_leg(torch, fluid, leg) for leg in F16_LEGS]
+    res = {"phase": "fluid_bert_fp16_lamb",
+           "config": "BERT-base (BertConfig.base)",
+           "optimizer": "LAMB 1e-4 (wd 0.01), GradientClipByGlobalNorm(1.0),"
+                        " float16 AMP O2, dynamic loss scaling from 2^15",
+           "legs": legs, "leg_c": f16_leg_c(torch, fluid),
+           "leg_d": f16_leg_d(torch, fluid), "leg_e": f16_leg_e(torch, fluid)}
+    emit({"phase": "fluid_bert_fp16_lamb", "device": name,
+          "nvidia_smi": nvidia_smi_line(),
+          "median_step_ms": {leg["leg"]: leg["median_step_ms"]
+                             for leg in legs},
+          "seconds": time.perf_counter() - t0})
     return res
 
 
@@ -2454,16 +2915,20 @@ def fleet_worker_c(out_dir):
     res["eager_equals_identity"] = all(
         np.array_equal(a, b) for a, b in zip(runs[0], cpu))
     mlp = {}
-    for name, dp in (("plain", False), ("with_data_parallel", True)):
-        main, startup, loss, acc = build_fluid_mlp(fluid, "sgd")
+    for name, dp, kind in (("plain", False, "sgd"),
+                           ("with_data_parallel", True, "sgd"),
+                           ("f16_plain", False, "sgd_f16"),
+                           ("f16_with_data_parallel", True, "sgd_f16")):
+        main, startup, loss, acc = build_fluid_mlp(fluid, kind)
         scope = fluid.Scope()
         exe = fluid.Executor()
-        if not mlp:
+        if name in ("plain", "f16_plain"):
             exe.run(startup, scope=scope)
             state = dump_numpy_state(
                 scope, [v.name for v in main.list_vars() if v.persistable])
         else:
             load_numpy_state(scope, state)
+        collective_ops.reset_stats()
         target = fluid.CompiledProgram(main).with_data_parallel() if dp \
             else main
         xs, ys = fluid_mnist_data()
@@ -2474,7 +2939,9 @@ def fleet_worker_c(out_dir):
             losses.append(exe.run(target, feed=feed, fetch_list=[loss],
                                   scope=scope)[0].tolist())
         mlp[name] = {"losses": losses, "mode": exe.last_entry.mode,
-                     "phase": exe.last_entry.phase}
+                     "phase": exe.last_entry.phase,
+                     "all_reduce_calls": collective_ops.stats.get(
+                         "all_reduce", {}).get("calls", 0)}
     res["mlp"] = mlp
     fleet_dump(os.path.join(out_dir, "c.json"), res)
 
@@ -2504,6 +2971,22 @@ def fleet_spawn(distributed, func, args, nprocs, backend):
                           timeout=FLEET_TIMEOUT_S)
     except (RuntimeError, TimeoutError) as e:
         raise SmokeFailure("fleet_dp: %s" % e)
+
+
+def join_spawns(ctxs, what):
+    """Join spawns started together (`distributed.spawn(..., join=False)`):
+    a failing rank or the time limit fails the phase, and every process
+    of every spawn is gone after."""
+    for sc in ctxs:
+        try:
+            sc.join(FLEET_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as e:
+            for other in ctxs:
+                try:
+                    other.join(1)
+                except (RuntimeError, TimeoutError):
+                    pass
+            raise SmokeFailure("%s: %s" % (what, e))
 
 
 def fleet_read(out_dir, name):
@@ -2546,8 +3029,11 @@ def fleet_leg_a(torch, distributed, out_dir, single):
     return res
 
 
-def fleet_leg_b(torch, distributed, fluid, out_dir):
-    """Card against CPU, fleet DP with and without sync_batch_norm."""
+def fleet_leg_b(torch, distributed, fluid, out_dir, beside=()):
+    """Card against CPU, fleet DP with and without sync_batch_norm: the
+    four spawns (card and CPU, each without and with it) run together,
+    with the spawns of `beside` (callables that start a spawn: leg c's),
+    which check numbers only."""
     import numpy as np
 
     from paddle_tpu_torch.core.scope import dump_numpy_state
@@ -2564,17 +3050,13 @@ def fleet_leg_b(torch, distributed, fluid, out_dir):
     path = os.path.join(out_dir, "b_state.npz")
     np.savez(path, **state)
     res = {}
+    ctxs = [distributed.spawn(
+        fleet_worker_b, (out_dir, where, sync_bn, path), nprocs=2,
+        backend="gloo", join=False)
+        for sync_bn in (False, True) for where in ("card", "cpu")]
+    ctxs += [start() for start in beside]
+    join_spawns(ctxs, "fleet_dp b, c")
     for sync_bn in (False, True):
-        ctxs = [distributed.spawn(
-            fleet_worker_b, (out_dir, where, sync_bn, path), nprocs=2,
-            backend="gloo", join=False) for where in ("card", "cpu")]
-        for sc in ctxs:
-            try:
-                sc.join(FLEET_TIMEOUT_S)
-            except (RuntimeError, TimeoutError) as e:
-                for other in ctxs:
-                    other.join(1)
-                raise SmokeFailure("fleet_dp b: %s" % e)
         got = {w: [fleet_read(out_dir, "b_%s_%d_%d.json"
                               % (w, int(sync_bn), r)) for r in range(2)]
                for w in ("card", "cpu")}
@@ -2602,8 +3084,14 @@ def fleet_leg_b(torch, distributed, fluid, out_dir):
     return res
 
 
+def fleet_leg_c_start(distributed, out_dir):
+    """Leg c's spawn, started (one rank over NCCL)."""
+    return distributed.spawn(fleet_worker_c, (out_dir,), nprocs=1,
+                             backend="nccl", join=False)
+
+
 def fleet_leg_c(distributed, out_dir):
-    fleet_spawn(distributed, fleet_worker_c, (out_dir,), 1, "nccl")
+    """Leg c's checks, after its spawn (`fleet_leg_c_start`) ended."""
     res = fleet_read(out_dir, "c.json")
     emit({"phase": "fleet_dp_leg", "leg": "c", **res})
     mlp = res["mlp"]
@@ -2617,6 +3105,15 @@ def fleet_leg_c(distributed, out_dir):
     check(mlp["plain"]["losses"] == mlp["with_data_parallel"]["losses"]
           and mlp["with_data_parallel"]["mode"] == "graph",
           "fleet_dp c: world-1 DP MLP differs from the plain one: %s" % mlp)
+    # float16 dynamic loss scaling: the found-inf count's all-reduce runs
+    # in the eager first step and is captured with the step
+    f16 = mlp["f16_with_data_parallel"]
+    check(mlp["f16_plain"]["losses"] == f16["losses"]
+          and f16["mode"] == "graph" and f16["phase"] == "captured"
+          and f16["all_reduce_calls"] > 0
+          and all(math.isfinite(x[0]) for x in f16["losses"]),
+          "fleet_dp c: world-1 float16 DP MLP differs from the plain one: "
+          "%s" % mlp)
     return res
 
 
@@ -2635,7 +3132,10 @@ def phase_fleet_dp(torch, name, single):
     try:
         res = {"phase": "fleet_dp",
                "leg_a": fleet_leg_a(torch, distributed, out_dir, single),
-               "leg_b": fleet_leg_b(torch, distributed, fluid, out_dir),
+               "leg_b": fleet_leg_b(
+                   torch, distributed, fluid, out_dir,
+                   beside=[lambda: fleet_leg_c_start(distributed,
+                                                     out_dir)]),
                "leg_c": fleet_leg_c(distributed, out_dir)}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -2662,7 +3162,7 @@ def spmd_worker_full(out_dir, leg, mesh_kw):
     from paddle_tpu_torch.parallel import transformer as tt
 
     rank = distributed.get_rank()
-    cfg = tt.SPMDConfig(n_micro=SPMD_MICRO, **mesh_kw)
+    cfg = tt.SPMDConfig(n_micro=SPMD_MICRO, n_layers=SPMD_LAYERS, **mesh_kw)
     mesh = cfg.mesh(device=DEV)
     params = tt.shard_params(tt.init_params(cfg, seed=0, device=mesh.device),
                              cfg, mesh)
@@ -2771,7 +3271,7 @@ def spmd_leg_full(torch, distributed, out_dir, leg, mesh_kw, single):
     spmd_run_leg(distributed, spmd_worker_full, (out_dir, leg, mesh_kw), n)
     ranks = [fleet_read(out_dir, "spmd_%s%d.json" % (leg, r))
              for r in range(n)]
-    cfg = tt.SPMDConfig(n_micro=SPMD_MICRO, **mesh_kw)
+    cfg = tt.SPMDConfig(n_micro=SPMD_MICRO, n_layers=SPMD_LAYERS, **mesh_kw)
     per_step = cfg.layers_per_stage * SPMD_MICRO * SPMD_STEPS
     # remat runs each layer's forward twice
     want = {"forward": 2 * per_step, "dkv": per_step, "dq": per_step}
@@ -2839,12 +3339,18 @@ def spmd_leg_c(torch, distributed, out_dir):
     path = os.path.join(out_dir, "spmd_c_params.npz")
     np.savez(path, **flat)
     tokens, labels = tt.demo_batch(cfg1, SPMD_BATCH, seed=SPMD_C_SEED)
+    # both meshes' ranks run together (their numbers only are checked),
+    # while this process runs the single-process reference
+    ranks = {id(kw): kw["dp"] * kw["pp"] * kw["tp"] for kw in SPMD_C_MESHES}
+    ctxs = [distributed.spawn(spmd_worker_c, (out_dir, kw, path),
+                              nprocs=ranks[id(kw)], backend="gloo",
+                              join=False) for kw in SPMD_C_MESHES]
     single = spmd_small_run(tt, cfg1, None, spmd_tree(flat, cfg1), tokens,
                             labels, "auto")
+    join_spawns(ctxs, "spmd_mesh c")
     res = {"single": single["losses"], "meshes": []}
     for mesh_kw in SPMD_C_MESHES:
-        n = mesh_kw["dp"] * mesh_kw["pp"] * mesh_kw["tp"]
-        spmd_run_leg(distributed, spmd_worker_c, (out_dir, mesh_kw, path), n)
+        n = ranks[id(mesh_kw)]
         got = fleet_read(out_dir, "spmd_c_%s.json" % "x".join(
             str(mesh_kw[a]) for a in ("dp", "pp", "tp")))
         for impl in ("auto", "reference"):
@@ -2927,7 +3433,7 @@ def zero_worker(out_dir, leg):
             prog = main
             feed = resnet_feed(c["batch"], c["img"], c["classes"])
         else:
-            cfg = bert_cfg(ZERO_B["seq"])
+            cfg = bert_cfg(ZERO_B["seq"], ZERO_B["layers"])
             main, startup, loss, _ = build_fluid_bert(fluid, cfg,
                                                       ZERO_B["seq"], True)
             prog = fluid.CompiledProgram(main).with_data_parallel()
@@ -2989,8 +3495,18 @@ def zero_worker(out_dir, leg):
     fleet_dump(os.path.join(out_dir, "zero_%s%d.json" % (leg, rank)), out)
 
 
+def legs_worker(worker, out_dir, legs):
+    """One rank running `worker(out_dir, leg)` for each of `legs` in
+    turn (one spawn for a phase's legs: a rank's start-up is paid once)."""
+    import torch
+
+    for leg in legs:
+        worker(out_dir, leg)
+        torch.cuda.empty_cache()
+
+
 def zero_leg(distributed, out_dir, leg):
-    fleet_spawn(distributed, zero_worker, (out_dir, leg), 2, "gloo")
+    """Leg `leg`'s figures and checks, from its ranks' files."""
     ranks = [fleet_read(out_dir, "zero_%s%d.json" % (leg, r))
              for r in range(2)]
     res = {"leg": leg, "ranks": 2, "backend": "gloo",
@@ -3068,6 +3584,8 @@ def phase_zero(torch, name):
     torch.cuda.empty_cache()
     out_dir = tempfile.mkdtemp(prefix="zero_")
     try:
+        fleet_spawn(distributed, legs_worker, (zero_worker, out_dir, "ab"),
+                    2, "gloo")
         legs = {leg: zero_leg(distributed, out_dir, leg) for leg in "ab"}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -3102,7 +3620,7 @@ def hybrid_axes(stats):
 def hybrid_worker(out_dir, leg):
     """One rank of phase 15: each variant of `HYBRID_VARIANTS[leg]` (pods,
     sharded update) from the first variant's start state, 1 warm-up and
-    2 timed steps: losses, step ms, collectives a step by axis, the
+    1 timed step: losses, step ms, collectives a step by axis, the
     optimizer state held, the exchange record (`overlap_report`), peak
     memory, the kernels' launches (zeroed just before the timed steps of
     each variant) and the state at its logical shape (digests; leg b
@@ -3130,7 +3648,7 @@ def hybrid_worker(out_dir, leg):
             prog = main
             feed = resnet_feed(c["batch"], c["img"], c["classes"])
         else:
-            cfg = bert_cfg(HYBRID_B["seq"])
+            cfg = bert_cfg(HYBRID_B["seq"], HYBRID_B["layers"])
             main, startup, loss, _ = build_fluid_bert(fluid, cfg,
                                                       HYBRID_B["seq"], True)
             prog = fluid.CompiledProgram(main).with_data_parallel()
@@ -3219,8 +3737,7 @@ def hybrid_worker(out_dir, leg):
 
 
 def hybrid_leg(distributed, out_dir, leg):
-    fleet_spawn(distributed, hybrid_worker, (out_dir, leg), HYBRID_RANKS,
-                "gloo")
+    """Leg `leg`'s figures and checks, from its ranks' files."""
     ranks = [fleet_read(out_dir, "hybrid_%s%d.json" % (leg, r))
              for r in range(HYBRID_RANKS)]
     res = {"leg": leg, "ranks": HYBRID_RANKS, "pods": HYBRID_DCN,
@@ -3328,6 +3845,8 @@ def phase_hybrid(torch, name):
     torch.cuda.empty_cache()
     out_dir = tempfile.mkdtemp(prefix="hybrid_")
     try:
+        fleet_spawn(distributed, legs_worker, (hybrid_worker, out_dir, "ab"),
+                    HYBRID_RANKS, "gloo")
         legs = {leg: hybrid_leg(distributed, out_dir, leg) for leg in "ab"}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -3822,6 +4341,15 @@ def flash_entry(kname, replaces, launches, case, bert_launches, bert_case,
                     for leg in ("a", "b")})
 
 
+def flash_f16_entry(kname, replaces, launches, case):
+    """A float16 flash kernel's line: its launches on phase 17 leg b's
+    timed steps (BERT-base S 4096 under float16 AMP) and its numbers at
+    that shape (phase 5 case g)."""
+    return dict({"name": "flash_attention_%s_f16" % kname, "route": "cuda",
+                 "source": FLASH_SOURCE, "replaces": replaces,
+                 "launches": launches}, **flash_times(kname, case))
+
+
 def dropout_entry(launches, cases):
     """The dropout kernel's line: its launches on fluid BERT leg a's timed
     steps and its numbers at the hidden dropout's shape, with the
@@ -3882,6 +4410,7 @@ def main():
     phase_zero(torch, name)
     phase_hybrid(torch, name)
     phase_ckpt(torch, name)
+    f16 = phase_fluid_bert_fp16_lamb(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)
@@ -3902,12 +4431,18 @@ def main():
                      {leg: flash[c] for leg, c in SPMD_FLASH_CASES.items()})
          for kname, line in (("forward", "109"), ("dkv", "235"),
                              ("dq", "298"))]
+        + [flash_f16_entry(kname, FLASH_TPU + ":" + line,
+                           f16["legs"][1]["float16_launches"][kname],
+                           flash["bert_s4096_f16"])
+           for kname, line in (("forward", "109"), ("dkv", "235"),
+                               ("dq", "298"))]
         + [dropout_entry(fluid_bert["legs"][0]["dropout_launches"], drop)]}
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                              3)})
     emit(kernels)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

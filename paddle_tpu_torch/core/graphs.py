@@ -76,6 +76,11 @@ def launch_counts() -> Dict[str, int]:
            "dropout": dropout.launches}
     for k, v in flash_attention.tc_launches.items():
         out["flash.tc." + k] = v
+    for dtype, by in flash_attention.dtype_launches.items():
+        for k, v in by.items():
+            out["flash.%s.%s" % (dtype, k)] = v
+    for dtype, v in dropout.dtype_launches.items():
+        out["dropout." + dtype] = v
     return out
 
 
@@ -93,6 +98,16 @@ def _add_counts(delta: Dict[str, int], times: int) -> None:
     dropout.launches += times * delta.get("dropout", 0)
     for k in fa.tc_launches:
         fa.tc_launches[k] += times * delta.get("flash.tc." + k, 0)
+    for key, n in delta.items():
+        parts = key.split(".")
+        if key.startswith("flash.") and len(parts) == 3 \
+                and parts[1] != "tc":
+            by = fa.dtype_launches.setdefault(
+                parts[1], {"forward": 0, "dkv": 0, "dq": 0})
+            by[parts[2]] += times * n
+        elif parts[0] == "dropout" and len(parts) == 2:
+            dropout.dtype_launches[parts[1]] = \
+                dropout.dtype_launches.get(parts[1], 0) + times * n
 
 
 def shared_pool():
@@ -162,7 +177,8 @@ class Graph:
                     outputs = body()
             except Exception as e:
                 after = launch_counts()
-                _add_counts({k: after[k] - before[k] for k in after}, -1)
+                _add_counts({k: after[k] - before.get(k, 0)
+                             for k in after}, -1)
                 raise RuntimeError(
                     "CUDA graph capture failed: %s: %s (an op read a "
                     "value on the host, or copied from pageable host "
@@ -175,8 +191,8 @@ class Graph:
             self.pool_bytes = torch.cuda.memory_reserved(self.device) \
                 - reserved
         after = launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
+        self.launches = {k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)}
         # the capture recorded these launches; replays make them
         _add_counts(self.launches, -1)
         if _collective_calls() != collectives:

@@ -9,7 +9,8 @@
 // and computes the same functions:
 //
 //   q, o, do, dq [B, H, Sq, D] and k, v, dk, dv [B, H, Sk, D]: float32 |
-//     bfloat16 views with any batch, head and row stride (d has stride 1)
+//     bfloat16 | float16 views with any batch, head and row stride (d has
+//     stride 1)
 //   bias [B*H, Sk] float32 or null (additive key bias), contiguous
 //   lse, delta [B*H, Sq] float32, contiguous
 //
@@ -34,8 +35,9 @@
 //
 // Two designs.
 //
-// 1. bfloat16 on tensor cores (fa_fwd_tc_kernel, fa_bwd_dq_tc_kernel,
-//    fa_bwd_dkv_tc_kernel). A block owns one 64-row tile: 64 q rows of one
+// 1. bfloat16 and float16 on tensor cores (fa_fwd_tc_kernel,
+//    fa_bwd_dq_tc_kernel, fa_bwd_dkv_tc_kernel; templated on the 16-bit
+//    element type E, which sets the `wgmma` type and the roundings). A block owns one 64-row tile: 64 q rows of one
 //    (b, h) for the forward and dQ, 64 keys for dK/dV. One consumer
 //    warpgroup (64 rows is the row count of `wgmma`) and one producer
 //    warp. The producer's first thread loads the block's own operands once
@@ -45,16 +47,16 @@
 //    swizzle, one `mbarrier` per stage for "full" and one for "empty"). The
 //    tensor maps are encoded on the host for each call from the operands'
 //    strides, so strided views are read in place; rows past S and columns
-//    past D arrive as zeros. The consumers run `wgmma.m64n64k16` (bf16 in,
+//    past D arrive as zeros. The consumers run `wgmma.m64n64k16` (E in,
 //    float32 accumulators in registers) on the tile that has arrived while
 //    the next one is in flight:
 //      forward: S = Q Kᵀ (both operands from shared memory; K stored
 //        [keys, D] is already the K-major B operand), softmax on the
-//        accumulator fragments, then O += P V with P rounded to bf16 in
+//        accumulator fragments, then O += P V with P rounded to E in
 //        registers as the A operand and V from shared memory with the
 //        transpose bit (V is N-major there);
 //      dQ: S = Q Kᵀ and dP = dO Vᵀ, dS on the fragments, dQ += dS K with dS
-//        rounded to bf16 in registers and K read N-major (transpose bit);
+//        rounded to E in registers and K read N-major (transpose bit);
 //      dK/dV: the same on the other axis, Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, then
 //        dV += Zᵀ dO and dK += dSᵀ Q with Zᵀ and dSᵀ in registers.
 //    head_dim is padded to DP = 64 · NP (NP 64-column panels of 128 bytes,
@@ -98,6 +100,7 @@
 // FMA rate and by shared-memory bandwidth.
 #include <cuda.h>  // CUtensorMap and its enums only; nothing links libcuda
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -561,16 +564,39 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path (bfloat16 forward and dQ): TMA, mbarriers, wgmma.
+// Tensor-core path (16-bit forward, dQ and dK/dV): TMA, mbarriers, wgmma.
 // ---------------------------------------------------------------------------
 namespace tc {
+
+// The kernels' 16-bit element type E, bfloat16 or float16: both run on the
+// same tensor cores; E sets the `wgmma` input type, the TMA map's type, and
+// the rounding of P, dS and the outputs (to the nearest even, no clamping:
+// a float16 value past 65504 becomes inf, which loss scaling detects).
+template <typename E>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool kHalf = false;
+  using Pair = __nv_bfloat162;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr bool kHalf = true;
+  using Pair = __half2;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+};
 
 constexpr int kRowsQ = 64;  // q rows per block: one consumer warpgroup
 constexpr int kRowsK = 64;  // keys per K/V tile
 constexpr int kStages = 2;  // K/V ring depth
 constexpr int kConsumerWarps = 4;
 constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
-constexpr int kCols = 64;   // bf16 columns in one 128-byte swizzled row
+constexpr int kCols = 64;   // 16-bit columns in one 128-byte swizzled row
 constexpr int kPanel = kRowsQ * kCols * 2;  // bytes of a 64-row panel
 // Blocks each SM must hold: 3 at head_dim <= 64 caps the registers at 136
 // a thread (the dQ kernel would take 164 and fit only 2 an SM; 3 blocks of
@@ -596,9 +622,9 @@ struct Layout {
 };
 
 struct Params {
-  __nv_bfloat16* out;  // o (forward), dq, or dk
+  void* out;  // o (forward), dq, or dk, of the element type
   View so;
-  __nv_bfloat16* out2;  // dv (dK/dV only)
+  void* out2;  // dv (dK/dV only)
   View so2;
   float* lse;           // forward: written; dQ and dK/dV: read
   const float* delta;   // dQ and dK/dV only
@@ -723,51 +749,69 @@ __device__ __forceinline__ void keep_regs(const uint32_t (&a)[4][4]) {
       "+f"(d[31])
 
 // d (+)= A B, m64n64k16, A and B K-major in shared memory.
+#define FA_WG_SS(TYPE)                                                 \
+  asm volatile(                                                        \
+      "{\n"                                                            \
+      ".reg .pred p;\n"                                                \
+      "setp.ne.b32 p, %34, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "  \
+      FA_WG_D32 ", %32, %33, p, 1, 1, 0, 0;\n"                         \
+      "}\n"                                                            \
+      : FA_WG_OUT32(d)                                                 \
+      : "l"(a), "l"(b), "r"(accumulate))
+template <typename E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : FA_WG_OUT32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (Elem<E>::kHalf) {
+    FA_WG_SS("f16");
+  } else {
+    FA_WG_SS("bf16");
+  }
 }
+#undef FA_WG_SS
 
 // d += A B, m64n64k16, A in registers (the m16n8k16-style fragment of
 // each warp's 16 rows), B N-major in shared memory (transpose bit).
+#define FA_WG_RS(TYPE)                                                 \
+  asm volatile(                                                        \
+      "{\n"                                                            \
+      ".reg .pred p;\n"                                                \
+      "setp.ne.b32 p, %37, 0;\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "  \
+      FA_WG_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"           \
+      "}\n"                                                            \
+      : FA_WG_OUT32(d)                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+template <typename E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : FA_WG_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (Elem<E>::kHalf) {
+    FA_WG_RS("f16");
+  } else {
+    FA_WG_RS("bf16");
+  }
 }
+#undef FA_WG_RS
 
 #undef FA_WG_D32
 #undef FA_WG_OUT32
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  typename Elem<E>::Pair v = Elem<E>::pair(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The A fragments of the 4 k-steps of a product over 64 keys, from the
-// m64n64 accumulator over those keys, rounded to bf16.
+// m64n64 accumulator over those keys, rounded to E.
+template <typename E>
 __device__ __forceinline__ void to_a_frags(const float (&s)[32],
                                            uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack2<E>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // What the kernels share: the block's own 64-row tile (q rows; keys for
@@ -905,25 +949,25 @@ struct Block {
   }
 
   // Writes the thread's rows (those below `n`) of an [64 rows, DP]
-  // accumulator, times 1 / div[i], as bf16 through the strides `so`.
-  __device__ __forceinline__ void store(__nv_bfloat16* out, const View& so,
-                                        int n, int D,
-                                        const float (&acc)[NP][32],
+  // accumulator, times 1 / div[i], as E through the strides `so`.
+  template <typename E>
+  __device__ __forceinline__ void store(void* out_v, const View& so, int n,
+                                        int D, const float (&acc)[NP][32],
                                         const float (&div)[2]) const {
-    out = at(out, so, b, h);
+    E* out = at(static_cast<E*>(out_v), so, b, h);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= n) continue;
-      __nv_bfloat16* o = out + (long long)row[i] * so.r;
+      E* o = out + (long long)row[i] * so.r;
 #pragma unroll
       for (int np = 0; np < NP; ++np)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int d = np * kCols + 8 * j + 2 * (lane & 3);
           if (d < D)  // D is even, so d + 1 < D too
-            *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(
-                acc[np][4 * j + 2 * i] / div[i],
-                acc[np][4 * j + 2 * i + 1] / div[i]);
+            *reinterpret_cast<typename Elem<E>::Pair*>(o + d) =
+                Elem<E>::pair(acc[np][4 * j + 2 * i] / div[i],
+                              acc[np][4 * j + 2 * i + 1] / div[i]);
         }
     }
   }
@@ -1013,9 +1057,9 @@ __device__ __forceinline__ void rescale(float (&o)[NP][32],
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward on tensor cores: grid (BH, ceil(Sq / 64)), kThreads.
+// 16-bit forward on tensor cores: grid (BH, ceil(Sq / 64)), kThreads.
 // ---------------------------------------------------------------------------
-template <int NP>
+template <typename E, int NP>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
@@ -1050,14 +1094,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NP; ++kk)
-      wgmma_ss(s, kmajor_desc(q_s, kk),
+      wgmma_ss<E>(s, kmajor_desc(q_s, kk),
                kmajor_desc(k_s, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     online_softmax(s, m, l, alpha, p, blk, bias, scale2, k0);
     uint32_t pa[4][4];
-    to_a_frags(s, pa);
+    to_a_frags<E>(s, pa);
     rescale(o, alpha);
 
     // O += P V
@@ -1067,7 +1111,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     for (int np = 0; np < NP; ++np)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(o[np], pa[kk], nmajor_desc(v_s, np, kk));
+        wgmma_rs<E>(o[np], pa[kk], nmajor_desc(v_s, np, kk));
     wgmma_commit();
     wgmma_wait<0>();
     keep_regs(pa);
@@ -1083,7 +1127,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
     l_safe[i] = l[i] == 0.f ? 1.f : l[i];
   }
-  blk.store(p.out, p.so, p.Sq, p.D, o, l_safe);
+  blk.template store<E>(p.out, p.so, p.Sq, p.D, o, l_safe);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -1094,9 +1138,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ on tensor cores: grid (BH, ceil(Sq / 64)), kThreads.
+// 16-bit dQ on tensor cores: grid (BH, ceil(Sq / 64)), kThreads.
 // ---------------------------------------------------------------------------
-template <int NP>
+template <typename E, int NP>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     fa_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mdo,
@@ -1141,11 +1185,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NP; ++kk)
-      wgmma_ss(s, kmajor_desc(q_s, kk),
+      wgmma_ss<E>(s, kmajor_desc(q_s, kk),
                kmajor_desc(k_s, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < 4 * NP; ++kk)
-      wgmma_ss(dp, kmajor_desc(do_s, kk),
+      wgmma_ss<E>(dp, kmajor_desc(do_s, kk),
                kmajor_desc(v_s, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -1178,7 +1222,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
         }
       }
     uint32_t dsa[4][4];
-    to_a_frags(s, dsa);
+    to_a_frags<E>(s, dsa);
 #pragma unroll
     for (int np = 0; np < NP; ++np) fence_regs(dq[np]);
 
@@ -1188,7 +1232,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     for (int np = 0; np < NP; ++np)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(dq[np], dsa[kk], nmajor_desc(k_s, np, kk));
+        wgmma_rs<E>(dq[np], dsa[kk], nmajor_desc(k_s, np, kk));
     wgmma_commit();
     wgmma_wait<0>();
     keep_regs(dsa);
@@ -1197,11 +1241,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
     blk.release(st);
   }
   const float one[2] = {1.f, 1.f};
-  blk.store(p.out, p.so, p.Sq, p.D, dq, one);
+  blk.template store<E>(p.out, p.so, p.Sq, p.D, dq, one);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK, dV on tensor cores: grid (BH, ceil(Sk / 64)), kThreads.
+// 16-bit dK, dV on tensor cores: grid (BH, ceil(Sk / 64)), kThreads.
 // ---------------------------------------------------------------------------
 // The forward's main loop on the other axis. The block owns 64 keys: K and
 // V arrive once by TMA and stay in shared memory; Q and dO tiles of 64 q
@@ -1212,7 +1256,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
 //   Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (wgmma_ss, both operands K-major),
 //   Pᵀ = exp(Sᵀ·scale + bias[key] - lse[q]), Zᵀ = Pᵀ∘M,
 //   dSᵀ = Pᵀ∘(dPᵀ∘M - delta[q])·scale, on the fragments,
-//   dV += Zᵀ dO and dK += dSᵀ Q (wgmma_rs: Zᵀ and dSᵀ rounded to bf16 in
+//   dV += Zᵀ dO and dK += dSᵀ Q (wgmma_rs: Zᵀ and dSᵀ rounded to E in
 //   registers as the A operand, dO and Q read N-major).
 // The dropout mask is M(row = q, col = key), as in the reference. Under the
 // causal mask a block visits only the q tiles at or after its keys; the
@@ -1222,7 +1266,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm<NP>)
 template <int NP>
 constexpr int kDkvBlocksPerSm = NP == 1 ? 2 : 1;
 
-template <int NP>
+template <typename E, int NP>
 __global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm<NP>)
     fa_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap mk,
                          const __grid_constant__ CUtensorMap mv,
@@ -1268,10 +1312,10 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm<NP>)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4 * NP; ++kk)
-      wgmma_ss(s, kmajor_desc(k_s, kk), kmajor_desc(q_s, kk), kk > 0);
+      wgmma_ss<E>(s, kmajor_desc(k_s, kk), kmajor_desc(q_s, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < 4 * NP; ++kk)
-      wgmma_ss(dp, kmajor_desc(v_s, kk), kmajor_desc(do_s, kk), kk > 0);
+      wgmma_ss<E>(dp, kmajor_desc(v_s, kk), kmajor_desc(do_s, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -1306,8 +1350,8 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm<NP>)
         }
       }
     uint32_t za[4][4], dsa[4][4];
-    to_a_frags(s, za);
-    to_a_frags(dp, dsa);
+    to_a_frags<E>(s, za);
+    to_a_frags<E>(dp, dsa);
 #pragma unroll
     for (int np = 0; np < NP; ++np) {
       fence_regs(dk[np]);
@@ -1320,12 +1364,12 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm<NP>)
     for (int np = 0; np < NP; ++np)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(dv[np], za[kk], nmajor_desc(do_s, np, kk));
+        wgmma_rs<E>(dv[np], za[kk], nmajor_desc(do_s, np, kk));
 #pragma unroll
     for (int np = 0; np < NP; ++np)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(dk[np], dsa[kk], nmajor_desc(q_s, np, kk));
+        wgmma_rs<E>(dk[np], dsa[kk], nmajor_desc(q_s, np, kk));
     wgmma_commit();
     wgmma_wait<0>();
     keep_regs(za);
@@ -1338,8 +1382,8 @@ __global__ void __launch_bounds__(kThreads, kDkvBlocksPerSm<NP>)
     blk.release(st);
   }
   const float one[2] = {1.f, 1.f};
-  blk.store(p.out, p.so, p.Sk, p.D, dk, one);
-  blk.store(p.out2, p.so2, p.Sk, p.D, dv, one);
+  blk.template store<E>(p.out, p.so, p.Sk, p.D, dk, one);
+  blk.template store<E>(p.out2, p.so2, p.Sk, p.D, dv, one);
 }
 
 }  // namespace tc
@@ -1390,10 +1434,11 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A TMA map over a bf16 [B, H, S, D] view with strides v: boxes of 64
-// columns (128 bytes, swizzled) by `rows` rows; out-of-range reads as 0.
-cudaError_t bf16_map(CUtensorMap* map, const void* ptr, const Args& a, int S,
-                     const View& v, int rows) {
+// A TMA map over a 16-bit [B, H, S, D] view of E with strides v: boxes of
+// 64 columns (128 bytes, swizzled) by `rows` rows; out-of-range reads as 0.
+template <typename E>
+cudaError_t tma_map(CUtensorMap* map, const void* ptr, const Args& a, int S,
+                    const View& v, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)a.D, (cuuint64_t)S,
@@ -1403,7 +1448,10 @@ cudaError_t bf16_map(CUtensorMap* map, const void* ptr, const Args& a, int S,
   const cuuint32_t box[4] = {(cuuint32_t)tc::kCols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map,
+      tc::Elem<E>::kHalf ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1412,7 +1460,7 @@ cudaError_t bf16_map(CUtensorMap* map, const void* ptr, const Args& a, int S,
 
 tc::Params tc_params(const Args& a, void* out, const View& so, void* lse,
                      const void* delta, const void* bias) {
-  return tc::Params{static_cast<__nv_bfloat16*>(out),
+  return tc::Params{out,
                     so,
                     nullptr,
                     View{0, 0, 0},
@@ -1428,18 +1476,18 @@ tc::Params tc_params(const Args& a, void* out, const View& so, void* lse,
                     a.drop};
 }
 
-template <int NP>
+template <typename E, int NP>
 cudaError_t launch_fwd_tc(const Args& a, const void* q, const void* k,
                           const void* v, const void* bias, void* o, void* lse,
                           const long long* st) {
   CUtensorMap mq, mk, mv;
   cudaError_t e;
-  if ((e = bf16_map(&mq, q, a, a.Sq, view(st, 0), tc::kRowsQ)) ||
-      (e = bf16_map(&mk, k, a, a.Sk, view(st, 1), tc::kRowsK)) ||
-      (e = bf16_map(&mv, v, a, a.Sk, view(st, 2), tc::kRowsK)))
+  if ((e = tma_map<E>(&mq, q, a, a.Sq, view(st, 0), tc::kRowsQ)) ||
+      (e = tma_map<E>(&mk, k, a, a.Sk, view(st, 1), tc::kRowsK)) ||
+      (e = tma_map<E>(&mv, v, a, a.Sk, view(st, 2), tc::kRowsK)))
     return e;
   constexpr size_t smem = tc::Layout<NP, 1>::kBytes;
-  auto kernel = tc::fa_fwd_tc_kernel<NP>;
+  auto kernel = tc::fa_fwd_tc_kernel<E, NP>;
   if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
 
   kernel<<<dim3(a.B * a.H, (a.Sq + tc::kRowsQ - 1) / tc::kRowsQ),
@@ -1448,20 +1496,20 @@ cudaError_t launch_fwd_tc(const Args& a, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-template <int NP>
+template <typename E, int NP>
 cudaError_t launch_dq_tc(const Args& a, const void* q, const void* k,
                          const void* v, const void* bias, const void* dout,
                          const void* lse, const void* delta, void* dq,
                          const long long* st) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
-  if ((e = bf16_map(&mq, q, a, a.Sq, view(st, 0), tc::kRowsQ)) ||
-      (e = bf16_map(&mk, k, a, a.Sk, view(st, 1), tc::kRowsK)) ||
-      (e = bf16_map(&mv, v, a, a.Sk, view(st, 2), tc::kRowsK)) ||
-      (e = bf16_map(&mdo, dout, a, a.Sq, view(st, 3), tc::kRowsQ)))
+  if ((e = tma_map<E>(&mq, q, a, a.Sq, view(st, 0), tc::kRowsQ)) ||
+      (e = tma_map<E>(&mk, k, a, a.Sk, view(st, 1), tc::kRowsK)) ||
+      (e = tma_map<E>(&mv, v, a, a.Sk, view(st, 2), tc::kRowsK)) ||
+      (e = tma_map<E>(&mdo, dout, a, a.Sq, view(st, 3), tc::kRowsQ)))
     return e;
   constexpr size_t smem = tc::Layout<NP, 2>::kBytes;
-  auto kernel = tc::fa_bwd_dq_tc_kernel<NP>;
+  auto kernel = tc::fa_bwd_dq_tc_kernel<E, NP>;
   if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
 
   kernel<<<dim3(a.B * a.H, (a.Sq + tc::kRowsQ - 1) / tc::kRowsQ),
@@ -1471,29 +1519,29 @@ cudaError_t launch_dq_tc(const Args& a, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-template <int NP>
+template <typename E, int NP>
 cudaError_t launch_dkv_tc(const Args& a, const void* q, const void* k,
                           const void* v, const void* bias, const void* dout,
                           const void* lse, const void* delta, void* dk,
                           void* dv, const long long* st) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
-  if ((e = bf16_map(&mk, k, a, a.Sk, view(st, 1), tc::kRowsK)) ||
-      (e = bf16_map(&mv, v, a, a.Sk, view(st, 2), tc::kRowsK)))
+  if ((e = tma_map<E>(&mk, k, a, a.Sk, view(st, 1), tc::kRowsK)) ||
+      (e = tma_map<E>(&mv, v, a, a.Sk, view(st, 2), tc::kRowsK)))
     return e;
   if (a.Sq == 0) {  // no q tile is visited: dk = dv = 0
     mq = mdo = mk;
-  } else if ((e = bf16_map(&mq, q, a, a.Sq, view(st, 0), tc::kRowsQ)) ||
-             (e = bf16_map(&mdo, dout, a, a.Sq, view(st, 3), tc::kRowsQ))) {
+  } else if ((e = tma_map<E>(&mq, q, a, a.Sq, view(st, 0), tc::kRowsQ)) ||
+             (e = tma_map<E>(&mdo, dout, a, a.Sq, view(st, 3), tc::kRowsQ))) {
     return e;
   }
   constexpr size_t smem = tc::Layout<NP, 2, 2>::kBytes;
-  auto kernel = tc::fa_bwd_dkv_tc_kernel<NP>;
+  auto kernel = tc::fa_bwd_dkv_tc_kernel<E, NP>;
   if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
 
   tc::Params prm = tc_params(a, dk, view(st, 4), const_cast<void*>(lse),
                              delta, bias);
-  prm.out2 = static_cast<__nv_bfloat16*>(dv);
+  prm.out2 = dv;
   prm.so2 = view(st, 5);
   kernel<<<dim3(a.B * a.H, (a.Sk + tc::kRowsK - 1) / tc::kRowsK),
            tc::kThreads, smem, a.stream>>>(mk, mv, mq, mdo, prm);
@@ -1566,8 +1614,8 @@ cudaError_t make_args(Args* a, int dtype, int causal, int dropout, int B,
                       int H, int Sq, int Sk, int D, float sm_scale,
                       const uint32_t* seed,
                       uint32_t thresh, float keep_scale, void* stream) {
-  if (dtype < 0 || dtype > 1 || B < 0 || H <= 0 || Sq < 0 || Sk <= 0 ||
-      D <= 0 || D > kMaxD || (dtype == 1 && D % 8 != 0) ||
+  if (dtype < 0 || dtype > 2 || B < 0 || H <= 0 || Sq < 0 || Sk <= 0 ||
+      D <= 0 || D > kMaxD || (dtype != 0 && D % 8 != 0) ||
       (Sq + kTile - 1) / kTile > 65535 || (Sk + kTile - 1) / kTile > 65535)
     return cudaErrorInvalidValue;
   a->B = B;
@@ -1585,15 +1633,15 @@ cudaError_t make_args(Args* a, int dtype, int causal, int dropout, int B,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. seed points at the int32 dropout seed on
-// the device (read by the kernels, taken as uint32 as the reference does;
-// null when dropout is 0); thresh and keep_scale are the reference's
-// min(int(p * 2^32), 2^32 - 1) and float32(1 / (1 - p)). `strides` holds
-// the (batch, head, row) element strides of each [B, H, S, D] operand in
-// the order of the pointer arguments, outputs last. Each function returns
-// the cudaError_t of its launch (0 = launched). bfloat16 launches the
-// tensor-core kernels, float32 the SIMT kernels; there is no fallback from
-// one to the other.
+// dtype: 0 float32, 1 bfloat16, 2 float16. seed points at the int32
+// dropout seed on the device (read by the kernels, taken as uint32 as the
+// reference does; null when dropout is 0); thresh and keep_scale are the
+// reference's min(int(p * 2^32), 2^32 - 1) and float32(1 / (1 - p)).
+// `strides` holds the (batch, head, row) element strides of each
+// [B, H, S, D] operand in the order of the pointer arguments, outputs last.
+// Each function returns the cudaError_t of its launch (0 = launched).
+// bfloat16 and float16 launch the tensor-core kernels, float32 the SIMT
+// kernels; there is no fallback from one to the other.
 extern "C" int fa_forward(int dtype, int causal, int dropout, int B, int H,
                           int Sq, int Sk, int D, float sm_scale,
                           const uint32_t* seed,
@@ -1606,9 +1654,14 @@ extern "C" int fa_forward(int dtype, int causal, int dropout, int B, int H,
                                   sm_scale, seed, thresh, keep_scale, stream);
   if (e != cudaSuccess) return (int)e;
   if (B == 0 || Sq == 0) return 0;
+#define FA_FWD(KERNEL) KERNEL(a, q, k, v, bias, o, lse, strides)
   if (dtype == 1)
-    return (int)(D <= 64 ? launch_fwd_tc<1>(a, q, k, v, bias, o, lse, strides)
-                         : launch_fwd_tc<2>(a, q, k, v, bias, o, lse, strides));
+    return (int)(D <= 64 ? FA_FWD((launch_fwd_tc<__nv_bfloat16, 1>))
+                         : FA_FWD((launch_fwd_tc<__nv_bfloat16, 2>)));
+  if (dtype == 2)
+    return (int)(D <= 64 ? FA_FWD((launch_fwd_tc<__half, 1>))
+                         : FA_FWD((launch_fwd_tc<__half, 2>)));
+#undef FA_FWD
   return (int)(D <= 64
                    ? launch_fwd<float, 64>(a, q, k, v, bias, o, lse, strides)
                    : launch_fwd<float, 128>(a, q, k, v, bias, o, lse, strides));
@@ -1630,8 +1683,11 @@ extern "C" int fa_bwd_dkv(int dtype, int causal, int dropout, int B, int H,
 #define FA_DKV(KERNEL) \
   KERNEL(a, q, k, v, bias, dout, lse, delta, dk, dv, strides)
   if (dtype == 1)
-    return (int)(D <= 64 ? FA_DKV(launch_dkv_tc<1>)
-                         : FA_DKV(launch_dkv_tc<2>));
+    return (int)(D <= 64 ? FA_DKV((launch_dkv_tc<__nv_bfloat16, 1>))
+                         : FA_DKV((launch_dkv_tc<__nv_bfloat16, 2>)));
+  if (dtype == 2)
+    return (int)(D <= 64 ? FA_DKV((launch_dkv_tc<__half, 1>))
+                         : FA_DKV((launch_dkv_tc<__half, 2>)));
   return (int)(D <= 64 ? FA_DKV((launch_dkv<float, 64>))
                        : FA_DKV((launch_dkv<float, 128>)));
 #undef FA_DKV
@@ -1652,7 +1708,11 @@ extern "C" int fa_bwd_dq(int dtype, int causal, int dropout, int B, int H,
 #define FA_DQ(KERNEL) \
   KERNEL(a, q, k, v, bias, dout, lse, delta, dq, strides)
   if (dtype == 1)
-    return (int)(D <= 64 ? FA_DQ(launch_dq_tc<1>) : FA_DQ(launch_dq_tc<2>));
+    return (int)(D <= 64 ? FA_DQ((launch_dq_tc<__nv_bfloat16, 1>))
+                         : FA_DQ((launch_dq_tc<__nv_bfloat16, 2>)));
+  if (dtype == 2)
+    return (int)(D <= 64 ? FA_DQ((launch_dq_tc<__half, 1>))
+                         : FA_DQ((launch_dq_tc<__half, 2>)));
   return (int)(D <= 64 ? FA_DQ((launch_dq<float, 64>))
                        : FA_DQ((launch_dq<float, 128>)));
 #undef FA_DQ

@@ -5,10 +5,13 @@
 a wrapper of the user optimizer, applied in a fixed order after the
 conflicting knobs are turned off.
 
-Ported: AMP (bf16 O2, `fluid.contrib.mixed_precision.decorate`). The
+Ported: LAMB (the user optimizer swapped for `LambOptimizer`, keeping
+Adam's betas and epsilon, the regularization and the clip), LARS (a
+Momentum optimizer swapped for `LarsMomentumOptimizer`) and AMP
+(`fluid.contrib.mixed_precision.decorate` with `amp_configs`). The
 wrappers whose inner optimizers are not ported yet (recompute, gradient
-merge, pipeline, LAMB, LARS) raise where they would apply, naming
-ROADMAP Queue 1 #5.
+merge, pipeline) raise where they would apply, naming ROADMAP Queue 1
+#5.
 """
 from __future__ import annotations
 
@@ -46,6 +49,43 @@ class _NotPortedMeta(MetaOptimizerBase):
             "(ROADMAP Queue 1 #5)" % (self.name, self._inner))
 
 
+class LambMetaOptimizer(MetaOptimizerBase):
+    name = "lamb"
+
+    def can_apply(self, strategy, optimizer):
+        return strategy.lamb and \
+            not type(optimizer).__name__.startswith("Lamb")
+
+    def apply(self, strategy, optimizer):
+        from ..fluid.optimizer import AdamOptimizer, LambOptimizer
+
+        kw = {}
+        if isinstance(optimizer, AdamOptimizer):
+            kw = {"beta1": optimizer._beta1, "beta2": optimizer._beta2,
+                  "epsilon": optimizer._epsilon}
+        return LambOptimizer(
+            learning_rate=optimizer._learning_rate,
+            regularization=getattr(optimizer, "regularization", None),
+            grad_clip=getattr(optimizer, "_grad_clip", None), **kw)
+
+
+class LarsMetaOptimizer(MetaOptimizerBase):
+    name = "lars"
+
+    def can_apply(self, strategy, optimizer):
+        return strategy.lars and \
+            type(optimizer).__name__.startswith("Momentum")
+
+    def apply(self, strategy, optimizer):
+        from ..fluid.optimizer import LarsMomentumOptimizer
+
+        return LarsMomentumOptimizer(
+            learning_rate=optimizer._learning_rate,
+            momentum=getattr(optimizer, "_momentum", 0.9),
+            regularization=getattr(optimizer, "regularization", None),
+            grad_clip=getattr(optimizer, "_grad_clip", None))
+
+
 class AMPMetaOptimizer(MetaOptimizerBase):
     name = "amp"
 
@@ -63,10 +103,8 @@ class AMPMetaOptimizer(MetaOptimizerBase):
 # the cast policy sees the final graph (reference: strategy_compiler
 # ordering)
 _META_ORDER: List[MetaOptimizerBase] = [
-    _NotPortedMeta("lamb", "LambOptimizer", lambda s, o: s.lamb and not
-                   type(o).__name__.startswith("Lamb")),
-    _NotPortedMeta("lars", "LarsMomentumOptimizer", lambda s, o: s.lars and
-                   type(o).__name__.startswith("Momentum")),
+    LambMetaOptimizer(),
+    LarsMetaOptimizer(),
     _NotPortedMeta("recompute", "RecomputeOptimizer", lambda s, o:
                    s.recompute and s.recompute_configs.get("checkpoints")),
     _NotPortedMeta("gradient_merge", "GradientMergeOptimizer",

@@ -6,9 +6,11 @@ operators), the layers of the MNIST MLP, BERT, ResNet and the WMT
 Transformer (`fluid.layers`, with `layers.Scan`, the collectives, the
 control flow `While`, `while_loop`, `cond`, `switch_case` and `case`,
 the learning-rate schedules and `rnn_decode`), `append_backward`, the
-eager `Executor` (with `CompiledProgram.with_data_parallel`), the SGD,
-Momentum and Adam optimizers, weight decay (`regularizer`),
-`fuse_optimizer_ops`, bf16 mixed precision (`contrib.mixed_precision`),
+eager `Executor` (with `CompiledProgram.with_data_parallel`), the
+optimizers of the reference's `optimizer.py:37-718` (SGD to Dpsgd),
+gradient clipping (`clip`), weight decay (`regularizer`),
+`fuse_optimizer_ops`, bf16 and float16 mixed precision with loss scaling
+(`contrib.mixed_precision`),
 saving and loading (`io`, in the reference's formats), numbered
 checkpoints (`checkpoint`) and `Executor.train_from_dataset`. What is
 not ported yet is absent.
@@ -30,6 +32,10 @@ from . import layers  # noqa: F401
 from . import initializer  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
+from . import clip  # noqa: F401
+from .clip import (  # noqa: F401
+    GradientClipByValue, GradientClipByNorm, GradientClipByGlobalNorm,
+)
 from . import contrib  # noqa: F401
 from .fuse_optimizer import fuse_optimizer_ops  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401

@@ -1,10 +1,11 @@
 """AMP op lists (counterpart:
 `paddle_tpu/fluid/contrib/mixed_precision/fp16_lists.py`): which ops run
 in the 16-bit compute dtype, which in float32, and which follow their
-inputs. The fp8 subset of the reference is not ported."""
+inputs. The same lists serve bfloat16 and float16. The fp8 subset of the
+reference is not ported (ROADMAP Queue 1 #10)."""
 from __future__ import annotations
 
-# product-bound ops: run in the compute dtype (bf16)
+# product-bound ops: run in the 16-bit compute dtype
 white_list = {
     "conv2d", "depthwise_conv2d", "conv2d_transpose", "matmul", "matmul_v2",
     "mul",

@@ -2,17 +2,18 @@
 `paddle_tpu/fluid/contrib/mixed_precision/fp16_utils.py`).
 
 The white/black-list casts are applied op by op as the block runs
-(`fluid/lowering._apply_amp_casts`); this module makes the rewrite that
-changes the program's state: `rewrite_master_weights`, fp32 master
-weights with bf16 live parameters. In a data-parallel program the
-sharded update keeps each rank's 1/N slice of the masters
-(`parallel/sharded_update.py`, which finds them through
-``program._amp_master_of`` and the ``__amp_param_cast__`` casts).
-Dynamic loss scaling (fp16) and the fp8 tier are not ported.
+(`fluid/lowering._apply_amp_casts`); this module makes the rewrites that
+change the program's state: `rewrite_master_weights`, fp32 master
+weights with 16-bit (bf16 or float16) live parameters, and
+`wire_dynamic_loss_scaling`, float16's loss-scale state. In a
+data-parallel program the sharded update keeps each rank's 1/N slice of
+the masters (`parallel/sharded_update.py`, which finds them through
+``program._amp_master_of`` and the ``__amp_param_cast__`` casts). The
+fp8 tier is not ported (ROADMAP Queue 1 #10).
 """
 from __future__ import annotations
 
-from ...framework import grad_var_name
+from ...framework import grad_var_name, unique_name
 from ....core.types import normalize_dtype
 
 MASTER_SUFFIX = "@MASTER"
@@ -102,3 +103,49 @@ def _create_master(program, startup_program, v, compute_dtype):
     if g is not None:
         g.dtype = compute_dtype
     return m
+
+
+def wire_dynamic_loss_scaling(program, startup_program, cfg):
+    """Create the persistable loss-scale state (the scale, float32, and
+    the good and bad step counters, int32; each [1], filled by the
+    startup program) and attach the ``dynamic_loss_scaling`` attr to the
+    backward op. The state rides the backward op's ``LossScaleState``
+    input and output slots, so `lowering.analyze_block` threads it as
+    scope state: it persists across steps and through `fluid.io` and
+    checkpoints like any optimizer state. Returns the attr dict (None
+    when the program has no backward section)."""
+    block = program.global_block()
+    bop = next((op for op in block.ops if op.type == "backward"), None)
+    if bop is None:
+        return None
+    sb = startup_program.global_block() if startup_program is not None \
+        else None
+
+    def state(stem, dtype, value):
+        v = block.create_var(name=unique_name(stem), shape=[1],
+                             dtype=dtype, persistable=True)
+        v.stop_gradient = True
+        if sb is not None:
+            sb.create_var(name=v.name, shape=[1], dtype=dtype,
+                          persistable=True)
+            sb.append_op(type="fill_constant", outputs={"Out": [v.name]},
+                         attrs={"shape": [1], "dtype": dtype,
+                                "value": float(value)})
+        return v.name
+
+    dls = {
+        "scale": state("loss_scaling", "float32",
+                       cfg["init_loss_scaling"]),
+        "good": state("num_good_steps", "int32", 0),
+        "bad": state("num_bad_steps", "int32", 0),
+        "incr_every_n_steps": int(cfg["incr_every_n_steps"]),
+        "decr_every_n_nan_or_inf": int(cfg["decr_every_n_nan_or_inf"]),
+        "incr_ratio": float(cfg["incr_ratio"]),
+        "decr_ratio": float(cfg["decr_ratio"]),
+    }
+    bop.attrs["dynamic_loss_scaling"] = dls
+    extra = [dls["scale"], dls["good"], dls["bad"]]
+    bop.input_names["LossScaleState"] = list(extra)
+    bop.output_names["LossScaleState"] = list(extra)
+    program._version += 1
+    return dls

@@ -531,17 +531,17 @@ def save(program, model_path):
 
 
 def load(program, model_path, executor=None, var_list=None):
-    """Load ``.pdparams`` and ``.pdopt`` (where present) into the scope
-    (only the vars of `var_list`, if given)."""
+    """Set every key of ``.pdparams`` and ``.pdopt`` (where present) in
+    the scope, as the reference does: `var_list` selects nothing here
+    (`load_program_state` honours it), and `program` only lends the dtype
+    of a var the scope does not hold yet."""
     program = _main(program)
     scope = global_scope()
-    keep = set(_var_names(var_list)) if var_list else None
     values = {}
     for suffix in (".pdparams", ".pdopt"):
         p = model_path + suffix
         if os.path.exists(p):
-            values.update((k, v) for k, v in _load_pickle(p).items()
-                          if keep is None or k in keep)
+            values.update(_load_pickle(p))
     _bind(program, scope, values, _device_of(executor, scope, values))
 
 

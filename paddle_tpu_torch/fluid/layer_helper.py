@@ -39,6 +39,16 @@ class LayerHelper:
     def bias_attr(self):
         return ParamAttr._to_attr(self.kwargs.get("bias_attr"))
 
+    def multiple_param_attr(self, length):
+        """One param attr an input: a named attr names only the first, its
+        copies auto-name (reusing the name would alias every weight)."""
+        attr = self.param_attr
+        if isinstance(attr, ParamAttr):
+            attr = [attr] + [ParamAttr(**{
+                k: v for k, v in attr.__dict__.items() if k != "name"})
+                for _ in range(length - 1)]
+        return attr
+
     # -- creation ----------------------------------------------------------
     def create_parameter(self, attr, shape, dtype="float32", is_bias=False,
                          default_initializer=None, stop_gradient=False):

@@ -8,7 +8,10 @@ Transformer `one_hot`, `label_smooth`, `unsqueeze`, `squeeze`, `stack`,
 `where`, `elementwise_sub` / `_max` / `_min` / `_pow` / `_mod` /
 `_floordiv`, the activations `exp`, `floor` and `cos` (the learning
 rate schedules'), and for `rnn_decode` `sigmoid`, `log_softmax`, `split`
-and `expand`. Each builder
+and `expand`; for the float16 AMP slice `fc` over several inputs
+(`sum`), the activations of the reference's list (`sqrt` ... `sin`),
+`maximum`, `minimum`, the `reduce_*` family, `clip`, `clip_by_norm` and
+`l2_normalize`. Each builder
 creates its params through LayerHelper (init ops go to the startup
 program) and appends its compute op."""
 from __future__ import annotations
@@ -29,7 +32,12 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "where", "elementwise_sub", "elementwise_max", "elementwise_min",
            "elementwise_pow", "elementwise_mod", "elementwise_floordiv",
            "exp", "floor", "cos", "sigmoid", "log_softmax", "split",
-           "expand"]
+           "expand", "sqrt", "square", "log", "abs", "ceil", "round",
+           "reciprocal", "leaky_relu", "elu", "relu6", "softplus",
+           "softsign", "swish", "hard_sigmoid", "hard_swish", "logsigmoid",
+           "erf", "sin", "maximum", "minimum", "reduce_mean", "reduce_max",
+           "reduce_min", "reduce_prod", "reduce_all", "reduce_any", "clip",
+           "clip_by_norm", "l2_normalize"]
 
 
 def _single(op_type, inputs, attrs, dtype=None, helper=None):
@@ -39,26 +47,29 @@ def _single(op_type, inputs, attrs, dtype=None, helper=None):
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, name=None):
-    """Fully-connected (reference: layers/nn.py fc) = mul + bias + act.
-    One input only: several inputs are summed by the `sum` op, which is
-    not ported yet."""
-    if isinstance(input, (list, tuple)):
-        if len(input) != 1:
-            raise NotImplementedError(
-                "fc over several inputs needs the sum op, not ported yet")
-        input = input[0]
+    """Fully-connected (reference: layers/nn.py fc) = mul + bias + act;
+    over several inputs, one weight an input and their products summed
+    (`sum`)."""
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
-    w_attr = helper.param_attr
-    if isinstance(w_attr, list):
-        w_attr = w_attr[0]
-    in_dim = int(np.prod(input.shape[num_flatten_dims:]))
-    w = helper.create_parameter(w_attr, shape=[in_dim, size],
-                                dtype=input.dtype)
-    pre_bias = _single("mul", {"X": [input], "Y": [w]},
-                       {"x_num_col_dims": num_flatten_dims,
-                        "y_num_col_dims": 1}, dtype=input.dtype,
-                       helper=helper)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = helper.multiple_param_attr(len(inputs))
+    if not isinstance(param_attrs, (list, tuple)):
+        param_attrs = [param_attrs] * len(inputs)
+    mul_results = []
+    for inp, w_attr in zip(inputs, param_attrs):
+        in_dim = int(np.prod(inp.shape[num_flatten_dims:]))
+        w = helper.create_parameter(w_attr, shape=[in_dim, size],
+                                    dtype=inp.dtype)
+        mul_results.append(_single(
+            "mul", {"X": [inp], "Y": [w]},
+            {"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+            dtype=inp.dtype, helper=helper))
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = _single("sum", {"X": mul_results}, {},
+                           dtype=mul_results[0].dtype, helper=helper)
     pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
@@ -213,7 +224,9 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
 
 def _make_act(op_type):
     def f(x, name=None, **kwargs):
-        attrs = {k: v for k, v in kwargs.items() if k == "approximate"}
+        attrs = {k: v for k, v in kwargs.items()
+                 if k in ("alpha", "beta", "threshold", "slope", "offset",
+                          "approximate", "scale")}
         return _single(op_type, {"X": [x]}, attrs, dtype=x.dtype)
 
     f.__name__ = op_type
@@ -227,6 +240,24 @@ sigmoid = _make_act("sigmoid")
 exp = _make_act("exp")
 floor = _make_act("floor")
 cos = _make_act("cos")
+sqrt = _make_act("sqrt")
+square = _make_act("square")
+log = _make_act("log")
+abs = _make_act("abs")
+ceil = _make_act("ceil")
+round = _make_act("round")
+reciprocal = _make_act("reciprocal")
+leaky_relu = _make_act("leaky_relu")
+elu = _make_act("elu")
+relu6 = _make_act("relu6")
+softplus = _make_act("softplus")
+softsign = _make_act("softsign")
+swish = _make_act("swish")
+hard_sigmoid = _make_act("hard_sigmoid")
+hard_swish = _make_act("hard_swish")
+logsigmoid = _make_act("logsigmoid")
+erf = _make_act("erf")
+sin = _make_act("sin")
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
@@ -258,13 +289,59 @@ elementwise_mod = _make_elementwise("elementwise_mod")
 elementwise_floordiv = _make_elementwise("elementwise_floordiv")
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    if dim is None:
-        attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
-    else:
-        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
-                 "keep_dim": keep_dim, "reduce_all": False}
-    return _single("reduce_sum", {"X": [input]}, attrs, dtype=input.dtype)
+def _make_reduce(op_type):
+    def f(input, dim=None, keep_dim=False, name=None):
+        if dim is None:
+            attrs = {"reduce_all": True, "dim": [0], "keep_dim": keep_dim}
+        else:
+            attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                     "keep_dim": keep_dim, "reduce_all": False}
+        return _single(op_type, {"X": [input]}, attrs, dtype=input.dtype)
+
+    f.__name__ = op_type
+    return f
+
+
+reduce_sum = _make_reduce("reduce_sum")
+reduce_mean = _make_reduce("reduce_mean")
+reduce_max = _make_reduce("reduce_max")
+reduce_min = _make_reduce("reduce_min")
+reduce_prod = _make_reduce("reduce_prod")
+reduce_all = _make_reduce("reduce_all")
+reduce_any = _make_reduce("reduce_any")
+
+
+def maximum(x, y, name=None):
+    return _single("maximum", {"X": [x], "Y": [y]}, {}, dtype=x.dtype)
+
+
+def minimum(x, y, name=None):
+    return _single("minimum", {"X": [x], "Y": [y]}, {}, dtype=x.dtype)
+
+
+def clip(x, min, max, name=None):
+    return _single("clip", {"X": [x]}, {"min": float(min),
+                                        "max": float(max)}, dtype=x.dtype)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _single("clip_by_norm", {"X": [x]},
+                   {"max_norm": float(max_norm)}, dtype=x.dtype)
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / sqrt(sum(x^2, axis) + epsilon), as the reference composes it."""
+    sq = _single("square", {"X": [x]}, {}, dtype=x.dtype)
+    ssum = reduce_sum(sq, dim=axis, keep_dim=True)
+    norm = _single("sqrt", {"X": [elementwise_add(
+        ssum, fill_like_eps(ssum, epsilon))]}, {}, dtype=x.dtype)
+    return elementwise_div(x, norm)
+
+
+def fill_like_eps(ref, eps):
+    from . import tensor as t
+
+    return t.fill_constant(shape=[1], dtype=ref.dtype, value=eps)
 
 
 def slice(input, axes, starts, ends):

@@ -1,8 +1,8 @@
 """Block execution: a Program block -> one Python function that runs its
 ops op by op, and the compiled entry the executor keeps for it
 (counterpart: `paddle_tpu/fluid/lowering.py`, its core with the
-control-flow ops, the bf16 AMP cast policy and the data-parallel gradient
-sync, without the sharding, sparse, fp8, gradient-merge and loss-scaling
+control-flow ops, the AMP cast policy, float16 loss scaling and the
+data-parallel gradient sync, without the sparse, fp8 and gradient-merge
 branches).
 
 The reference traces the op list into one jitted XLA computation
@@ -47,9 +47,24 @@ key, so every layer draws its own dropout mask and a recomputed
 iteration draws the same one.
 
 AMP (`fluid.contrib.mixed_precision`): the program's white-list ops get
-their float32 inputs cast to the compute dtype (bf16) and its black-list
-ops their bf16 inputs cast to float32, op by op as they run (the
-reference applies the same casts while tracing).
+their float32 inputs cast to the compute dtype (bf16 or float16) and its
+black-list ops their 16-bit inputs cast to float32, op by op as they run
+(the reference applies the same casts while tracing). float16 loss
+scaling (the reference's `_run_loss_scaled_post`): the loss's cotangent
+is multiplied by the scale, read from its scope tensor on the device (so
+a replay uses the scale of that step, not the capture's), the gradients
+are exchanged, checked for non-finite values (the count all-reduced over
+the data-parallel ring, within the pod and across pods on a hybrid
+world) and unscaled in float32. The reference skips the post-backward
+section with `lax.cond`; a captured block cannot branch on the host, so
+the port runs the section on every step and rank (every collective runs
+everywhere, as the reference's psum'd predicate ensures) and then
+selects, with `torch.where` on the device, every var the section wrote
+back to its value before the section on an overflow (params, masters,
+moments, counters, the lr: bit for bit; a var the section created reads
+zeros). The scale state machine updates after that, outside the
+selection (`_loss_scaled_post`). Static loss scaling multiplies and
+divides by a constant and never skips.
 
 Data parallelism (`CompiledProgram.with_data_parallel`, fleet): the
 reference lowers a data-parallel block under `shard_map` over the mesh;
@@ -79,8 +94,7 @@ waited for before the post-backward section; with
 instead. The values are the same either way. `Executor.overlap_report`
 reads what the last run (or the capture) launched when. A collective
 that fails raises; nothing falls back to the replicated path mid-step.
-The port has no dynamic loss scaling (bf16 needs none; float16 raises),
-so there is no found-inf predicate to reduce across ranks. Gloo
+Gloo
 collectives run on the host, so a data-parallel block over gloo runs
 eagerly; over NCCL it is captured with its collectives at any number of
 ranks (with `FLAGS_cudnn_deterministic` a captured 4-card job equals an
@@ -96,6 +110,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import warnings
 from typing import Dict, List, Optional
 
 import torch
@@ -661,6 +676,93 @@ def _has_explicit_sync(ops, bwd_idx):
         for op in post)
 
 
+def _full(like, value, dtype):
+    """A 0-d `dtype` tensor of `value` on `like`'s device (a fill, which
+    a CUDA graph can capture)."""
+    return torch.full((), value, dtype=dtype, device=like.device)
+
+
+def _amp_found_inf(grads, ring):
+    """Whether any value of this step's exchanged gradients is not finite,
+    a 0-d bool on the device: the non-finite count of each rank's own
+    values (under the sharded update its 1/N shards), summed over the
+    data-parallel `ring` (within the pod, then across pods), so that every
+    rank decides alike."""
+    total = None
+    for g in grads:
+        v = g.vec if isinstance(g, _su.ShardVal) else g
+        c = torch.sum(~torch.isfinite(v), dtype=torch.float32)
+        total = c if total is None else total + c
+    if ring is not None:
+        total = collective_ops.all_reduce(total, ring)
+    return total > 0
+
+
+def _amp_unscale(g, scale):
+    """grad / loss scale, computed in float32 (a float16 division would
+    lose again the low bits the scaling kept), in the grad's dtype."""
+    if isinstance(g, _su.ShardVal):
+        return _su.ShardVal(_amp_unscale(g.vec, scale), g.shape)
+    return (g.to(torch.float32) / scale).to(g.dtype)
+
+
+def _select_old(found, old, new, plan):
+    """`old` where `found`, else `new`, in old's dtype. Where either is a
+    ShardVal (an AMP param the section re-derived from its sharded
+    master, gathered at the step's exit) the shards are selected, the
+    whole value taken as this rank's slice of it."""
+    if isinstance(old, _su.ShardVal) or isinstance(new, _su.ShardVal):
+        shape = (old if isinstance(old, _su.ShardVal) else new).shape
+        o, n = (v.vec if isinstance(v, _su.ShardVal)
+                else _su.shard_slice(v, plan) for v in (old, new))
+        return _su.ShardVal(_select_old(found, o, n, plan), shape)
+    return torch.where(found, old, new.to(old.dtype))
+
+
+def _loss_scaled_post(run_post, dls, env, found_inf, plan=None):
+    """float16 dynamic loss scaling around the post-backward section
+    (`run_post(env)`): the section runs, then every var it wrote takes
+    back its value from before the section where `found_inf` (a var it
+    created: zeros), and the scale state machine advances:
+
+      clean step:    good += 1; good == incr_every_n_steps
+                     -> scale *= incr_ratio, good = 0
+      overflow step: bad += 1, good = 0; bad == decr_every_n_nan_or_inf
+                     -> scale *= decr_ratio, bad = 0
+    """
+    before = dict(env)
+    run_post(env)
+    for n, v in list(env.items()):
+        old = before.get(n)
+        if old is v or not isinstance(v, (torch.Tensor, _su.ShardVal)):
+            continue
+        if old is None:
+            env[n] = _select_old(found_inf, torch.zeros_like(v), v, plan) \
+                if isinstance(v, torch.Tensor) else v
+        else:
+            env[n] = _select_old(found_inf, old, v, plan)
+    scale_n, good_n, bad_n = dls["scale"], dls["good"], dls["bad"]
+    f32, i32 = torch.float32, torch.int32
+    scale = env[scale_n].reshape(()).to(f32)
+    good = env[good_n].reshape(()).to(i32)
+    bad = env[bad_n].reshape(()).to(i32)
+    zero = _full(good, 0, i32)
+    new_good = torch.where(found_inf, zero, good + 1)
+    new_bad = torch.where(found_inf, bad + 1, zero)
+    grow = ~found_inf & (new_good >= int(dls.get("incr_every_n_steps",
+                                                 1000)))
+    shrink = found_inf & (new_bad >= int(dls.get("decr_every_n_nan_or_inf",
+                                                 2)))
+    new_scale = torch.where(
+        shrink, scale * _full(scale, dls.get("decr_ratio", 0.8), f32),
+        torch.where(grow, scale * _full(scale, dls.get("incr_ratio", 2.0),
+                                        f32), scale))
+    for name, val in ((scale_n, new_scale),
+                      (good_n, torch.where(grow, zero, new_good)),
+                      (bad_n, torch.where(shrink, zero, new_bad))):
+        env[name] = val.reshape(env[name].shape).to(env[name].dtype)
+
+
 def build_block_fn(program, block, feed_names, fetch_names,
                    state_in, state_out, device, ring=None, shard_plan=None):
     """The function `fn(feeds, states, seed, keep=None) -> (fetches,
@@ -684,9 +786,10 @@ def build_block_fn(program, block, feed_names, fetch_names,
         raise NotImplementedError("multiple backward sections in one block")
     bwd_idx = bwd_indices[0] if bwd_indices else None
     amp = _amp_trace_policy(program)
-    sync_ring = ring if (
-        ring is not None and ring.size > 1
-        and getattr(program, "_data_parallel", False)) else None
+    dp_ring = ring if ring is not None and getattr(
+        program, "_data_parallel", False) else None
+    sync_ring = dp_ring if dp_ring is not None and dp_ring.size > 1 \
+        else None
     # fleet's programs sum their own gradients after the backward: those
     # in-place sums move into the exchange (`_early_syncs`), the rest
     # stay ops; otherwise every gradient is averaged
@@ -696,9 +799,32 @@ def build_block_fn(program, block, feed_names, fetch_names,
     # the exchange starts inside the backward unless buckets are off
     hooks = (shard_plan.bucket_cap if shard_plan is not None
              else _su.bucket_cap_bytes()) > 0
+    bop = ops[bwd_idx] if bwd_idx is not None else None
+    dls = bop.attrs.get("dynamic_loss_scaling") if bop is not None else None
+    static_ls = bop.attrs.get("static_loss_scaling") if bop is not None \
+        else None
+    if (dls is not None or static_ls) and early is not None:
+        # fleet's transpiled program sums its gradients with ops after the
+        # backward: a finite check here would see the local values and
+        # the unscale would flush small gradients before the sum
+        warnings.warn(
+            "fp16 loss scaling is not wired for explicit-sync "
+            "(fleet-transpiled) gradient programs; training "
+            "proceeds UNSCALED — expect fp16 gradient "
+            "underflow. Use bfloat16 (no scaling needed) or "
+            "implicit DP sync.")
+        dls = static_ls = None
+
+    def _run_post(env, seed):
+        if shard_plan is not None:
+            _su.run_sharded_post_ops(ops[bwd_idx + 1:], env, seed,
+                                     bwd_idx + 1, amp, shard_plan, block,
+                                     device, skip)
+        else:
+            _run_ops(ops[bwd_idx + 1:], env, seed, device,
+                     base_idx=bwd_idx + 1, amp=amp, skip=skip)
 
     def _backward_section(env, seed):
-        bop = ops[bwd_idx]
         loss_name = bop.attrs["loss_name"]
         loss_scale = bop.attrs.get("loss_scale", 1.0)
         diff_names = [n for n in bop.attrs.get("diff_names", [])
@@ -724,11 +850,19 @@ def build_block_fn(program, block, feed_names, fetch_names,
             _run_ops(ops[:bwd_idx], env, seed, device, amp=amp)
             loss = env[loss_name]
             loss_sum = torch.sum(loss.to(torch.float32))
+        amp_scale = None
+        if dls is not None:
+            # the live scale, read on the device at every step or replay
+            amp_scale = env[dls["scale"]].reshape(()).to(torch.float32)
+        elif static_ls:
+            amp_scale = _full(loss_sum, float(static_ls), torch.float32)
         grads = [None] * len(diff_names)
         if diff_names and loss_sum.requires_grad:
+            ct = torch.full_like(loss_sum, loss_scale)
+            if amp_scale is not None:
+                ct = ct * amp_scale
             grads = torch.autograd.grad(
-                loss_sum, [leaves[n] for n in diff_names],
-                grad_outputs=torch.full_like(loss_sum, loss_scale),
+                loss_sum, [leaves[n] for n in diff_names], grad_outputs=ct,
                 allow_unused=True)
         # an unused diff var gets zeros, as jax.vjp gives
         grads = {n: torch.zeros_like(leaves[n]) if g is None
@@ -745,15 +879,24 @@ def build_block_fn(program, block, feed_names, fetch_names,
                 "launched_in_backward": hooks,
                 "captured": device.type == "cuda"
                 and torch.cuda.is_current_stream_capturing()}
+        found_inf = None
+        if dls is not None:
+            # summed over the data-parallel ring even at one rank, so a
+            # captured step holds the collective it runs at any world
+            found_inf = _amp_found_inf(
+                [env[framework.grad_var_name(n)] for n in diff_names],
+                dp_ring)
+        if amp_scale is not None:
+            for n in diff_names:
+                gn = framework.grad_var_name(n)
+                env[gn] = _amp_unscale(env[gn], amp_scale)
         env[framework.grad_var_name(loss_name)] = torch.full(
             tuple(loss.shape), loss_scale, dtype=loss.dtype, device=device)
-        if shard_plan is not None:
-            _su.run_sharded_post_ops(ops[bwd_idx + 1:], env, seed,
-                                     bwd_idx + 1, amp, shard_plan, block,
-                                     device, skip)
+        if dls is not None:
+            _loss_scaled_post(lambda e: _run_post(e, seed), dls, env,
+                              found_inf, shard_plan)
         else:
-            _run_ops(ops[bwd_idx + 1:], env, seed, device,
-                     base_idx=bwd_idx + 1, amp=amp, skip=skip)
+            _run_post(env, seed)
 
     def unshard(n, v):
         return _su.unwrap_out(n, v, shard_plan) if shard_plan is not None \

@@ -287,19 +287,28 @@ def bert_pretrain_loss(cfg, seq_len, is_test=False,
     return total, mlm_loss, nsp_loss, feeds
 
 
+def exclude_from_weight_decay(param):
+    """The reference's LAMB exclusion: layer norms and biases take no
+    weight decay."""
+    return "ln" in param.name or ".b" in param.name
+
+
 def build_bert_pretrain(cfg=None, seq_len=128, lr=1e-4, use_lamb=False,
                         weight_decay=0.01, is_test=False):
-    """The pretraining loss with its Adam update appended (unless
-    `is_test`). LAMB is not ported yet."""
-    if use_lamb:
-        raise NotImplementedError(
-            "build_bert_pretrain(use_lamb=True): LambOptimizer and the lamb "
-            "op are not ported yet (ROADMAP Queue 1 #5)")
+    """The pretraining loss with its update appended (unless `is_test`):
+    Adam, or with `use_lamb` LAMB of `weight_decay` on every param but the
+    layer norms and biases (`exclude_from_weight_decay`)."""
     cfg = cfg or BertConfig.base()
     total, mlm_loss, nsp_loss, feeds = bert_pretrain_loss(
         cfg, seq_len, is_test=is_test)
     if not is_test:
-        fluid.optimizer.AdamOptimizer(learning_rate=lr).minimize(total)
+        if use_lamb:
+            opt = fluid.optimizer.LambOptimizer(
+                learning_rate=lr, lamb_weight_decay=weight_decay,
+                exclude_from_weight_decay_fn=exclude_from_weight_decay)
+        else:
+            opt = fluid.optimizer.AdamOptimizer(learning_rate=lr)
+        opt.minimize(total)
     return total, mlm_loss, nsp_loss, feeds
 
 

@@ -20,7 +20,7 @@ the same way.
 ``impl="auto"`` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; ``"kernel"`` raises on the CPU; ``"reference"``
 runs the plain version anywhere. ``dropout.launches`` counts kernel
-launches.
+launches, ``dropout.dtype_launches`` them by dtype name.
 """
 from __future__ import annotations
 
@@ -89,6 +89,8 @@ def _launch(x, seed, p, upscale, want_mask):
         raise RuntimeError("dropout kernel launch failed: CUDA error %d"
                            % rc)
     dropout.launches += 1
+    name = str(x.dtype).replace("torch.", "")
+    dropout.dtype_launches[name] = dropout.dtype_launches.get(name, 0) + 1
     return out, mask
 
 
@@ -137,3 +139,4 @@ def dropout(x, seed, p, upscale=True, impl="auto"):
 
 
 dropout.launches = 0
+dropout.dtype_launches = {}

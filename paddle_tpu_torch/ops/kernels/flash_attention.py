@@ -25,10 +25,12 @@ flattened [BH, S, D] inputs:
   there by a fill), so a captured CUDA graph draws new masks at every
   replay from the seed written before it;
 - ``o``, ``dq``, ``dk``, ``dv`` in the input dtype, computed in float32.
-  On the card, the bfloat16 kernels run on tensor cores and round P and
-  dS to bfloat16 before their second product, so their results are close
-  to the plain version's but not bit-equal; the float32 kernels keep P and
-  dS in float32.
+  On the card, the bfloat16 and float16 kernels run on tensor cores and
+  round P and dS to their input dtype before their second product, so
+  their results are close to the plain version's but not bit-equal; the
+  float32 kernels keep P and dS in float32. A float16 P or dS beyond
+  65504 becomes inf, as the plain version's float16 result would: loss
+  scaling reads it as an overflow.
 
 `flash_attention` is the public entry: it pads S to block multiples with
 a -1e30 bias on the padded keys (as the reference does), and its backward
@@ -40,7 +42,7 @@ The kernels read q, k, v and do through their strides and write o, dq, dk
 and dv as [B, H, S, D] views of [B, S, H, D] tensors, so the trainer's
 head split and merge (``reshape(B, S, H, D).transpose(1, 2)`` and back)
 copy nothing. An operand is copied only where the kernel cannot read it in
-place: its last dimension is strided, or (bfloat16, read by TMA) a stride
+place: its last dimension is strided, or (16-bit, read by TMA) a stride
 or its base is not 16-byte aligned or D is not a multiple of 8.
 """
 from __future__ import annotations
@@ -63,7 +65,9 @@ _NEG_INF = -1e30
 _MASK32 = 0xFFFFFFFF
 _MAX_HEAD_DIM = 128
 #: input dtype -> the kernels' dtype argument
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the dtypes whose kernels run on tensor cores
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def reference_attention(q, k, v, key_bias=None, causal=False,
@@ -300,8 +304,9 @@ def _kernel_args(q, k, v, bias, seed, extra=(), *, tensor_cores, sm_scale,
             raise ValueError("%s is on %s, q on %s" % (name, t.device, dev))
     kind = _DTYPES.get(q.dtype)
     if kind is None or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("kernels take float32 or bfloat16 q/k/v of one "
-                        "dtype, got %s/%s/%s" % (q.dtype, k.dtype, v.dtype))
+        raise TypeError("kernels take float32, bfloat16 or float16 q/k/v of "
+                        "one dtype, got %s/%s/%s"
+                        % (q.dtype, k.dtype, v.dtype))
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError("kernels take q [B, H, Sq, D] and k, v "
@@ -352,15 +357,18 @@ def _check_rc(rc, name):
                            "error %d" % (name, rc))
 
 
-def _count(kernel, tensor_cores):
-    """One launch of `kernel` ("forward", "dkv" or "dq"), and of its
-    tensor-core design (the C functions launch it for every bfloat16
-    call, with no path back to the SIMT kernels)."""
+def _count(kernel, dtype):
+    """One launch of `kernel` ("forward", "dkv" or "dq") on `dtype`, and of
+    its tensor-core design (the C functions launch it for every bfloat16
+    and float16 call, with no path back to the SIMT kernels)."""
     name = {"forward": "fwd_launches", "dkv": "dkv_launches",
             "dq": "dq_launches"}[kernel]
     setattr(flash_attention, name, getattr(flash_attention, name) + 1)
-    if tensor_cores:
+    if dtype in _TC_DTYPES:
         flash_attention.tc_launches[kernel] += 1
+    by = flash_attention.dtype_launches.setdefault(
+        str(dtype).replace("torch.", ""), {"forward": 0, "dkv": 0, "dq": 0})
+    by[kernel] += 1
 
 
 def _check_grad_inputs(q, do, lse, delta):
@@ -388,7 +396,7 @@ def flash_attention_fwd(q, k, v, bias=None, seed=0, *, sm_scale,
     kw = dict(sm_scale=sm_scale, causal=causal, dropout_p=dropout_p)
     if _use_reference(q, impl):
         return flash_attention_fwd_reference(q, k, v, bias, seed, **kw)
-    tensor_cores = q.dtype == torch.bfloat16
+    tensor_cores = q.dtype in _TC_DTYPES
     head, (qk, kk, vk, _) = _kernel_args(
         q, k, v, bias, seed, tensor_cores=tensor_cores, **kw)
     o = _empty_bshd(qk, qk.shape[2])
@@ -398,7 +406,7 @@ def flash_attention_fwd(q, k, v, bias=None, seed=0, *, sm_scale,
         o.data_ptr(), lse.data_ptr(), _strides(qk, kk, vk, o),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "forward")
-    _count("forward", tensor_cores)
+    _count("forward", q.dtype)
     return _unpad(o, q.shape[-1]), lse
 
 
@@ -411,7 +419,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta, *,
         return flash_attention_bwd_dkv_reference(q, k, v, bias, seed, do,
                                                  lse, delta, **kw)
     _check_grad_inputs(q, do, lse, delta)
-    tensor_cores = q.dtype == torch.bfloat16
+    tensor_cores = q.dtype in _TC_DTYPES
     head, (qk, kk, vk, dok, _) = _kernel_args(
         q, k, v, bias, seed, (do,), tensor_cores=tensor_cores, **kw)
     dk, dv = _empty_bshd(kk, kk.shape[2]), _empty_bshd(vk, vk.shape[2])
@@ -421,7 +429,7 @@ def flash_attention_bwd_dkv(q, k, v, bias, seed, do, lse, delta, *,
         dv.data_ptr(), _strides(qk, kk, vk, dok, dk, dv),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "dkv")
-    _count("dkv", tensor_cores)
+    _count("dkv", q.dtype)
     return _unpad(dk, k.shape[-1]), _unpad(dv, v.shape[-1])
 
 
@@ -433,7 +441,7 @@ def flash_attention_bwd_dq(q, k, v, bias, seed, do, lse, delta, *, sm_scale,
         return flash_attention_bwd_dq_reference(q, k, v, bias, seed, do, lse,
                                                 delta, **kw)
     _check_grad_inputs(q, do, lse, delta)
-    tensor_cores = q.dtype == torch.bfloat16
+    tensor_cores = q.dtype in _TC_DTYPES
     head, (qk, kk, vk, dok, _) = _kernel_args(
         q, k, v, bias, seed, (do,), tensor_cores=tensor_cores, **kw)
     dq = _empty_bshd(qk, qk.shape[2])
@@ -443,7 +451,7 @@ def flash_attention_bwd_dq(q, k, v, bias, seed, do, lse, delta, *, sm_scale,
         _strides(qk, kk, vk, dok, dq),
         torch.cuda.current_stream(q.device).cuda_stream)
     _check_rc(rc, "dq")
-    _count("dq", tensor_cores)
+    _count("dq", q.dtype)
     return _unpad(dq, q.shape[-1])
 
 
@@ -560,7 +568,9 @@ def flash_attention(q, k, v, key_bias=None, causal=False, sm_scale=None,
     ``flash_attention.fwd_launches``, ``.dkv_launches`` and
     ``.dq_launches`` count the kernels' launches, and
     ``flash_attention.tc_launches`` (keys "forward", "dkv", "dq") those of
-    the tensor-core kernels (bfloat16) among them. q, k and v may be
+    the tensor-core kernels (bfloat16 and float16) among them, and
+    ``flash_attention.dtype_launches`` the launches by input dtype name
+    ("float16": {"forward": n, ...}). q, k and v may be
     strided views (the trainer's heads of one qkv tensor); where S needs
     no padding they reach the kernels as they are, and the result is a
     view of a [B, Sq, H, D] tensor."""
@@ -586,3 +596,4 @@ flash_attention.fwd_launches = 0
 flash_attention.dkv_launches = 0
 flash_attention.dq_launches = 0
 flash_attention.tc_launches = {"forward": 0, "dkv": 0, "dq": 0}
+flash_attention.dtype_launches = {}

@@ -1,6 +1,8 @@
 """Neural-network operators of the slice (counterpart:
 `paddle_tpu/ops/nn_ops.py`): `relu`, `sigmoid`, `tanh`, `gelu`, `sign`,
-`exp`, `floor`, `cos`, `softmax`, `log_softmax`, `softmax_with_cross_entropy` (hard labels with
+`exp`, `floor`, `cos` and the reference's 44 other unary elementwise
+types (`_UNARY`, attrs and defaults as the reference reads them),
+`softmax`, `log_softmax`, `softmax_with_cross_entropy` (hard labels with
 `ignore_index`, or soft labels), `one_hot`, `label_smooth`, `conv2d` / `depthwise_conv2d`, `pool2d`, `batch_norm`,
 `layer_norm`, `dropout`, the embedding lookups and
 `scaled_dot_product_attention`.
@@ -70,6 +72,102 @@ def _floor(ins, attrs):
 @register_op("cos")
 def _cos(ins, attrs):
     return {"Out": torch.cos(ins["X"][0])}
+
+
+def _softplus(x):
+    """log(1 + e^x), as `jax.nn.softplus` (logaddexp(x, 0))."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _where0(cond, x):
+    return torch.where(cond, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+def _celu(x, alpha):
+    return torch.where(x > 0, x, alpha * (torch.exp(x / alpha) - 1.0))
+
+
+def _logit(x, eps):
+    xc = torch.clamp(x, eps, 1.0 - eps)
+    return torch.log(xc / (1.0 - xc))
+
+
+def _softshrink(x, a):
+    lam = a.get("lambda", a.get("threshold", 0.5))
+    return torch.where(x > lam, x - lam, _where0(x < -lam, x + lam))
+
+
+#: the unary elementwise types the reference registers beside relu,
+#: sigmoid, tanh, gelu, sign, exp, floor and cos: type -> fn(x, attrs)
+_UNARY = {
+    "abs": lambda x, a: torch.abs(x),
+    "acos": lambda x, a: torch.acos(x),
+    "acosh": lambda x, a: torch.acosh(x),
+    "asin": lambda x, a: torch.asin(x),
+    "asinh": lambda x, a: torch.asinh(x),
+    "atan": lambda x, a: torch.atan(x),
+    "atanh": lambda x, a: torch.atanh(x),
+    "brelu": lambda x, a: torch.clamp(x, a.get("t_min", 0.0),
+                                      a.get("t_max", 24.0)),
+    "ceil": lambda x, a: torch.ceil(x),
+    "celu": lambda x, a: _celu(x, a.get("alpha", 1.0)),
+    "cosh": lambda x, a: torch.cosh(x),
+    "elu": lambda x, a: torch.where(
+        x >= 0, x, a.get("alpha", 1.0) * (torch.exp(x) - 1)),
+    "erf": lambda x, a: torch.erf(x),
+    "expm1": lambda x, a: torch.expm1(x),
+    "hard_shrink": lambda x, a: _where0(
+        torch.abs(x) > a.get("threshold", 0.5), x),
+    "hard_sigmoid": lambda x, a: torch.clamp(
+        a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0),
+    "hard_swish": lambda x, a: x * torch.clamp(
+        x + a.get("offset", 3.0), 0.0, a.get("threshold", 6.0))
+    / a.get("scale", 6.0),
+    "leaky_relu": lambda x, a: torch.where(x >= 0, x,
+                                           x * a.get("alpha", 0.02)),
+    "log": lambda x, a: torch.log(x),
+    "log10": lambda x, a: torch.log10(x),
+    "log1p": lambda x, a: torch.log1p(x),
+    "log2": lambda x, a: torch.log2(x),
+    "logit": lambda x, a: _logit(x, a.get("eps", 1e-6)),
+    "logsigmoid": lambda x, a: -_softplus(-x),
+    "mish": lambda x, a: x * torch.tanh(_softplus(x)),
+    "reciprocal": lambda x, a: 1.0 / x,
+    "relu6": lambda x, a: torch.clamp(x, 0.0, a.get("threshold", 6.0)),
+    "round": lambda x, a: torch.round(x),
+    "rsqrt": lambda x, a: torch.rsqrt(x),
+    "selu": lambda x, a: a.get("scale", 1.0507009873554805) * torch.where(
+        x > 0, x, a.get("alpha", 1.6732632423543772) * (torch.exp(x) - 1.0)),
+    "silu": lambda x, a: x * torch.sigmoid(x),
+    "sin": lambda x, a: torch.sin(x),
+    "sinh": lambda x, a: torch.sinh(x),
+    "soft_relu": lambda x, a: torch.log1p(torch.exp(torch.clamp(
+        x, -a.get("threshold", 40.0), a.get("threshold", 40.0)))),
+    "softplus": lambda x, a: _softplus(x),
+    "softshrink": _softshrink,
+    "softsign": lambda x, a: x / (1 + torch.abs(x)),
+    "sqrt": lambda x, a: torch.sqrt(x),
+    "square": lambda x, a: torch.square(x),
+    "stanh": lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+        a.get("scale_a", 0.67) * x),
+    "swish": lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x),
+    "tan": lambda x, a: torch.tan(x),
+    "tanh_shrink": lambda x, a: x - torch.tanh(x),
+    "thresholded_relu": lambda x, a: _where0(
+        x > a.get("threshold", 1.0), x),
+}
+
+
+def _register_unary(name, fn):
+    @register_op(name)
+    def _unary(ins, attrs, _fn=fn):
+        return {"Out": _fn(ins["X"][0], attrs)}
+
+
+for _name, _fn in _UNARY.items():
+    _register_unary(_name, _fn)
 
 
 @register_op("one_hot")

@@ -34,8 +34,7 @@ the reference's, rule for rule:
   gathers one back at its logical shape.
 - Elementwise optimizers run their registered compute on the flat
   shards unchanged. LAMB and LARS need norms over the whole parameter:
-  an all-reduce of the shards' partial sums (`_sharded_norm_opt`; their
-  ops come with ROADMAP Queue 1 #5).
+  an all-reduce of the shards' partial sums (`_sharded_norm_opt`).
 - Gradients travel in buckets (`FLAGS_tpu_comm_bucket_mb`) in backward
   order, one reduce-scatter a bucket over a replica-major buffer, so each
   rank's share is its own per-variable slices; the deferred parameter

@@ -4,7 +4,8 @@ Only the flags the ported slices read: the ``FLAGS_tpu_serving_*``
 surface of serving, the executor's, the attention gate, CUDA-graph
 capture (``FLAGS_cuda_graphs``, the port's own), the sharded weight
 update with its gradient buckets, the hybrid (dcn, ici) data-parallel
-world, the device prefetcher's depth and cuDNN's determinism. Names and
+world, the device prefetcher's depth, cuDNN's determinism and the AMP
+level and dtype overrides. Names and
 defaults are the JAX package's, so one environment configures both.
 Flags ingest ``FLAGS_*`` environment variables at import."""
 from __future__ import annotations
@@ -53,6 +54,15 @@ _FLAGS: Dict[str, object] = {
     "FLAGS_tpu_warmup_elastic_variants": 0,
     # reader.prefetch_to_device: batches in flight ahead of the consumer
     "FLAGS_tpu_prefetch_depth": 2,
+    # mixed_precision.decorate()'d programs: "" follows decorate's
+    # amp_level; "O0" minimizes as if undecorated, "O1" applies the
+    # white/black-list cast policy only, "O2" adds 16-bit live params
+    # over fp32 master weights
+    "FLAGS_tpu_amp_level": "",
+    # mixed_precision.decorate()'d programs: "" follows decorate's
+    # amp_dtype, else "bfloat16" or "float16" ("float8_e4m3", the fp8
+    # tier, raises: ROADMAP Queue 1 #10)
+    "FLAGS_tpu_amp_dtype": "",
     # scaled_dot_product_attention takes the flash kernels on the card at
     # or above this key length (the reference's value; the reference
     # applies it on the TPU only)

@@ -219,15 +219,47 @@ COLLECTIVE_SLICE_OPS = {
     "broadcast", "dgc", "sync_batch_norm"}
 
 
+#: the float16 AMP, LAMB and clipping slice's op types, held by
+#: tests/test_torch_math_ops.py: the rest of `math_ops.py` (36), 44 unary
+#: elementwise types of `nn_ops.py` and the rest of `optimizer_ops.py`
+#: (16)
+AMP_SLICE_MATH_OPS = {
+    "amp_check_finite_and_scale", "check_finite_and_unscale",
+    "update_loss_scaling", "isfinite", "isfinite_v2", "isnan_v2",
+    "isinf_v2", "sum", "squared_l2_norm", "clip", "clip_by_norm", "p_norm",
+    "l1_norm", "frobenius_norm", "dist", "reduce_all", "reduce_any",
+    "reduce_max", "reduce_mean", "reduce_min", "reduce_prod", "matmul_v2",
+    "maximum", "minimum", "pow", "minus", "lgamma", "digamma", "erfinv",
+    "lerp", "frac", "trunc", "take", "put_along_axis", "masked_fill",
+    "searchsorted"}
+AMP_SLICE_NN_OPS = set(
+    "abs acos acosh asin asinh atan atanh brelu ceil celu cosh elu erf "
+    "expm1 hard_shrink hard_sigmoid hard_swish leaky_relu log log10 log1p "
+    "log2 logit logsigmoid mish reciprocal relu6 round rsqrt selu silu sin "
+    "sinh soft_relu softplus softshrink softsign sqrt square stanh swish "
+    "tan tanh_shrink thresholded_relu".split())
+AMP_SLICE_OPT_OPS = {
+    "lamb", "lars_momentum", "adamw", "adamax", "adagrad",
+    "decayed_adagrad", "adadelta", "rmsprop", "ftrl", "dpsgd",
+    "proximal_gd", "proximal_adagrad", "lookahead_step",
+    "average_accumulates", "dgc_momentum", "dgc_clip_by_norm"}
+AMP_SLICE_OPS = AMP_SLICE_MATH_OPS | AMP_SLICE_NN_OPS | AMP_SLICE_OPT_OPS
+
+
 def test_cases_cover_the_registry():
     """Every op type the port registers is held here, by
     tests/test_torch_fluid_ops.py, tests/test_torch_resnet_ops.py,
-    tests/test_torch_transformer_ops.py or
-    tests/test_torch_collective_ops.py."""
+    tests/test_torch_transformer_ops.py,
+    tests/test_torch_collective_ops.py or tests/test_torch_math_ops.py."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
     assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS \
-        | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS \
+        | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS \
         == set(treg.registered_ops())
+    assert (len(AMP_SLICE_MATH_OPS), len(AMP_SLICE_NN_OPS),
+            len(AMP_SLICE_OPT_OPS)) == (36, 44, 16)
+    assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
+                | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS) \
+        & AMP_SLICE_OPS and len(treg.registered_ops()) == 197
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS) & COLLECTIVE_SLICE_OPS \
         and len(COLLECTIVE_SLICE_OPS) == 19

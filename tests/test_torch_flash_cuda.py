@@ -155,11 +155,14 @@ def test_deterministic_and_seed_sensitive(dev):
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
+    """head_dim past 128, and a dtype the kernels have no instance for
+    (float64; float16 runs since the float16 instantiation:
+    tests/test_torch_amp_cuda.py)."""
     q, k, v, _, _ = _inputs(dev, 7, 1, 1, 16, 16, 160, torch.float32, False)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, k, v, impl="kernel")
-    q, k, v, _, _ = _inputs(dev, 7, 1, 1, 16, 16, 32, torch.float16, False)
-    with pytest.raises(TypeError, match="bfloat16"):
+    q, k, v, _, _ = _inputs(dev, 7, 1, 1, 16, 16, 32, torch.float64, False)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
         flash_attention(q, k, v, impl="kernel")
 
 

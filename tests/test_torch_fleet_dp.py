@@ -316,6 +316,17 @@ def test_unported_strategy_knobs_raise(knob):
     setattr(st, knob, True)
     if knob == "recompute":
         st.recompute_configs = {"checkpoints": ["x"]}
+    if knob == "lamb":
+        # ported: the user optimizer is swapped for LAMB, with Adam's
+        # betas and epsilon
+        main = runner.build_mlp(tfluid, 1, lambda loss:
+                                tfleet.distributed_optimizer(
+                                    tfluid.optimizer.AdamOptimizer(
+                                        0.01, beta1=0.8), st).minimize(
+                                        loss))[0]
+        lamb = [op for op in main.global_block().ops if op.type == "lamb"]
+        assert lamb and all(op.attrs["beta1"] == 0.8 for op in lamb)
+        return
     if knob == "elastic":
         # its checkpoint half is ported: the program is marked, and the
         # elastic restart it leads to (live_resize) still raises

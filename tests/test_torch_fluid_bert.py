@@ -298,10 +298,21 @@ def test_scan_layers_draw_their_own_masks_and_remat_redraws_them(
 
 
 def test_unported_paths_raise():
+    """LAMB and float16 are ported (tests/test_torch_amp.py holds
+    `build_bert_pretrain(use_lamb=True)` under float16 against the
+    reference): LAMB's update op, with the reference's exclusions from
+    weight decay; the fp8 tier still raises, naming its queue item."""
     with tfluid.program_guard(tfluid.Program(), tfluid.Program()), \
             tfluid.unique_name_guard():
-        with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-            tbert.build_bert_pretrain(_cfg(), SEQ, use_lamb=True)
-        with pytest.raises(NotImplementedError, match="float16"):
+        tbert.build_bert_pretrain(_cfg(), SEQ, use_lamb=True)
+        lamb = [op for op in
+                tfluid.default_main_program().global_block().ops
+                if op.type == "lamb"]
+        assert lamb
+        wd = {op.input_names["Param"][0]: op.attrs["weight_decay"]
+              for op in lamb}
+        assert wd["layer_0_attn_q.w"] == 0.01 == wd["word_embedding"]
+        assert wd["layer_0_attn_q.b"] == 0.0 == wd["mlm_ln.scale"]
+        with pytest.raises(NotImplementedError, match="fp8.*#10"):
             tmp.decorate(tfluid.optimizer.AdamOptimizer(1e-3),
-                         amp_dtype="float16")
+                         amp_dtype="float8_e4m3")

@@ -277,10 +277,23 @@ def test_executor_flags(rng):
 
 
 def test_optimizer_options_not_ported_raise():
-    """Gradient clipping is not ported and raises; weight decay is
-    ported: a float `weight_decay` means L2Decay of that coefficient."""
-    with pytest.raises(NotImplementedError, match="gradient clipping"):
-        tfluid.optimizer.SGDOptimizer(0.1, grad_clip=object())
+    """Gradient clipping is ported: an optimizer's `grad_clip` appends its
+    ops after the backward, before the update (one `clip` a gradient for
+    GradientClipByValue); weight decay is ported: a float `weight_decay`
+    means L2Decay of that coefficient. (Nothing of these options raises
+    any more; tests/test_torch_optimizers.py holds the clips against the
+    reference.)"""
+    with tfluid.program_guard(tfluid.Program(), tfluid.Program()), \
+            tfluid.unique_name_guard():
+        avg_loss, _ = build_mlp(tfluid)
+        tfluid.optimizer.SGDOptimizer(
+            0.1, grad_clip=tfluid.clip.GradientClipByValue(0.5)).minimize(
+                avg_loss)
+        types = [op.type for op in
+                 tfluid.default_main_program().global_block().ops]
+    bwd = types.index("backward")
+    n = types.count("sgd")
+    assert n and types[bwd + 1:bwd + 1 + n] == ["clip"] * n
     reg = tfluid.optimizer.AdamOptimizer(weight_decay=1e-4).regularization
     assert isinstance(reg, tfluid.regularizer.L2Decay)
     assert reg._coeff == 1e-4
