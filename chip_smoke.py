@@ -311,15 +311,49 @@ Phases, each printing one JSON line:
    BertConfig.tiny's widths (2 layers, hidden 64), S 32, batch 4,
    dropout 0, 3 steps: losses and the fetched global norm within 1e-4
    relative. Each leg prints its own line (`fluid_bert_fp16_lamb_leg`);
-18. kernels — one line listing every ported kernel with its launches on
+18. bert_large_batch — large-batch BERT pretraining as Paddle's fleet
+   runs it, with ``FLAGS_cudnn_deterministic`` on: BERT-base (the unrolled
+   encoder, its 12 layer outputs collected by `checkpoints_out`), LAMB
+   (1e-4, wd 0.01, the reference's exclusions) with
+   `GradientClipByGlobalNorm(1.0)`, through `fleet.distributed_optimizer`
+   at one worker with the `recompute` (checkpoints: the layer outputs),
+   `gradient_merge` (k 4, avg), `lamb` and `amp` (bf16 O2) knobs. Leg a:
+   S 4096, micro-batch 8, dropout 0.1 (4 x 8 x 4096 = 131,072 tokens an
+   optimizer step), 12 micro-steps (3 windows; the accumulating and the
+   applying step each captured at its second run): the median
+   accumulating micro-step ms, the applying step's, tokens/s, peak memory
+   and the flash and dropout launches over the last window (exactly 2L
+   forward with the recompute, L dK/dV and L dQ a micro-step, all on
+   tensor cores, and 2(1 + 2L) dropouts), the busy share of one profiled
+   micro-step. Leg b, at 4 layers: recompute against none on one step
+   (loss and every gradient bit-equal, the forward kernel launched once
+   more a layer, the peak lower); k 4 x micro-batch 2 against k 1 x
+   batch 8, dropout 0 (the accumulating steps leave params, masters and
+   moments bit-equal, the params after the window within 1e-2 relative
+   in norm); captured against eager over 8 micro-steps with a
+   `fluid.save` after step 6 and steps 7-8 repeated after a `fluid.load`
+   (losses and every persistable bit-equal); and the flash kernels under
+   recompute against their plain version on one step (loss within 1e-2,
+   gradients 2e-2 in norm). Leg c: the MNIST MLP under Lookahead (k 5)
+   over the local DGC momentum with an EMA and a ModelAverage, captured
+   on the card against the CPU from the same params, with both
+   averages' apply()/restore() between replays (in place: the scope's
+   tensors stay the captured step's buffers; restored bit for bit):
+   losses, applied and final params within 1e-4. Leg d: the slice's 75
+   new op types at the CPU tests' shapes (tests/torch_tensor_cases.py),
+   the card against the CPU (fp32 within 1e-5, integers exact; random
+   types by shape, dtype, repetition and moments). Each leg prints a
+   line (`bert_large_batch_leg`), the phase a closing one;
+19. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
-   TFLOP/s, their launches and times on the fluid BERT path and their
-   launches a rank on the mesh trainer; the float16 flash kernels with
-   their launches on phase 17 leg b and their times at phase 5 case g;
-   the dropout kernel with its launches on fluid BERT leg a); launches
+   TFLOP/s, their launches and times on the fluid BERT path, their
+   launches a rank on the mesh trainer and their launches on phase 18 leg
+   a's last window; the float16 flash kernels with their launches on
+   phase 17 leg b and their times at phase 5 case g; the dropout kernel
+   with its launches on fluid BERT leg a and on phase 18 leg a); launches
    made by graph replays count;
-19. the last line, ``{"ok": true, "device": {...}}``, printed only when
+20. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -546,6 +580,19 @@ F16_E = dict(seq=32, batch=4, steps=3, rtol=1e-4)
 CKPT_STEPS = 3
 CKPT_B = dict(seq=4096, batch=2)
 CKPT_B_STEPS = CKPT_C_STEPS = CKPT_D_STEPS = 2
+#: phase 18, large-batch BERT as Paddle's fleet runs it: leg a BERT-base at
+#: S 4096, micro-batch 8, k 4 (131,072 tokens an optimizer step, BERT's
+#: 256 x 512), recompute at every layer output, LAMB (wd 0.01, the
+#: reference's exclusions) with global-norm clipping at 1.0, bf16 AMP O2;
+#: leg b its gates at 4 layers (params within bf16's rtol after a window);
+#: leg c the MNIST MLP under Lookahead, DGC, EMA and ModelAverage, card
+#: against CPU; leg d the new op types, card against CPU
+LB_K = 4
+LB_A = dict(seq=4096, batch=8)
+LB_B = dict(layers=4, rtol=1e-2)
+LB_LAMB = dict(lr=1e-4, weight_decay=0.01, clip=1.0)
+LB_C_STEPS, LB_C_RTOL = 10, 1e-4
+LB_D_DRAWS = 200000
 
 
 _T0 = time.perf_counter()
@@ -1941,6 +1988,670 @@ def phase_fluid_bert_fp16_lamb(torch, name):
           "nvidia_smi": nvidia_smi_line(),
           "median_step_ms": {leg["leg"]: leg["median_step_ms"]
                              for leg in legs},
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
+# -- phase 18 -----------------------------------------------------------------
+
+def build_large_batch(fluid, cfg, seq, recompute=True, k=LB_K,
+                      attention_impl="auto"):
+    """Large-batch BERT pretraining as Paddle's fleet runs it, in fresh
+    programs: `bert_pretrain_loss` (the unrolled encoder, its 12 layer
+    outputs collected by `checkpoints_out`), LAMB (`LB_LAMB`, the
+    reference's exclusions from weight decay) with
+    `GradientClipByGlobalNorm`, through `fleet.distributed_optimizer` at
+    one worker with the `recompute` (checkpoints: the layer outputs),
+    `gradient_merge` (k steps, avg), `lamb` (the optimizer is LAMB
+    already) and `amp` (bf16 O2, no loss scaling) knobs. Returns (main,
+    startup, total loss, gradient names, the knobs applied)."""
+    from paddle_tpu_torch import fleet
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = BERT_INIT_SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ckpts = []
+        total, _, _, _ = bert.bert_pretrain_loss(
+            cfg, seq, checkpoints_out=ckpts, attention_impl=attention_impl)
+        st = fleet.DistributedStrategy()
+        st.recompute = recompute
+        st.recompute_configs = {"checkpoints": ckpts}
+        st.gradient_merge = True
+        st.gradient_merge_configs = {"k_steps": k, "avg": True}
+        st.lamb = True
+        st.amp = True
+        st.amp_configs = {"amp_dtype": "bfloat16", "amp_level": "O2",
+                          "use_dynamic_loss_scaling": False}
+        opt = fleet.distributed_optimizer(fluid.optimizer.LambOptimizer(
+            learning_rate=LB_LAMB["lr"],
+            lamb_weight_decay=LB_LAMB["weight_decay"],
+            exclude_from_weight_decay_fn=bert.exclude_from_weight_decay,
+            grad_clip=fluid.clip.GradientClipByGlobalNorm(
+                LB_LAMB["clip"])), st)
+        _, params_grads = opt.minimize(total)
+    return (main, startup, total, [g.name for _, g in params_grads],
+            opt._applied_meta_list)
+
+
+def lb_cfg(layers=None, dropout=None):
+    cfg = bert_cfg(LB_A["seq"], layers)
+    if dropout is not None:
+        cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = dropout
+    return cfg
+
+
+def lb_counts():
+    """The flash and dropout kernels' launch counters."""
+    from paddle_tpu_torch.ops.kernels import dropout, \
+        flash_attention as fa
+
+    return {"forward": fa.fwd_launches, "dkv": fa.dkv_launches,
+            "dq": fa.dq_launches, "dropout": dropout.launches,
+            "tensor_cores": dict(fa.tc_launches)}
+
+
+def lb_zero():
+    from paddle_tpu_torch.ops.kernels import dropout
+
+    zero_attention_launches()
+    dropout.launches = 0
+
+
+def lb_leg_a(torch, fluid):
+    """Leg a: BERT-base at S 4096, micro-batch 8, dropout 0.1, k 4 on the
+    card: 3 windows (12 micro-steps; the accumulating step captured at
+    its second run, the applying one at its second, in the second
+    window), the launch counts and peak memory over the third window,
+    then one profiled micro-step."""
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    cfg = lb_cfg()
+    L, k = cfg.num_hidden_layers, LB_K
+    main, startup, total, _, applied = build_large_batch(
+        fluid, cfg, LB_A["seq"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.bert_feed(cfg, LB_A["batch"], LB_A["seq"])
+    n_pred = feed["mask_pos"].shape[1]
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[total],
+                             scope=scope)[0][0])
+
+    losses, step_ms, kinds = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3 * k):
+        if i == 2 * k:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            lb_zero()
+        s0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        kinds.append("apply" if (i + 1) % k == 0 else "accumulate")
+        if i == 0:
+            # the first micro-step runs eagerly: its peak is the working
+            # set, where a replay's lives in its graph's pool
+            eager_peak = torch.cuda.max_memory_allocated()
+    window = lb_counts()
+    peak = torch.cuda.max_memory_allocated()
+    info = exe.last_entry.info()
+    busy, wall, kernels = device_busy_share(torch, step)
+    acc_ms = [ms for i, ms in enumerate(step_ms)
+              if i >= k and kinds[i] == "accumulate"]
+    median_s = statistics.median(acc_ms) / 1e3
+    apply_ms = step_ms[-1]
+    window_s = (k - 1) * median_s + apply_ms / 1e3
+    tokens = k * LB_A["batch"] * LB_A["seq"]
+    flops = bert_model_flops(cfg, LB_A["batch"], LB_A["seq"], n_pred)
+    # a micro-step runs each layer's attention forward twice (the
+    # recompute), dK/dV and dQ once; the embeddings' dropout and two a
+    # layer, again in the recompute
+    want = {"forward": 2 * L * k, "dkv": L * k, "dq": L * k,
+            "dropout": 2 * (1 + 2 * L) * k}
+    res = {"leg": "a", "seq": LB_A["seq"], "micro_batch": LB_A["batch"],
+           "k_steps": k, "layers": L, "dropout": cfg.hidden_dropout_prob,
+           "knobs_applied": applied, "tokens_per_optimizer_step": tokens,
+           "losses": losses, "step_ms": step_ms, "step_kinds": kinds,
+           "median_micro_step_ms": median_s * 1e3, "apply_step_ms": apply_ms,
+           "tokens_per_sec": tokens / window_s,
+           "model_flops_per_micro_step": flops,
+           "mfu_vs_bf16_peak": flops / median_s / BF16_FLOPS_PER_S,
+           "peak_mem_bytes": peak, "eager_micro_step_peak_bytes": eager_peak,
+           "graph_pool_bytes": {st["kind"]: st.get("pool_bytes") for st in
+                                info["gradient_merge"]["steps"]},
+           "launches_per_micro_step": {
+               n: window[n] / k for n in ("forward", "dkv", "dq",
+                                          "dropout")},
+           "launches_window": window, "launches_expected": want,
+           "profiled_micro_step": {"wall_us": wall, "device_busy_us": busy,
+                                   "device_busy_share": busy / wall,
+                                   "kernels": kernels},
+           "entry": info, "seconds": time.perf_counter() - t0}
+    emit({"phase": "bert_large_batch_leg", **res})
+    first_want = math.log(cfg.vocab_size) + math.log(2)
+    check(all(math.isfinite(x) for x in losses),
+          "large batch a: non-finite loss %s" % losses)
+    check(abs(losses[0] - first_want) <= BERT_LOSS0_TOL,
+          "large batch a: first loss %g, expected %g" % (losses[0],
+                                                         first_want))
+    # the lamb knob leaves a LAMB optimizer as it is
+    check(applied == ["recompute", "gradient_merge", "amp"],
+          "large batch a: knobs applied %s" % applied)
+    check({n: window[n] for n in want} == want
+          and window["tensor_cores"] == {n: want[n] for n in
+                                         ("forward", "dkv", "dq")},
+          "large batch a: launches %s, expected %s" % (window, want))
+    check([s["phase"] for s in info["gradient_merge"]["steps"]]
+          == ["captured", "captured"],
+          "large batch a: the window's steps are %s, not captured" % info)
+    del exe, scope
+    torch.cuda.empty_cache()
+    return res
+
+
+def lb_state(scope):
+    """A clone of every scope value (a start state on the card)."""
+    return {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+
+
+def lb_scope(fluid, state):
+    scope = fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    return scope
+
+
+def lb_quarter(feed, i, n):
+    """Micro-batch i of n of a feed (rows split along the batch)."""
+    rows = next(iter(feed.values())).shape[0] // n
+    return {name: v[i * rows:(i + 1) * rows] for name, v in feed.items()}
+
+
+def lb_recompute_gate(torch, fluid, feed, state_of):
+    """Gate 1: one step of the 4-layer program with and without
+    recompute (k 1, dropout 0.1) from one start: loss and every
+    gradient bit-equal; the peaks; the forward kernel's launches."""
+    out = {}
+    for rc in (False, True):
+        main, startup, total, grads, _ = build_large_batch(
+            fluid, lb_cfg(LB_B["layers"]), LB_A["seq"], recompute=rc, k=1)
+        exe = fluid.Executor()
+        scope = state_of(exe, startup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lb_zero()
+        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
+                       scope=scope, return_numpy=False)
+        torch.cuda.synchronize()
+        out[rc] = {"loss": vals[0].clone(), "grads": dict(zip(grads, (
+            v.clone() for v in vals[1:]))), "launches": lb_counts(),
+            "peak": torch.cuda.max_memory_allocated()}
+        exe.close()
+        del exe, scope
+        torch.cuda.empty_cache()
+    a, b = out[False], out[True]
+    differ = [n for n in a["grads"] if not torch.equal(a["grads"][n],
+                                                       b["grads"][n])]
+    L = LB_B["layers"]
+    res = {"loss_plain": float(a["loss"].reshape(-1)[0]),
+           "loss_recompute": float(b["loss"].reshape(-1)[0]),
+           "bit_equal": torch.equal(a["loss"], b["loss"]) and not differ,
+           "grads_differing": differ[:5],
+           "max_grad_abs_diff": max((max_abs_diff(a["grads"][n],
+                                                  b["grads"][n])
+                                     for n in differ), default=0.0),
+           "peak_plain_bytes": a["peak"], "peak_recompute_bytes": b["peak"],
+           "peak_drop_bytes": a["peak"] - b["peak"],
+           "forward_launches": {"plain": a["launches"]["forward"],
+                                "recompute": b["launches"]["forward"]},
+           "dropout_launches": {"plain": a["launches"]["dropout"],
+                                "recompute": b["launches"]["dropout"]}}
+    check(res["bit_equal"], "large batch b1: recompute against none: %s"
+          % res)
+    check(res["forward_launches"] == {"plain": L, "recompute": 2 * L},
+          "large batch b1: forward launches %s" % res["forward_launches"])
+    check(res["peak_drop_bytes"] > 0, "large batch b1: recompute does not "
+          "lower the peak: %s" % res)
+    return res
+
+
+def lb_merge_gate(torch, fluid, feed, state_of):
+    """Gate 2: k 4 x micro-batch 2 against k 1 x batch 8 (dropout 0):
+    the accumulating steps leave every param, master and moment bit-equal;
+    after the apply the fp32 masters, as one vector, agree within bf16's
+    rtol, relative in norm; the updates' difference is reported."""
+    cfg = lb_cfg(LB_B["layers"], dropout=0.0)
+    res = {}
+    finals = {}
+    for k in (LB_K, 1):
+        main, startup, total, _, _ = build_large_batch(
+            fluid, cfg, LB_A["seq"], k=k)
+        exe = fluid.Executor()
+        scope = state_of(exe, startup)
+        start = lb_state(scope)
+        names = sorted(v.name for v in main.list_vars() if v.persistable
+                       and "@GRAD@MERGE" not in v.name
+                       and "gradient_merge_counter" not in v.name)
+        still = True
+        for i in range(k):
+            exe.run(main, feed=lb_quarter(feed, i, k), fetch_list=[total],
+                    scope=scope)
+            if i < k - 1:
+                still = still and all(torch.equal(scope.find_var(n),
+                                                  start[n]) for n in names)
+        if k > 1:
+            res["off_steps_bit_equal"] = still
+        finals[k] = ({n: scope.find_var(n).float().clone() for n in names},
+                     {n: start[n].float() for n in names})
+        exe.close()
+        del exe, scope
+        torch.cuda.empty_cache()
+    (got, start), (want, _) = finals[LB_K], finals[1]
+    # the fp32 masters as one vector (ROADMAP Queue 3 by-design 8: where
+    # a gradient is zero in exact arithmetic, the attention key biases',
+    # LAMB turns rounding noise into full steps of either sign)
+    masters = [n for n in want if n.endswith("@MASTER")]
+
+    def flat(vals, minus=None):
+        return torch.cat([(vals[n] - (0 if minus is None else minus[n]))
+                          .reshape(-1) for n in masters])
+
+    g, w = flat(got), flat(want)
+    du, dw = flat(got, start), flat(want, start)
+    res.update(param_rel_err=float((g - w).norm() / w.norm()),
+               update_rel_diff=float((du - dw).norm() / dw.norm()),
+               tol=LB_B["rtol"])
+    check(res["off_steps_bit_equal"], "large batch b2: an accumulating "
+          "step moved the state")
+    check(res["param_rel_err"] <= LB_B["rtol"], "large batch b2: k 4 x 2 "
+          "against 1 x 8: params %g apart" % res["param_rel_err"])
+    return res
+
+
+def lb_capture_gate(torch, fluid, feed, state_of):
+    """Gate 3: the k 4 x 2 program (dropout 0.1), 8 micro-steps captured
+    and eagerly from one start and one seed counter, with a `fluid.save`
+    after step 6 (the middle of the second window) and steps 7-8 run again
+    after a `fluid.load` of it: every loss and persistable bit-equal."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.fluid import io
+
+    cfg = lb_cfg(LB_B["layers"])
+    main, startup, total, _, _ = build_large_batch(fluid, cfg, LB_A["seq"])
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    seed0 = main._seed_counter
+    out_dir = tempfile.mkdtemp(prefix="large_batch_")
+    runs = {}
+    try:
+        state = None
+        for graphs in (True, False):
+            graph_flag(fluid, graphs)
+            exe = fluid.Executor()
+            if state is None:
+                scope = state_of(exe, startup)
+                state = lb_state(scope)
+            else:
+                scope = lb_scope(fluid, state)
+            main._seed_counter = seed0
+            feeds = [lb_quarter(feed, i % LB_K, LB_K) for i in range(8)]
+
+            def steps(fs):
+                return [host_bits(exe.run(main, feed=f, fetch_list=[total],
+                                          scope=scope,
+                                          return_numpy=False)[0])
+                        for f in fs]
+
+            losses = steps(feeds[:6])
+            path = os.path.join(out_dir, "g" if graphs else "e", "bert")
+            with fluid.scope_guard(scope):
+                io.save(main, path)
+            seed_at_save = main._seed_counter
+            losses += steps(feeds[6:])
+            digests = {n: digest(scope.find_var(n)) for n in names}
+            with fluid.scope_guard(scope):
+                io.load(main, path, exe)
+            main._seed_counter = seed_at_save
+            again = steps(feeds[6:])
+            runs[graphs] = {
+                "losses": losses, "digests": digests,
+                "reloaded_equal": all(
+                    (a == b).all() for a, b in zip(again, losses[6:]))
+                and {n: digest(scope.find_var(n)) for n in names}
+                == digests,
+                "info": exe.last_entry.info()}
+            exe.close()
+            del exe, scope
+            torch.cuda.empty_cache()
+    finally:
+        graph_flag(fluid, True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    g, e = runs[True], runs[False]
+    res = {"steps": 8, "save_after_step": 6,
+           "losses_bit_equal": all((a == b).all() for a, b in
+                                   zip(g["losses"], e["losses"])),
+           "state_bit_equal": g["digests"] == e["digests"],
+           "reload_repeats": {"graph": g["reloaded_equal"],
+                              "eager": e["reloaded_equal"]},
+           "graph_steps": [s["phase"] for s in
+                           g["info"]["gradient_merge"]["steps"]],
+           "eager_reason": e["info"]["reason"]}
+    check(res["losses_bit_equal"] and res["state_bit_equal"],
+          "large batch b3: captured against eager: %s" % res)
+    check(all(res["reload_repeats"].values()), "large batch b3: after "
+          "fluid.load: %s" % res)
+    check(res["graph_steps"] == ["captured", "captured"],
+          "large batch b3: %s" % res)
+    return res
+
+
+def lb_kernels_vs_plain(torch, fluid, feed, state_of):
+    """The flash kernels under recompute at leg b's shape against their
+    plain version (`attention_impl="reference"`): one step (k 1) from one
+    start, loss within 1e-2 and every gradient within 2e-2 relative in
+    norm (phase 8 leg c's bounds) but the key projections' biases, whose
+    gradient is rounding noise (reported beside, against the query
+    biases' norms)."""
+    out = {}
+    for impl in ("auto", "reference"):
+        main, startup, total, grads, _ = build_large_batch(
+            fluid, lb_cfg(LB_B["layers"]), LB_A["seq"], k=1,
+            attention_impl=impl)
+        exe = fluid.Executor()
+        scope = state_of(exe, startup)
+        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
+                       scope=scope, return_numpy=False)
+        out[impl] = (float(vals[0].reshape(-1)[0]),
+                     dict(zip(grads, (v.float() for v in vals[1:]))))
+        exe.close()
+        del exe, scope
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = out["auto"], out["reference"]
+    err = {n: float((gk[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+           for n in gp}
+    # a key projection's bias has a gradient of zero in exact arithmetic
+    # (softmax is blind to a shift along the keys): its values are
+    # rounding noise of either side (ROADMAP Queue 3 by-design 8)
+    noise = [n for n in gp if "_attn_k.b" in n]
+    worst = sorted(err, key=err.get, reverse=True)[:3]
+    res = {"loss_kernel": lk, "loss_plain": lp,
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "max_grad_rel_err": max(v for n, v in err.items()
+                                   if n not in noise),
+           "worst_grads": {n: err[n] for n in worst},
+           "key_bias_grad_norm_vs_query_bias": max(
+               float(gp[n].norm() / gp[n.replace("_attn_k.b", "_attn_q.b")]
+                     .norm().clamp_min(1e-30)) for n in noise),
+           "tol": {"loss": BERT_CHECK_LOSS_RTOL,
+                   "grads": BERT_CHECK_GRAD_RTOL}}
+    check(math.isfinite(lk) and res["loss_rel_err"] <= BERT_CHECK_LOSS_RTOL
+          and res["max_grad_rel_err"] <= BERT_CHECK_GRAD_RTOL,
+          "large batch: kernels vs plain under recompute: %s" % res)
+    return res
+
+
+def lb_leg_b(torch, fluid):
+    """Leg b: the gates at 4 layers (the same widths), micro-batch 8."""
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    feed = bert.bert_feed(lb_cfg(LB_B["layers"]), LB_A["batch"],
+                          LB_A["seq"])
+    state = {}
+
+    def state_of(exe, startup):
+        """A scope holding the one start state (the first program's
+        startup; every program of the leg has the same persistables but
+        the window's accumulators, counter and the recompute-free
+        variants', which the startup fills alike)."""
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        for n, v in state.items():
+            if scope.find_var(n) is not None:
+                scope.set_var(n, v.clone())
+        if not state:
+            state.update(lb_state(scope))
+        return scope
+
+    res = {"leg": "b", "layers": LB_B["layers"], "seq": LB_A["seq"],
+           "batch": LB_A["batch"],
+           "recompute_vs_none": lb_recompute_gate(torch, fluid, feed,
+                                                  state_of),
+           "merge_vs_batch": lb_merge_gate(torch, fluid, feed, state_of),
+           "captured_vs_eager": lb_capture_gate(torch, fluid, feed,
+                                                state_of),
+           "kernels_vs_plain": lb_kernels_vs_plain(torch, fluid, feed,
+                                                   state_of),
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "bert_large_batch_leg", **res})
+    return res
+
+
+def lb_mlp(fluid):
+    """The MNIST MLP (phase 7's) under Lookahead (k 5) over the local DGC
+    momentum (ramp-up at step 3), an EMA (decay 0.9) and a ModelAverage
+    (a window of 3): (main, startup, loss, accuracy, ema, average)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = FLUID_INIT_SEED
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        img = fluid.layers.data(name="img", shape=[784], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=img, size=128, act="relu")
+        h = fluid.layers.fc(input=h, size=64, act="relu")
+        logits = fluid.layers.fc(input=h, size=10, act=None)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        acc = fluid.layers.accuracy(input=fluid.layers.softmax(logits),
+                                    label=label)
+        fluid.optimizer.LookaheadOptimizer(
+            fluid.optimizer.DGCMomentumOptimizer(
+                learning_rate=0.1, momentum=0.9, rampup_begin_step=3,
+                sparsity=[0.75]), alpha=0.5, k=5).minimize(loss)
+        ema = fluid.optimizer.ExponentialMovingAverage(0.9)
+        ema.update()
+        avg = fluid.optimizer.ModelAverage(0.15, min_average_window=1,
+                                           max_average_window=3)
+    return main, startup, loss, acc, ema, avg
+
+
+def lb_leg_c(torch, fluid):
+    """Leg c: the MNIST MLP of `lb_mlp` on the card (captured) and on the
+    CPU from the same params: 6 steps, the EMA's and the ModelAverage's
+    apply()/restore() (applied params compared; the scope's tensors the
+    same objects throughout), 4 more steps; losses and applied params
+    within 1e-4."""
+    from paddle_tpu_torch.core.scope import dump_numpy_state, \
+        load_numpy_state
+
+    out = {}
+    state = None
+    x, y = fluid_mnist_data()
+    starts = [(i * FLUID_BATCH) % (len(x) - FLUID_BATCH)
+              for i in range(LB_C_STEPS)]
+    feeds = [{"img": x[i:i + FLUID_BATCH], "label": y[i:i + FLUID_BATCH]}
+             for i in starts]
+    for where in ("cuda", "cpu"):
+        main, startup, loss, acc, ema, avg = lb_mlp(fluid)
+        names = sorted(v.name for v in main.list_vars() if v.persistable)
+        params = [p.name for p in main.all_parameters()]
+        exe = fluid.Executor(None if where == "cuda" else fluid.CPUPlace())
+        scope = fluid.Scope()
+        if state is None:
+            exe.run(startup, scope=scope)
+            state = dump_numpy_state(scope, names)
+        else:
+            load_numpy_state(scope, state, "cpu")
+        rec = {"losses": []}
+        with fluid.scope_guard(scope):
+            for i, f in enumerate(feeds):
+                rec["losses"].append(float(exe.run(
+                    main, feed=f, fetch_list=[loss], scope=scope)[0][0]))
+                if i == LB_C_STEPS // 2:
+                    bufs = {n: scope.find_var(n) for n in names}
+                    for tag, swap in (("ema", ema), ("average", avg)):
+                        live = {n: bufs[n].clone() for n in params}
+                        with swap.apply(exe):
+                            rec[tag] = {n: scope.find_var(n).cpu().clone()
+                                        for n in params}
+                        rec[tag + "_restored"] = all(
+                            torch.equal(scope.find_var(n), live[n])
+                            for n in params)
+                    rec["same_tensors"] = all(
+                        scope.find_var(n) is v for n, v in bufs.items())
+        rec["info"] = exe.last_entry.info()
+        rec["final"] = {n: scope.find_var(n).cpu().clone() for n in params}
+        out[where] = rec
+    card, cpu = out["cuda"], out["cpu"]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    res = {"leg": "c", "model": "MNIST MLP 784-128-64-10",
+           "optimizer": "Lookahead(k 5, alpha 0.5) over DGC momentum "
+           "(local, ramp-up at step 3); EMA 0.9; ModelAverage window 3",
+           "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+           "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                   zip(card["losses"], cpu["losses"])),
+           "applied_max_rel_err": max(rel(card[t][n], cpu[t][n])
+                                      for t in ("ema", "average")
+                                      for n in card[t]),
+           "final_max_rel_err": max(rel(card["final"][n], cpu["final"][n])
+                                    for n in card["final"]),
+           "restored_bit_equal": card["ema_restored"]
+           and card["average_restored"],
+           "scope_tensors_kept": card["same_tensors"],
+           "card_phase": card["info"]["phase"], "tol": LB_C_RTOL}
+    emit({"phase": "bert_large_batch_leg", **res})
+    check(res["loss_max_rel_err"] <= LB_C_RTOL
+          and res["applied_max_rel_err"] <= LB_C_RTOL
+          and res["final_max_rel_err"] <= LB_C_RTOL,
+          "large batch c: card against CPU: %s" % res)
+    check(res["restored_bit_equal"] and res["scope_tensors_kept"]
+          and res["card_phase"] == "captured",
+          "large batch c: apply/restore on the captured step: %s" % res)
+    return res
+
+
+def lb_leg_d(torch, fluid):
+    """Leg d: the slice's new op types at the CPU tests' shapes
+    (tests/torch_tensor_cases.py), the card against the CPU:
+    deterministic types within fp32 1e-5 (integer, index and bool
+    outputs exact); random types by shape and dtype, one seed repeating
+    its draws bit for bit, and the moments of a few against their
+    distributions."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.rng import seed_tensor
+    from paddle_tpu_torch.core.types import to_torch_dtype
+    from paddle_tpu_torch.ops import registry
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_tensor_cases as tc
+
+    dev = torch.device("cuda")
+
+    def run(op, ins, attrs, device, seed=7):
+        a = dict(attrs, _device=device, _rng_seed=seed_tensor(seed, device))
+        t = {s: [torch.as_tensor(np.asarray(v).copy(), dtype=to_torch_dtype(
+            np.asarray(v).dtype)).to(device) for v in vs]
+            for s, vs in ins.items()}
+        return registry.normalize_outs(registry.get_op(op).compute(t, a))
+
+    worst, bad = 0.0, []
+    for name, case in sorted(tc.CASES.items()):
+        ins = tc.inputs(name)
+        got, want = (run(case[0], ins, case[2], d) for d in (dev, "cpu"))
+        for slot, vals in want.items():
+            for g, w in zip(got[slot], vals):
+                g = g.cpu()
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    bad.append((name, slot, "dtype/shape"))
+                elif w.is_floating_point():
+                    err = float((g - w).abs().max()) if w.numel() else 0.0
+                    tol = 1e-5 * (1 + float(w.abs().max())) \
+                        if w.numel() else 0.0
+                    worst = max(worst, err)
+                    if err > tol:
+                        bad.append((name, slot, err))
+                elif not torch.equal(g, w):
+                    bad.append((name, slot, "values"))
+    rng = {}
+    for name, (makers, attrs) in sorted(tc.RNG_CASES.items()):
+        ins = tc.inputs(name, tc.RNG_CASES)
+        a, b = (run(name, ins, attrs, dev)["Out"][0] for _ in range(2))
+        c = run(name, ins, attrs, "cpu")["Out"][0]
+        rng[name] = {"shape": list(a.shape), "dtype": str(a.dtype),
+                     "repeats": torch.equal(a, b),
+                     "like_cpu": a.dtype == c.dtype and a.shape == c.shape}
+        if not (rng[name]["repeats"] and rng[name]["like_cpu"]):
+            bad.append((name, "Out", rng[name]))
+    n = LB_D_DRAWS
+    u = run("uniform_random_batch_size_like",
+            {"Input": [np.zeros((n, 1), "float32")]},
+            {"shape": [-1, 1], "min": -1.0, "max": 1.0}, dev)["Out"][0]
+    k = run("poisson", {"X": [np.full((n,), 30.0, "float32")]}, {},
+            dev)["Out"][0]
+    g = run("gaussian_random_batch_size_like",
+            {"Input": [np.zeros((n, 1), "float32")]},
+            {"shape": [-1, 1], "mean": 0.0, "std": 1.0}, dev)["Out"][0]
+    moments = {"uniform_mean": float(u.mean()),
+               "uniform_range": [float(u.min()), float(u.max())],
+               "normal_mean": float(g.mean()), "normal_std": float(g.std()),
+               "poisson30_mean": float(k.mean()),
+               "poisson30_var": float(k.var())}
+    se = 6.0 / math.sqrt(n)
+    moments_ok = (abs(moments["uniform_mean"]) <= se * 0.58
+                  and -1.0 <= moments["uniform_range"][0]
+                  and moments["uniform_range"][1] < 1.0
+                  and abs(moments["normal_mean"]) <= se
+                  and abs(moments["normal_std"] - 1.0) <= 0.02
+                  and abs(moments["poisson30_mean"] - 30.0) <= se * 5.5
+                  and abs(moments["poisson30_var"] / 30.0 - 1.0) <= 0.06)
+    res = {"leg": "d", "deterministic_cases": len(tc.CASES),
+           "random_types": len(tc.RNG_CASES), "max_abs_err": worst,
+           "tol": "fp32 1e-5 x (1 + max |value|); integers exact",
+           "random": rng, "moments": moments, "moments_ok": moments_ok,
+           "failures": bad[:10]}
+    emit({"phase": "bert_large_batch_leg", **res})
+    check(not bad, "large batch d: card against CPU: %s" % bad[:10])
+    check(moments_ok, "large batch d: moments %s" % moments)
+    return res
+
+
+def phase_bert_large_batch(torch, name):
+    """Phase 18: large-batch BERT pretraining as Paddle's fleet runs it
+    (recompute and gradient merge over the flash kernels), with
+    ``FLAGS_cudnn_deterministic`` on."""
+    from paddle_tpu_torch import fluid
+
+    t0 = time.perf_counter()
+    before = fluid.get_flags("FLAGS_cudnn_deterministic")
+    os.environ["FLAGS_cudnn_deterministic"] = "1"
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        res = {"leg_a": lb_leg_a(torch, fluid),
+               "leg_b": lb_leg_b(torch, fluid),
+               "leg_c": lb_leg_c(torch, fluid),
+               "leg_d": lb_leg_d(torch, fluid)}
+    finally:
+        fluid.set_flags(before)
+        os.environ.pop("FLAGS_cudnn_deterministic", None)
+    a = res["leg_a"]
+    emit({"phase": "bert_large_batch", "device": name,
+          "nvidia_smi": nvidia_smi_line(),
+          "median_micro_step_ms": a["median_micro_step_ms"],
+          "apply_step_ms": a["apply_step_ms"],
+          "tokens_per_sec": a["tokens_per_sec"],
+          "peak_mem_bytes": a["peak_mem_bytes"],
+          "eager_micro_step_peak_bytes": a["eager_micro_step_peak_bytes"],
           "seconds": time.perf_counter() - t0})
     return res
 
@@ -4411,6 +5122,7 @@ def main():
     phase_hybrid(torch, name)
     phase_ckpt(torch, name)
     f16 = phase_fluid_bert_fp16_lamb(torch, name)
+    large = phase_bert_large_batch(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)
@@ -4437,6 +5149,15 @@ def main():
            for kname, line in (("forward", "109"), ("dkv", "235"),
                                ("dq", "298"))]
         + [dropout_entry(fluid_bert["legs"][0]["dropout_launches"], drop)]}
+    # phase 18 leg a's launches over its last window (4 micro-steps)
+    window = large["leg_a"]["launches_window"]
+    for entry in kernels["kernels"]:
+        kname = entry["name"].replace("flash_attention_", "")
+        if entry["name"] == "dropout" or kname in ("forward", "dkv", "dq"):
+            key = "dropout" if entry["name"] == "dropout" else kname
+            entry["bert_large_batch"] = {
+                "launches_window": window[key],
+                "launches_per_micro_step": window[key] / LB_K}
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                              3)})
     emit(kernels)

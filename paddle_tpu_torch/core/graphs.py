@@ -23,7 +23,10 @@ then on only refreshes the static inputs and replays the graph.
   shares memory with a buffer about to be written is cloned first.
   Before each replay a state whose tensor is not the static buffer (the
   caller rebound it) is copied in, and a change of shape, dtype or
-  device is an error.
+  device is an error. Steps that alternate over one state (gradient
+  merge's accumulating and applying steps) share a `buffers` registry:
+  a state that is already one step's static buffer becomes the next
+  step's too, so switching between them copies nothing.
 
 A capture that fails raises; nothing falls back to eager execution. The
 `runner` argument stands in for capture and replay where there is no
@@ -240,10 +243,14 @@ class DonatedStep:
     tensor, under capture, is the static seed buffer written before each
     replay; `keep`, a list `fn` appends the tensors it bound to, keeps
     alive whatever the graph reads that it did not allocate (cached
-    constants)."""
+    constants). `buffers`, a dict that sibling steps share, registers
+    every static state buffer by name: a state handed in as a sibling's
+    buffer is taken as this step's own, not cloned."""
 
-    def __init__(self, fn: Callable, device, pool=None, runner=None):
+    def __init__(self, fn: Callable, device, pool=None, runner=None,
+                 buffers=None):
         self.fn = fn
+        self.buffers = {} if buffers is None else buffers
         self.device = torch.device(device)
         self.graph = Graph(device, pool=pool, runner=runner)
         self.runs = 0
@@ -292,8 +299,11 @@ class DonatedStep:
     # -- static buffers ------------------------------------------------
     def _make_static(self, feeds, states):
         self.feeds = {n: v.clone() for n, v in feeds.items()}
-        # a clone of every state, so that no two names share memory
-        self.states = {n: v.clone() for n, v in states.items()}
+        # a clone of every state, so that no two names share memory, but
+        # for a sibling's static buffer of the same name, shared
+        self.states = {n: v if self.buffers.get(n) is v else v.clone()
+                       for n, v in states.items()}
+        self.buffers.update(self.states)
         self.seed = torch.zeros((), dtype=torch.int64, device=self.device)
         self.written: List[str] = []
 

@@ -7,11 +7,14 @@ conflicting knobs are turned off.
 
 Ported: LAMB (the user optimizer swapped for `LambOptimizer`, keeping
 Adam's betas and epsilon, the regularization and the clip), LARS (a
-Momentum optimizer swapped for `LarsMomentumOptimizer`) and AMP
-(`fluid.contrib.mixed_precision.decorate` with `amp_configs`). The
-wrappers whose inner optimizers are not ported yet (recompute, gradient
-merge, pipeline) raise where they would apply, naming ROADMAP Queue 1
-#5.
+Momentum optimizer swapped for `LarsMomentumOptimizer`), recompute
+(`RecomputeOptimizer` with `recompute_configs["checkpoints"]`),
+gradient merge (`GradientMergeOptimizer` with
+`gradient_merge_configs`' k_steps and avg; the pipeline knob wins over
+it, with a warning) and AMP (`fluid.contrib.mixed_precision.decorate`
+with `amp_configs`), applied in that order, as the reference's. The
+pipeline knob needs the GPipe engine, which is not ported yet, and
+raises where it would apply, naming ROADMAP Queue 1 #10.
 """
 from __future__ import annotations
 
@@ -46,7 +49,42 @@ class _NotPortedMeta(MetaOptimizerBase):
     def apply(self, strategy, optimizer):
         raise NotImplementedError(
             "DistributedStrategy.%s needs %s, which is not ported yet "
-            "(ROADMAP Queue 1 #5)" % (self.name, self._inner))
+            "(ROADMAP Queue 1 #10)" % (self.name, self._inner))
+
+
+class RecomputeMetaOptimizer(MetaOptimizerBase):
+    name = "recompute"
+
+    def can_apply(self, strategy, optimizer):
+        return strategy.recompute and \
+            strategy.recompute_configs.get("checkpoints")
+
+    def apply(self, strategy, optimizer):
+        from ..fluid.optimizer import RecomputeOptimizer
+
+        inner = RecomputeOptimizer(optimizer)
+        inner._set_checkpoints(strategy.recompute_configs["checkpoints"])
+        return inner
+
+
+class GradientMergeMetaOptimizer(MetaOptimizerBase):
+    name = "gradient_merge"
+
+    def can_apply(self, strategy, optimizer):
+        if strategy.gradient_merge and strategy.pipeline:
+            warnings.warn("gradient_merge + pipeline both set; pipeline's "
+                          "own microbatching wins, gradient_merge "
+                          "ignored.")
+            return False
+        return strategy.gradient_merge
+
+    def apply(self, strategy, optimizer):
+        from ..fluid.optimizer import GradientMergeOptimizer
+
+        cfg = strategy.gradient_merge_configs
+        return GradientMergeOptimizer(
+            optimizer, k_steps=int(cfg.get("k_steps", 1)),
+            avg=bool(cfg.get("avg", True)))
 
 
 class LambMetaOptimizer(MetaOptimizerBase):
@@ -105,11 +143,9 @@ class AMPMetaOptimizer(MetaOptimizerBase):
 _META_ORDER: List[MetaOptimizerBase] = [
     LambMetaOptimizer(),
     LarsMetaOptimizer(),
-    _NotPortedMeta("recompute", "RecomputeOptimizer", lambda s, o:
-                   s.recompute and s.recompute_configs.get("checkpoints")),
-    _NotPortedMeta("gradient_merge", "GradientMergeOptimizer",
-                   lambda s, o: s.gradient_merge and not s.pipeline),
-    _NotPortedMeta("pipeline", "PipelineOptimizer",
+    RecomputeMetaOptimizer(),
+    GradientMergeMetaOptimizer(),
+    _NotPortedMeta("pipeline", "PipelineOptimizer and the GPipe engine",
                    lambda s, o: s.pipeline),
     AMPMetaOptimizer(),
 ]

@@ -6,7 +6,10 @@ one `backward` pseudo-op records (loss, diff targets), and the lowering
 runs the forward segment with `requires_grad` leaves and takes
 `torch.autograd.grad` of the loss (`fluid/lowering.py`). The `X@GRAD`
 vars still appear in the block (the `@GRAD` naming contract), so
-optimizers and fetches address them by name.
+optimizers and fetches address them by name. Recompute checkpoints
+(`checkpoints=`, or `RecomputeOptimizer`) are recorded on that op; the
+lowering splits the forward at them and recomputes each segment's
+interior in the backward (`fluid/lowering.py _remat_segments`).
 """
 from __future__ import annotations
 
@@ -42,13 +45,10 @@ def _grad_topo_index(block, upto_idx, names):
 def append_backward(loss, parameter_list=None, no_grad_set=None,
                     callbacks=None, checkpoints=None):
     """Append the backward section for `loss`; returns [(param, grad)].
-    Recompute `checkpoints` are not ported yet."""
+    `checkpoints` (vars or names) are recorded on the backward op as its
+    recompute segment boundaries."""
     if not isinstance(loss, Variable):
         raise TypeError("loss must be a Variable, got %r" % (loss,))
-    if checkpoints:
-        raise NotImplementedError(
-            "append_backward(checkpoints=...) (recompute) is not ported "
-            "yet")
     block = loss.block
     program = block.program
     no_grad = set()
@@ -91,14 +91,18 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
         name=grad_var_name(loss.name), shape=loss.shape,
         dtype=loss.dtype, stop_gradient=True)
 
+    attrs = {"loss_name": loss.name, "diff_names": diff_names,
+             "loss_scale": 1.0, "_is_backward": True,
+             # gradient production order for the bucketed collectives
+             # (a larger index materializes earlier in the backward)
+             "grad_topo": _grad_topo_index(block, upto, diff_names)}
+    if checkpoints:
+        attrs["checkpoints"] = [v.name if isinstance(v, Variable) else v
+                                for v in checkpoints]
     block.append_op(
         type="backward",
         inputs={"Loss": [loss]},
         outputs={"Grad": [grad_var_name(n) for n in diff_names],
                  "LossGrad": [loss_grad]},
-        attrs={"loss_name": loss.name, "diff_names": diff_names,
-               "loss_scale": 1.0, "_is_backward": True,
-               # gradient production order for the bucketed collectives
-               # (a larger index materializes earlier in the backward)
-               "grad_topo": _grad_topo_index(block, upto, diff_names)})
+        attrs=attrs)
     return params_grads

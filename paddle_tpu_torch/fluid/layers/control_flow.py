@@ -1,14 +1,15 @@
 """Control-flow layers (counterpart:
 `paddle_tpu/fluid/layers/control_flow.py`): `Scan`, the fixed-trip loop
 over stacked [n, ...] inputs; `While` and `while_loop`; `cond`,
-`switch_case` and `case`; `increment` and the comparison layers.
+`switch_case` and `case`; `increment`, `is_empty` and the comparison
+layers.
 
 Each builds its body or branches into sub-blocks of the program and
 appends one op (`scan`, `while`, `cond`, `switch_case`) that
 `fluid/lowering.py` runs. Loop-carried vars are created and initialized
 before the loop and rebound inside it (``layers.assign(new, output=x)``);
 a branch's results are assigned onto output vars created in the
-enclosing block. `StaticRNN`, `Print`, `Assert`, `is_empty` and
+enclosing block. `StaticRNN`, `Print`, `Assert` and
 `reorder_lod_tensor_by_rank` are not ported yet.
 """
 from __future__ import annotations
@@ -22,8 +23,8 @@ from ..layer_helper import LayerHelper
 from . import tensor as tensor_layers
 
 __all__ = ["Scan", "While", "while_loop", "cond", "switch_case", "case",
-           "increment", "less_than", "less_equal", "greater_than",
-           "greater_equal", "equal", "not_equal"]
+           "increment", "is_empty", "less_than", "less_equal",
+           "greater_than", "greater_equal", "equal", "not_equal"]
 
 
 def _flatten(x):
@@ -327,6 +328,17 @@ def increment(x, value=1.0, in_place=True):
         dtype=x.dtype)
     helper.append_op(type="increment", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"step": float(value)})
+    return out
+
+
+def is_empty(x, cond=None):
+    """[x has no element], a bool [1] (shapes are static: the answer is
+    known when the block runs)."""
+    helper = LayerHelper("is_empty")
+    out = cond if cond is not None else \
+        helper.create_variable_for_type_inference(dtype="bool")
+    helper.append_op(type="is_empty", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={})
     return out
 
 

@@ -11,7 +11,10 @@ rate schedules'), and for `rnn_decode` `sigmoid`, `log_softmax`, `split`
 and `expand`; for the float16 AMP slice `fc` over several inputs
 (`sum`), the activations of the reference's list (`sqrt` ... `sin`),
 `maximum`, `minimum`, the `reduce_*` family, `clip`, `clip_by_norm` and
-`l2_normalize`. Each builder
+`l2_normalize`; and `mul`, `pad`, `pad2d`, `unstack`, `expand_as`,
+`gather_nd`, `strided_slice` and `flatten`, with the `logical_*` family,
+`uniform_random` and `gaussian_random`, which (as in the reference) this
+module defines but `fluid.layers` does not export. Each builder
 creates its params through LayerHelper (init ops go to the startup
 program) and appends its compute op."""
 from __future__ import annotations
@@ -37,7 +40,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "softsign", "swish", "hard_sigmoid", "hard_swish", "logsigmoid",
            "erf", "sin", "maximum", "minimum", "reduce_mean", "reduce_max",
            "reduce_min", "reduce_prod", "reduce_all", "reduce_any", "clip",
-           "clip_by_norm", "l2_normalize"]
+           "clip_by_norm", "l2_normalize", "mul", "pad", "pad2d",
+           "unstack", "expand_as", "gather_nd", "strided_slice", "flatten"]
 
 
 def _single(op_type, inputs, attrs, dtype=None, helper=None):
@@ -467,3 +471,83 @@ def split(input, num_or_sections, dim=-1, name=None):
 def expand(x, expand_times, name=None):
     return _single("expand", {"X": [x]},
                    {"expand_times": list(expand_times)}, dtype=x.dtype)
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    return _single("mul", {"X": [x], "Y": [y]},
+                   {"x_num_col_dims": x_num_col_dims,
+                    "y_num_col_dims": y_num_col_dims}, dtype=x.dtype)
+
+
+def logical_and(x, y, out=None, name=None):
+    return _single("logical_and", {"X": [x], "Y": [y]}, {}, dtype="bool")
+
+
+def logical_or(x, y, out=None, name=None):
+    return _single("logical_or", {"X": [x], "Y": [y]}, {}, dtype="bool")
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _single("logical_xor", {"X": [x], "Y": [y]}, {}, dtype="bool")
+
+
+def logical_not(x, out=None, name=None):
+    return _single("logical_not", {"X": [x]}, {}, dtype="bool")
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _single("pad", {"X": [x]},
+                   {"paddings": list(paddings), "pad_value": pad_value},
+                   dtype=x.dtype)
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    return _single("pad2d", {"X": [input]},
+                   {"paddings": list(paddings), "mode": mode,
+                    "pad_value": pad_value}, dtype=input.dtype)
+
+
+def unstack(x, axis=0, num=None):
+    n = num or x.shape[axis]
+    return apply_op("unstack", "unstack", {"X": [x]}, {"axis": axis},
+                    {"Y": n}, out_dtype=x.dtype)
+
+
+def expand_as(x, target_tensor, name=None):
+    return _single("expand_as_v2", {"X": [x], "Y": [target_tensor]},
+                   {"target_shape": list(target_tensor.shape)},
+                   dtype=x.dtype)
+
+
+def gather_nd(input, index, name=None):
+    return _single("gather_nd", {"X": [input], "Index": [index]}, {},
+                   dtype=input.dtype)
+
+
+def strided_slice(input, axes, starts, ends, strides):
+    return _single("strided_slice", {"Input": [input]},
+                   {"axes": list(axes), "starts": list(starts),
+                    "ends": list(ends), "strides": list(strides)},
+                   dtype=input.dtype)
+
+
+def flatten(x, axis=1, name=None):
+    return apply_op("flatten2", "flatten2", {"X": [x]}, {"axis": axis},
+                    ["Out", "XShape"], out_dtype=x.dtype)[0]
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0,
+                   name=None):
+    return _single("uniform_random", {},
+                   {"shape": list(shape), "min": float(min),
+                    "max": float(max), "seed": seed, "dtype": dtype},
+                   dtype=dtype)
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32",
+                    name=None):
+    return _single("gaussian_random", {},
+                   {"shape": list(shape), "mean": float(mean),
+                    "std": float(std), "seed": seed, "dtype": dtype},
+                   dtype=dtype)

@@ -2,7 +2,11 @@
 `paddle_tpu/fluid/layers/tensor.py`): `data`, `fill_constant`,
 `fill_constant_batch_size_like`, `cast`, `assign` (of a var, or of a
 numpy array as `assign_value`), `create_parameter`, `create_global_var`,
-`reshape`, `transpose`, `scale`, `take_along_axis` and `cumsum`."""
+`reshape`, `transpose`, `scale`, `take_along_axis`, `cumsum`, `concat`,
+`create_tensor`, `argmax`, `argmin`, `argsort`, `zeros`, `ones`,
+`zeros_like`, `ones_like`, `reverse`, `range`, `linspace`, `shape`,
+`eye`, `diag`, `tril` and `triu` (`tensor_array_to_tensor` waits for
+the array ops)."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,7 +18,10 @@ from ..layer_helper import LayerHelper, apply_op
 
 __all__ = ["data", "fill_constant", "fill_constant_batch_size_like", "cast",
            "assign", "create_parameter", "create_global_var", "reshape",
-           "transpose", "scale", "take_along_axis", "cumsum"]
+           "transpose", "scale", "take_along_axis", "cumsum", "concat",
+           "create_tensor", "argmax", "argmin", "argsort", "zeros", "ones",
+           "zeros_like", "ones_like", "reverse", "range", "linspace",
+           "shape", "eye", "diag", "tril", "triu"]
 
 
 def _single(op_type, inputs, attrs, dtype=None):
@@ -150,3 +157,96 @@ def cumsum(x, axis=-1, exclusive=False, reverse=False):
     return _single("cumsum", {"X": [x]},
                    {"axis": axis, "exclusive": exclusive, "reverse": reverse},
                    dtype=x.dtype)
+
+
+def concat(input, axis=0, name=None):
+    return _single("concat", {"X": list(input)}, {"axis": axis},
+                   dtype=input[0].dtype)
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    block = framework.default_main_program().current_block()
+    return block.create_var(name=name, dtype=dtype, persistable=persistable,
+                            shape=())
+
+
+def argmax(x, axis=0, name=None):
+    return _single("arg_max", {"X": [x]}, {"axis": axis}, dtype="int64")
+
+
+def argmin(x, axis=0, name=None):
+    return _single("arg_min", {"X": [x]}, {"axis": axis}, dtype="int64")
+
+
+def argsort(input, axis=-1, descending=False, name=None):
+    outs = apply_op("argsort", "argsort", {"X": [input]},
+                    {"axis": axis, "descending": descending},
+                    ["Out", "Indices"], out_dtype=input.dtype)
+    return outs[0], outs[1]
+
+
+def zeros(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 0.0)
+
+
+def ones(shape, dtype="float32", force_cpu=False):
+    return fill_constant(shape, dtype, 1.0)
+
+
+def zeros_like(x, out=None):
+    return _single("fill_any_like", {"X": [x]}, {"value": 0.0, "dtype": -1},
+                   dtype=x.dtype)
+
+
+def ones_like(x, out=None):
+    return _single("fill_any_like", {"X": [x]}, {"value": 1.0, "dtype": -1},
+                   dtype=x.dtype)
+
+
+def reverse(x, axis):
+    return _single("flip", {"X": [x]},
+                   {"axis": list(axis) if isinstance(axis, (list, tuple))
+                    else [axis]}, dtype=x.dtype)
+
+
+def range(start, end, step, dtype="float32"):
+    """[start, end) by step; each bound a Variable or a number (filled
+    into a [1] var). The `range` op is host-side: a block holding it
+    runs eagerly."""
+    s, e, st = (v if isinstance(v, framework.Variable)
+                else fill_constant([1], dtype, v) for v in (start, end, step))
+    return _single("range", {"Start": [s], "End": [e], "Step": [st]}, {},
+                   dtype=dtype)
+
+
+def linspace(start, stop, num, dtype="float32"):
+    s = fill_constant([1], dtype, start)
+    e = fill_constant([1], dtype, stop)
+    n = fill_constant([1], "int32", num)
+    return _single("linspace", {"Start": [s], "Stop": [e], "Num": [n]},
+                   {"dtype": dtype}, dtype=dtype)
+
+
+def shape(input):
+    return _single("shape", {"Input": [input]}, {}, dtype="int32")
+
+
+def eye(num_rows, num_columns=None, batch_shape=None, dtype="float32"):
+    return _single("eye", {}, {"num_rows": num_rows,
+                               "num_columns": num_columns or -1,
+                               "dtype": normalize_dtype(dtype)}, dtype=dtype)
+
+
+def diag(diagonal):
+    return _single("diag_v2", {"X": [diagonal]}, {"offset": 0},
+                   dtype=diagonal.dtype)
+
+
+def tril(x, diagonal=0, name=None):
+    return _single("tril_triu", {"X": [x]},
+                   {"diagonal": diagonal, "lower": True}, dtype=x.dtype)
+
+
+def triu(x, diagonal=0, name=None):
+    return _single("tril_triu", {"X": [x]},
+                   {"diagonal": diagonal, "lower": False}, dtype=x.dtype)

@@ -1,9 +1,9 @@
 """Block execution: a Program block -> one Python function that runs its
 ops op by op, and the compiled entry the executor keeps for it
 (counterpart: `paddle_tpu/fluid/lowering.py`, its core with the
-control-flow ops, the AMP cast policy, float16 loss scaling and the
-data-parallel gradient sync, without the sparse, fp8 and gradient-merge
-branches).
+control-flow ops, the AMP cast policy, float16 loss scaling, recompute,
+gradient merge and the data-parallel gradient sync, without the sparse
+and fp8 branches).
 
 The reference traces the op list into one jitted XLA computation
 (`compile_block`, with the state donated). The port issues each op's
@@ -22,7 +22,12 @@ every block eagerly, and `FLAGS_cuda_graphs` off (the counterpart of
 Autodiff: `append_backward` plants a single `backward` pseudo-op. The
 function runs the forward segment on leaf tensors that require grad,
 then takes `torch.autograd.grad` of the loss and binds each `X@GRAD`
-(replacing the reference's `jax.vjp`).
+(replacing the reference's `jax.vjp`). With recompute checkpoints on
+that op the forward runs as segments under non-reentrant
+`torch.utils.checkpoint` (`_remat_segments`, the reference's
+`jax.checkpoint` segments). Under gradient merge (`_gradient_merge`)
+the compiled entry holds two functions, an accumulating step and an
+applying one, and picks on the host (`CompiledBlock`).
 
 Control flow: `while` is a Python loop that reads its condition on the
 host before each iteration, the counterpart of `lax.while_loop` (and,
@@ -763,8 +768,132 @@ def _loss_scaled_post(run_post, dls, env, found_inf, plan=None):
         env[name] = val.reshape(env[name].shape).to(env[name].dtype)
 
 
+def _split_at_checkpoints(ops, ckpt_names):
+    """Recompute segment bounds: a segment ends right after the last op
+    that writes each checkpoint var. (start, stop) pairs covering
+    `ops`."""
+    cuts = set()
+    for cn in ckpt_names:
+        last = None
+        for i, op in enumerate(ops):
+            if cn in op.output_arg_names:
+                last = i
+        if last is not None and last + 1 < len(ops):
+            cuts.add(last + 1)
+    bounds, prev = [], 0
+    for c in sorted(cuts):
+        bounds.append((prev, c))
+        prev = c
+    bounds.append((prev, len(ops)))
+    return bounds
+
+
+def _remat_segments(fwd_ops, ckpt_names, live_out):
+    """The recompute segments of a forward (reference: `_remat_segments`):
+    (start, stop, needed) for each, `needed` the names the segment writes
+    that a later segment reads or that outlive the forward (`live_out`:
+    the loss, the post-backward section's reads, fetches and state
+    outputs). Only those leave a segment; its interior is recomputed in
+    the backward. None for a single segment."""
+    bounds = _split_at_checkpoints(fwd_ops, ckpt_names)
+    if len(bounds) <= 1:
+        return None
+    out = []
+    needed = set(live_out)
+    for start, stop in reversed(bounds):
+        written = set()
+        for op in fwd_ops[start:stop]:
+            written.update(_op_reads_writes(op)[1])
+        out.append((start, stop, frozenset(needed & written)))
+        for op in fwd_ops[start:stop]:
+            needed.update(_op_reads_writes(op)[0])
+    out.reverse()
+    return out
+
+
+def _run_segment(seg_ops, start, needed, env, seed, device, amp):
+    """One recompute segment under non-reentrant
+    `torch.utils.checkpoint`: the forward keeps only what leaves the
+    segment (`needed`); the backward runs the segment's ops again from
+    its inputs, with the same op indices, so the same seeds (dropout's
+    and the flash kernels' are stateless hashes of them) and the same
+    AMP casts, and nothing drawn from a torch generator. It needs no
+    host synchronization, so it runs inside a captured step, and the
+    recomputed graph's gradients reach the views that the data-parallel
+    exchange hooks."""
+
+    def body(carry):
+        e = dict(carry)
+        _run_ops(seg_ops, e, seed, device, base_idx=start, amp=amp)
+        return {n: e[n] for n in needed if n in e}
+
+    # every op of the segment runs again (no early stop: it would
+    # surface inside an op as an error)
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        return torch.utils.checkpoint.checkpoint(
+            body, dict(env), use_reentrant=False, preserve_rng_state=False)
+
+
+def _gradient_merge(env, gm, apply, post_ops, run_post, sync, plan=None):
+    """k-step gradient accumulation (reference: `_run_gradient_merge`).
+    Every step adds the fresh gradients into the float32 accumulators and
+    advances the counter, (counter + 1) % k, on the device. `apply` (the
+    host's choice: the counter's k-th step) then runs the post-backward
+    section (`run_post`) once on the merged gradients (divided by k where
+    `avg`; `sync` exchanges them over the data-parallel ring first, once
+    a window), resets the accumulators, and takes back what the section
+    wrote to vars that existed before it, as the reference's `lax.cond`
+    does; otherwise the section does not run, and parameters, moments and
+    the learning rate stay bit-equal. Under the sharded update a sharded
+    state leaves as its shard and any other shard-space value gathers."""
+    k = int(gm["k_steps"])
+    avg = bool(gm.get("avg", True))
+    acc_map = dict(gm["acc_map"])
+    counter = gm["counter"]
+    new_cnt = (env[counter] + 1) % k
+    for g, acc in acc_map.items():
+        env[acc] = env[acc] + env[g].to(env[acc].dtype)
+    if apply:
+        out_names, seen = [], set()
+        for op in post_ops:
+            for n in _op_reads_writes(op)[1]:
+                if n in env and n not in seen:
+                    out_names.append(n)
+                    seen.add(n)
+        out_names.extend(a for a in acc_map.values() if a not in seen)
+        e = dict(env)
+        merged = {g: e[acc] / k if avg else e[acc]
+                  for g, acc in acc_map.items()}
+        if sync is not None:
+            merged = sync(merged)
+        for g in acc_map:
+            v = merged[g]
+            e[g] = _su.ShardVal(v.vec.to(e[g].dtype), v.shape) \
+                if isinstance(v, _su.ShardVal) else v.to(e[g].dtype)
+        run_post(e)
+        for acc in acc_map.values():
+            e[acc] = torch.zeros_like(e[acc])
+        for n in out_names:
+            v = e[n]
+            if plan is not None and isinstance(v, _su.ShardVal) \
+                    and n not in plan.sharded_state:
+                v = _su.gather_full(v, plan)
+            env[n] = v
+    env[counter] = new_cnt.to(env[counter].dtype)
+
+
+def gradient_merge_attr(block) -> Optional[dict]:
+    """The backward op's ``gradient_merge`` attr (GradientMergeOptimizer),
+    or None."""
+    for op in block.ops:
+        if op.type == "backward":
+            return op.attrs.get("gradient_merge")
+    return None
+
+
 def build_block_fn(program, block, feed_names, fetch_names,
-                   state_in, state_out, device, ring=None, shard_plan=None):
+                   state_in, state_out, device, ring=None, shard_plan=None,
+                   gm_apply=False):
     """The function `fn(feeds, states, seed, keep=None) -> (fetches,
     new_states)` that runs `block` on `device`: feeds and states map
     names to tensors on it; `seed` is the run's `core.rng.StepSeed`;
@@ -779,7 +908,11 @@ def build_block_fn(program, block, feed_names, fetch_names,
     is sharded: the optimizer-bound gradients are reduce-scattered, the
     post-backward section runs in shard space, the plan's sharded state
     comes in and goes out as this rank's flat slices, and a fetched
-    shard is gathered."""
+    shard is gathered. Under gradient merge (the backward op's
+    ``gradient_merge`` attr) the function is one of the two steps of a
+    window: the accumulating one, or with `gm_apply` the one that applies
+    the merged gradients (`_gradient_merge`); the exchange then runs
+    there, once a window, on the merged gradients."""
     ops = list(block.ops)
     bwd_indices = [i for i, op in enumerate(ops) if op.type == "backward"]
     if len(bwd_indices) > 1:
@@ -790,19 +923,25 @@ def build_block_fn(program, block, feed_names, fetch_names,
         program, "_data_parallel", False) else None
     sync_ring = dp_ring if dp_ring is not None and dp_ring.size > 1 \
         else None
+    bop = ops[bwd_idx] if bwd_idx is not None else None
+    gm = bop.attrs.get("gradient_merge") if bop is not None else None
+    explicit = _has_explicit_sync(ops, bwd_idx)
     # fleet's programs sum their own gradients after the backward: those
     # in-place sums move into the exchange (`_early_syncs`), the rest
-    # stay ops; otherwise every gradient is averaged
-    early = _early_syncs(ops, bwd_idx) \
-        if _has_explicit_sync(ops, bwd_idx) else None
+    # stay ops; otherwise every gradient is averaged. Under gradient
+    # merge the sums stay ops of the post-backward section, which runs
+    # once a window on the merged gradients.
+    early = _early_syncs(ops, bwd_idx) if explicit and gm is None else None
     skip = frozenset(early.values()) if early else frozenset()
     # the exchange starts inside the backward unless buckets are off
     hooks = (shard_plan.bucket_cap if shard_plan is not None
              else _su.bucket_cap_bytes()) > 0
-    bop = ops[bwd_idx] if bwd_idx is not None else None
-    dls = bop.attrs.get("dynamic_loss_scaling") if bop is not None else None
-    static_ls = bop.attrs.get("static_loss_scaling") if bop is not None \
-        else None
+    # the merged-gradient window owns the update's cadence, so loss
+    # scaling never combines with it (the decorator warned)
+    dls = bop.attrs.get("dynamic_loss_scaling") \
+        if bop is not None and gm is None else None
+    static_ls = bop.attrs.get("static_loss_scaling") \
+        if bop is not None and gm is None else None
     if (dls is not None or static_ls) and early is not None:
         # fleet's transpiled program sums its gradients with ops after the
         # backward: a finite check here would see the local values and
@@ -814,6 +953,46 @@ def build_block_fn(program, block, feed_names, fetch_names,
             "underflow. Use bfloat16 (no scaling needed) or "
             "implicit DP sync.")
         dls = static_ls = None
+
+    segments = None
+    if bop is not None and bop.attrs.get("checkpoints"):
+        live_out = set(fetch_names) | set(state_out) | {bop.attrs[
+            "loss_name"]}
+        for post_op in ops[bwd_idx + 1:]:
+            live_out.update(_op_reads_writes(post_op)[0])
+        segments = _remat_segments(ops[:bwd_idx],
+                                   list(bop.attrs["checkpoints"]), live_out)
+
+    def _run_forward(env, seed):
+        if segments is None:
+            _run_ops(ops[:bwd_idx], env, seed, device, amp=amp)
+            return
+        for start, stop, needed in segments:
+            env.update(_run_segment(ops[start:stop], start, needed, env,
+                                    seed, device, amp))
+
+    def _merged_sync(merged):
+        """The once-a-window exchange of the merged gradients ({grad var
+        name: value}) over the ring, as the exchange of a step without
+        gradient merge would run it (bucketed reduce-scatters under the
+        sharded update, else all-reduces), launched after the
+        backward."""
+        gname = {framework.grad_var_name(n): n
+                 for n in bop.attrs.get("diff_names", [])}
+        by_diff = {gname[g]: v for g, v in merged.items() if g in gname}
+        exchange = _GradExchange(
+            _exchange_units(list(by_diff), bop.attrs.get("grad_topo", {})
+                            or {}, sync_ring, shard_plan, True), {}, False)
+        out = dict(merged)
+        out.update(exchange.finish(by_diff))
+        fn.overlap = {
+            "collectives": exchange.records, "n_backward": 0,
+            "n_buckets": len(shard_plan.buckets)
+            if shard_plan is not None else 0,
+            "launched_in_backward": False,
+            "captured": device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()}
+        return out
 
     def _run_post(env, seed):
         if shard_plan is not None:
@@ -835,7 +1014,7 @@ def build_block_fn(program, block, feed_names, fetch_names,
         env.update(leaves)
         synced = diff_names if early is None else [
             n for n in diff_names if framework.grad_var_name(n) in early]
-        if sync_ring is not None and synced:
+        if sync_ring is not None and synced and gm is None:
             # the forward reads each leaf through a view, whose gradient
             # hooks see it (hooks on the leaves of torch.autograd.grad
             # cannot tell an unused one)
@@ -847,7 +1026,7 @@ def build_block_fn(program, block, feed_names, fetch_names,
                 views, hooks)
             env.update(views)
         with torch.enable_grad():
-            _run_ops(ops[:bwd_idx], env, seed, device, amp=amp)
+            _run_forward(env, seed)
             loss = env[loss_name]
             loss_sum = torch.sum(loss.to(torch.float32))
         amp_scale = None
@@ -892,7 +1071,13 @@ def build_block_fn(program, block, feed_names, fetch_names,
                 env[gn] = _amp_unscale(env[gn], amp_scale)
         env[framework.grad_var_name(loss_name)] = torch.full(
             tuple(loss.shape), loss_scale, dtype=loss.dtype, device=device)
-        if dls is not None:
+        if gm is not None:
+            _gradient_merge(
+                env, gm, gm_apply, ops[bwd_idx + 1:],
+                lambda e: _run_post(e, seed),
+                _merged_sync if sync_ring is not None and not explicit
+                else None, shard_plan)
+        elif dls is not None:
             _loss_scaled_post(lambda e: _run_post(e, seed), dls, env,
                               found_inf, shard_plan)
         else:
@@ -1006,7 +1191,18 @@ class CompiledBlock:
     fetches): the block's state analysis and function, run in `mode`
     "graph" (first run eager, second captured as a CUDA graph with the
     state donated, then replays) or "eager" (every run op by op), with
-    `reason` saying why a block runs eagerly. See `compile_block`."""
+    `reason` saying why a block runs eagerly. See `compile_block`.
+
+    Under gradient merge the entry holds two functions and, in graph
+    mode, two captured steps over one set of static state buffers: the
+    accumulating step and the applying one (a CUDA graph cannot branch
+    on the device, where the reference uses `lax.cond`). The host picks
+    one from its mirror of the window's counter, read from the scope at
+    the first run and again whenever the scope's counter tensor is not
+    the one the last run left there or was written since (a
+    `fluid.load`, a checkpoint restore, a warmup on copies); both steps
+    write the counter on the device, so saved state matches the
+    reference's."""
 
     def __init__(self, program, block, feed_names, fetch_names, device,
                  graph_runner=None, ring=None):
@@ -1025,35 +1221,75 @@ class CompiledBlock:
             for n in list(self.shard_plan.sharded_state):
                 if n not in mut:
                     del self.shard_plan.sharded_state[n]
-        self.fn = build_block_fn(program, block, list(feed_names),
-                                 list(fetch_names), self.state_in,
-                                 self.state_out, self.device, ring,
-                                 shard_plan=self.shard_plan)
+        self.gm = gradient_merge_attr(block)
+        self._fns = [build_block_fn(program, block, list(feed_names),
+                                    list(fetch_names), self.state_in,
+                                    self.state_out, self.device, ring,
+                                    shard_plan=self.shard_plan,
+                                    gm_apply=apply)
+                     for apply in ((False, True) if self.gm is not None
+                                   else (False,))]
+        self.fn = self._fns[0]
         self.mode, self.reason = entry_mode(program, block, self.device,
                                             ring, graph_runner)
-        self._step = None if self.reason else graphs.DonatedStep(
-            self.fn, self.device, runner=graph_runner)
+        buffers = {}
+        self._steps = [None if self.reason else graphs.DonatedStep(
+            fn, self.device, runner=graph_runner, buffers=buffers)
+            for fn in self._fns]
+        self._step = self._steps[0]
+        # gradient merge: the host's mirror of the counter, and the
+        # (tensor, version) the last run left in the scope
+        self._gm_count = None
+        self._gm_seen = None
 
     @property
     def phase(self) -> str:
-        """"eager", or a graph entry's "cold", "warm" or "captured"."""
+        """"eager", or a graph entry's "cold", "warm" or "captured" (under
+        gradient merge, of the step that ran last)."""
         return "eager" if self._step is None else self._step.phase
+
+    def _gm_pick(self, states) -> int:
+        """0 (accumulate) or 1 (apply) for the next step, from the host
+        mirror of the counter, read again where the scope's counter is
+        not what the last run left there."""
+        t = states[self.gm["counter"]]
+        seen = self._gm_seen
+        if seen is None or t is not seen[0] or t._version != seen[1]:
+            self._gm_count = int(t.reshape(-1)[0].item())
+        return int((self._gm_count + 1) % int(self.gm["k_steps"]) == 0)
 
     def run(self, feeds, states, seed: int):
         """One step over `feeds` and the scope's current `states` (name
         -> tensor); `seed` the run's seed. Returns (fetches, new_states),
         the latter the tensors the scope should hold."""
+        i = 0 if self.gm is None else self._gm_pick(states)
+        self.fn, self._step = self._fns[i], self._steps[i]
         if self._step is None:
-            return self.fn(feeds, states,
-                           StepSeed(seed, seed_tensor(seed, self.device)))
-        return self._step.step(feeds, states, seed)
+            out = self.fn(feeds, states,
+                          StepSeed(seed, seed_tensor(seed, self.device)))
+        else:
+            out = self._step.step(feeds, states, seed)
+        if self.gm is not None:
+            t = out[1][self.gm["counter"]]
+            self._gm_count = (self._gm_count + 1) % int(self.gm["k_steps"])
+            self._gm_seen = (t, t._version)
+        return out
 
     @property
     def overlap(self) -> Optional[dict]:
         """The gradient exchange of the entry's last eager run, or of its
         capture (which fixes what every replay launches when), or None
-        before a run with one (see `_GradExchange`)."""
-        return self.fn.overlap
+        before a run with one (see `_GradExchange`; under gradient merge,
+        the applying step's exchange of the merged gradients)."""
+        return self._fns[-1].overlap
+
+    @staticmethod
+    def _graph_info(step) -> dict:
+        if step is None or not step.graph.captured:
+            return {}
+        g = step.graph
+        return dict(capture_ms=g.capture_ms, pool_bytes=g.pool_bytes,
+                    replays=g.replays, launches=dict(g.launches))
 
     def info(self) -> dict:
         """Mode, reason, phase, the optimizer state the step keeps
@@ -1062,7 +1298,9 @@ class CompiledBlock:
         against `opt_state_per_replica_bytes`, what this rank holds: the
         keys of the reference's `Executor.donation_report`) and, once
         captured, the graph's capture ms, pool bytes, replays and
-        wrapper-counted launches a replay."""
+        wrapper-counted launches a replay (under gradient merge those of
+        the step that ran last, and ``gradient_merge`` with k and each
+        step's phase and graph)."""
         out = {"mode": self.mode, "reason": self.reason,
                "phase": self.phase}
         sharded = self.shard_plan.sharded_state if self.shard_plan \
@@ -1075,16 +1313,21 @@ class CompiledBlock:
             out["opt_state_per_replica_bytes"] = sum(
                 i.padded // ndev * i.itemsize for i in sharded.values())
             out["grad_buckets"] = len(self.shard_plan.buckets)
-        if self._step is not None and self._step.graph.captured:
-            g = self._step.graph
-            out.update(capture_ms=g.capture_ms, pool_bytes=g.pool_bytes,
-                       replays=g.replays, launches=dict(g.launches))
+        out.update(self._graph_info(self._step))
+        if self.gm is not None:
+            out["gradient_merge"] = {
+                "k_steps": int(self.gm["k_steps"]),
+                "steps": [dict(kind=kind, phase="eager" if st is None
+                               else st.phase, **self._graph_info(st))
+                          for kind, st in zip(("accumulate", "apply"),
+                                              self._steps)]}
         return out
 
     def release(self):
-        """Drop the captured graph and its static buffers."""
-        if self._step is not None:
-            self._step.release()
+        """Drop the captured graphs and their static buffers."""
+        for st in self._steps:
+            if st is not None:
+                st.release()
 
 
 def compile_block(program, block, feed_names, fetch_names, device,

@@ -1,9 +1,15 @@
-"""Optimizers (counterpart: `paddle_tpu/fluid/optimizer.py:37-718`):
+"""Optimizers (counterpart: `paddle_tpu/fluid/optimizer.py`):
 `Optimizer`, `SGDOptimizer`, `MomentumOptimizer`,
 `LarsMomentumOptimizer`, `AdamOptimizer`, `AdamWOptimizer`,
 `LambOptimizer`, `AdamaxOptimizer`, `AdagradOptimizer`,
 `DecayedAdagradOptimizer`, `AdadeltaOptimizer`, `RMSPropOptimizer`,
-`FtrlOptimizer` and `DpsgdOptimizer`, with their 2.0-style aliases.
+`FtrlOptimizer` and `DpsgdOptimizer`, with their 2.0-style aliases; and
+the wrappers and extras of the reference's `:706-1230`:
+`DGCMomentumOptimizer` (its local half: the `dgc_momentum` op and its
+step counter; the collective `dgc` rewrite is ROADMAP Queue 1 #10),
+`ModelAverage`, `ExponentialMovingAverage`, `RecomputeOptimizer`,
+`LookaheadOptimizer` and `GradientMergeOptimizer`. `PipelineOptimizer`
+needs the GPipe engine of `parallel/pipeline.py` and raises (#10).
 
 `minimize = append_backward + apply_gradients`: gradients come from the
 backward section (backward.py); gradient clipping (`grad_clip`, else
@@ -12,15 +18,25 @@ clip.py) rewrites them, then weight decay (`regularization`, or a
 ParamAttr's `regularizer`; regularizer.py) adds its term; each optimizer
 then appends its update op per parameter (ops/optimizer_ops.py) and any
 op it needs once the updates are in (`_finish_update`: Adamax's beta
-power). The learning rate and the accumulators (velocities, moments,
-beta powers) are persistable vars that the startup program fills with
-`fill_constant`. DGC, ModelAverage, EMA, Recompute, Lookahead, gradient
-merge and Pipeline (`optimizer.py:719-1230` of the reference) are not
-ported yet.
+power, DGC's step counter). The learning rate and the accumulators
+(velocities, moments, beta powers) are persistable vars that the startup
+program fills with `fill_constant`.
+
+Recompute records its checkpoints on the backward op, and gradient merge
+its accumulators and counter (`fluid/lowering.py` runs both). EMA's and
+ModelAverage's `apply()` and `restore()` swap values into the tensors
+the scope holds, in place on the device (`copy_`): the reference rebinds
+scope entries, but a captured step writes into the tensors the scope
+held when it was captured (`core/graphs.py DonatedStep`), so a rebind
+would leave its replays training a stale tensor. After `restore()` the
+replays go on training the live parameters.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
+
+import torch
 
 from . import framework
 from .backward import append_backward
@@ -37,7 +53,10 @@ __all__ = ["Optimizer", "SGDOptimizer", "MomentumOptimizer",
            "RMSPropOptimizer", "FtrlOptimizer", "DpsgdOptimizer",
            "SGD", "Momentum", "Adam", "AdamW", "Lamb", "LarsMomentum",
            "Adamax", "Adagrad", "DecayedAdagrad", "Adadelta", "RMSProp",
-           "Ftrl", "Dpsgd"]
+           "Ftrl", "Dpsgd", "DGCMomentumOptimizer", "ModelAverage",
+           "ExponentialMovingAverage", "RecomputeOptimizer",
+           "LookaheadOptimizer", "GradientMergeOptimizer",
+           "PipelineOptimizer"]
 
 
 class Optimizer:
@@ -451,6 +470,464 @@ class DpsgdOptimizer(Optimizer):
             outputs={"ParamOut": [p]},
             attrs={"clip": self._clip, "batch_size": self._batch_size,
                    "sigma": self._sigma})
+
+
+def normalize_dgc_cfg(momentum, sparsity, rampup_begin_step):
+    """The DGC config: the reference passes sparsity as a ramp-up list,
+    whose last value is the steady-state sparsity the dgc op runs at."""
+    if isinstance(sparsity, (list, tuple)):
+        sparsity = sparsity[-1]
+    return {"momentum": float(momentum), "sparsity": float(sparsity),
+            "rampup_begin_step": float(rampup_begin_step)}
+
+
+class DGCMomentumOptimizer(MomentumOptimizer):
+    """Deep Gradient Compression momentum, its local half: the program
+    carries the DGC config (``program._dgc_cfg``) and each parameter gets
+    a `dgc_momentum` op (plain momentum before `rampup_begin_step`, SGD
+    on the dgc-corrected gradient after) over one shared step counter,
+    incremented once a step. The collective half (fleet's `dgc` knob,
+    `transpile_collective` planting the `dgc` op before each gradient's
+    all-reduce) is ROADMAP Queue 1 #10."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=None, use_nesterov=False,
+                 num_trainers=None, regularization=None, grad_clip=None,
+                 name=None, **kwargs):
+        super().__init__(learning_rate, momentum,
+                         use_nesterov=use_nesterov,
+                         regularization=regularization,
+                         grad_clip=grad_clip, name=name, **kwargs)
+        self._step_counter = None
+        self._dgc_cfg = normalize_dgc_cfg(
+            momentum, sparsity if sparsity else [0.75], rampup_begin_step)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        loss.block.program._dgc_cfg = self._dgc_cfg
+        return super().minimize(loss, startup_program, parameter_list,
+                                no_grad_set)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        from .layers import tensor as _tensor
+
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        if self._step_counter is None:
+            self._step_counter = _tensor.create_global_var(
+                [1], 0.0, "float32", persistable=True,
+                name=unique_name("dgc_opt_step"))
+        return block.append_op(
+            type="dgc_momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._create_param_lr(param_and_grad)],
+                    "CurrentStep": [self._step_counter]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov,
+                   "rampup_begin_step": self._dgc_cfg["rampup_begin_step"]})
+
+    def _finish_update(self, block, params_grads):
+        # the shared step counter advances once a step
+        if self._step_counter is not None:
+            block.append_op(
+                type="increment", inputs={"X": [self._step_counter]},
+                outputs={"Out": [self._step_counter]}, attrs={"step": 1.0})
+        return super()._finish_update(block, params_grads)
+
+
+class _ParamSwapMixin:
+    """`apply()`/`restore()` of EMA and ModelAverage: each parameter's
+    value is swapped with its replacement inside the tensor the scope
+    holds (`copy_` on the device), and the saved values are copied back
+    by `restore()`. The tensors stay the scope's, so a captured step
+    that holds them as its static buffers evaluates with the swapped
+    values, and its replays after `restore()` train the live ones."""
+
+    def _swap_in(self, replacements):
+        from ..core.scope import global_scope
+
+        scope = global_scope()
+        self._saved = {}
+        with torch.no_grad():
+            for name, new in replacements.items():
+                cur = scope.find_var(name)
+                if cur is None:
+                    continue
+                self._saved[name] = cur.clone()
+                cur.copy_(new.to(cur.dtype))
+
+    def restore(self, executor=None):
+        from ..core.scope import global_scope
+
+        scope = global_scope()
+        with torch.no_grad():
+            for name, old in getattr(self, "_saved", {}).items():
+                scope.find_var(name).copy_(old)
+        self._saved = {}
+
+    def apply(self, executor=None, need_restore=True):
+        """A context manager: inside it the parameters hold their
+        replacements; on leaving, `restore()` unless `need_restore` is
+        False."""
+
+        @contextlib.contextmanager
+        def ctx():
+            self._swap_in(self._replacements())
+            try:
+                yield
+            finally:
+                if need_restore:
+                    self.restore(executor)
+
+        return ctx()
+
+
+def _scope_tensor(name):
+    from ..core.scope import global_scope
+
+    return global_scope().find_var(name)
+
+
+class ModelAverage(Optimizer, _ParamSwapMixin):
+    """The windowed running average of the parameters (reference:
+    `optimizer.py:822`). Made after `minimize()`: it appends to the
+    current main program, for each trainable parameter, the accumulation
+    ops (sum_1 += p, a counter, and at `max_average_window` the rotation
+    sum_3 <- sum_1 + sum_2, sum_1 = sum_2 = 0, old_num <- num, num <- 0,
+    selected with a 0/1 flag instead of conditional blocks); `apply()`
+    swaps each parameter for (sum_1 + sum_2 + sum_3) / (num + old_num),
+    computed on the device."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self._accum = {}  # param name -> {accumulator: var name}
+        block = framework.default_main_program().global_block()
+        helper = LayerHelper("model_average")
+        for p in [p for p in block.all_parameters() if p.trainable]:
+            acc = {}
+            for nm in ("sum_1", "sum_2", "sum_3"):
+                acc[nm] = helper.create_global_variable(
+                    name=unique_name("%s_%s" % (p.name, nm)),
+                    shape=list(p.shape), dtype=p.dtype, persistable=True)
+                helper.set_variable_initializer(acc[nm],
+                                                ConstantInitializer(0.0))
+            for nm in ("num_accumulates", "old_num_accumulates"):
+                acc[nm] = helper.create_global_variable(
+                    name=unique_name("%s_%s" % (p.name, nm)), shape=[1],
+                    dtype="float32", persistable=True)
+                helper.set_variable_initializer(acc[nm],
+                                                ConstantInitializer(0.0))
+            self._accum[p.name] = {k: v.name for k, v in acc.items()}
+            self._append_accumulate(block, p, acc)
+
+    def _append_accumulate(self, block, p, acc):
+        def op(type_, ins, outs, attrs=None):
+            block.append_op(type=type_, inputs=ins, outputs=outs,
+                            attrs=attrs or {})
+
+        def tmp(stem, shape, dtype):
+            return block.create_var(name=unique_name(stem), shape=shape,
+                                    dtype=dtype)
+
+        s1, s2, s3 = acc["sum_1"], acc["sum_2"], acc["sum_3"]
+        num, old = acc["num_accumulates"], acc["old_num_accumulates"]
+        # sum_1 += p; num += 1
+        op("elementwise_add", {"X": [s1], "Y": [p]}, {"Out": [s1]},
+           {"axis": -1})
+        one = tmp("ma_one", [1], "float32")
+        op("fill_constant", {}, {"Out": [one]},
+           {"shape": [1], "dtype": "float32", "value": 1.0})
+        op("elementwise_add", {"X": [num], "Y": [one]}, {"Out": [num]},
+           {"axis": -1})
+        # the rotation where num >= max_average_window, as a 0/1 flag
+        thresh = tmp("ma_thr", [1], "float32")
+        op("fill_constant", {}, {"Out": [thresh]},
+           {"shape": [1], "dtype": "float32",
+            "value": float(self.max_average_window)})
+        flag_b = tmp("ma_flagb", [1], "bool")
+        op("greater_equal", {"X": [num], "Y": [thresh]}, {"Out": [flag_b]})
+        flag = tmp("ma_flag", [1], "float32")
+        op("cast", {"X": [flag_b]}, {"Out": [flag]},
+           {"in_dtype": "bool", "out_dtype": "float32"})
+        keep = tmp("ma_keep", [1], "float32")
+        op("scale", {"X": [flag]}, {"Out": [keep]},
+           {"scale": -1.0, "bias": 1.0, "bias_after_scale": True})
+
+        def blend(dst, a, b):
+            # dst = flag * a + keep * b
+            ta, tb = tmp("ma_t", p.shape, p.dtype), tmp("ma_t", p.shape,
+                                                         p.dtype)
+            op("elementwise_mul", {"X": [a], "Y": [flag]}, {"Out": [ta]},
+               {"axis": -1})
+            op("elementwise_mul", {"X": [b], "Y": [keep]}, {"Out": [tb]},
+               {"axis": -1})
+            op("elementwise_add", {"X": [ta], "Y": [tb]}, {"Out": [dst]},
+               {"axis": -1})
+
+        s12 = tmp("ma_s12", p.shape, p.dtype)
+        op("elementwise_add", {"X": [s1], "Y": [s2]}, {"Out": [s12]},
+           {"axis": -1})
+        blend(s3, s12, s3)
+        op("elementwise_mul", {"X": [s1], "Y": [keep]}, {"Out": [s1]},
+           {"axis": -1})
+        op("elementwise_mul", {"X": [s2], "Y": [keep]}, {"Out": [s2]},
+           {"axis": -1})
+        # old_num <- flag * num + keep * old_num (replaced, not summed);
+        # num <- keep * num
+        tn, to = tmp("ma_t", [1], "float32"), tmp("ma_t", [1], "float32")
+        op("elementwise_mul", {"X": [num], "Y": [flag]}, {"Out": [tn]},
+           {"axis": -1})
+        op("elementwise_mul", {"X": [old], "Y": [keep]}, {"Out": [to]},
+           {"axis": -1})
+        op("elementwise_add", {"X": [tn], "Y": [to]}, {"Out": [old]},
+           {"axis": -1})
+        op("elementwise_mul", {"X": [num], "Y": [keep]}, {"Out": [num]},
+           {"axis": -1})
+
+    def minimize(self, *a, **k):
+        raise NotImplementedError(
+            "ModelAverage wraps an inner optimizer; use apply()")
+
+    def _replacements(self):
+        out = {}
+        for pname, acc in self._accum.items():
+            s = _scope_tensor(acc["sum_1"]) + _scope_tensor(acc["sum_2"]) \
+                + _scope_tensor(acc["sum_3"])
+            n = _scope_tensor(acc["num_accumulates"]).reshape(()) \
+                + _scope_tensor(acc["old_num_accumulates"]).reshape(())
+            # no accumulation yet: the parameter stays
+            out[pname] = torch.where(n > 0, s / n, _scope_tensor(pname))
+        return out
+
+
+class ExponentialMovingAverage(_ParamSwapMixin):
+    """The exponential moving average of the parameters (reference:
+    `optimizer.py:960`): `update()` appends a step counter and, for each
+    trainable parameter, shadow = decay * shadow + (1 - decay) * param;
+    `apply()` swaps each parameter for its bias-corrected shadow,
+    shadow / (1 - decay^t), computed on the device."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        self._decay = decay
+        self._name = name or "ema"
+        self._shadow = {}
+        self._step_var = None
+
+    def update(self):
+        block = framework.default_main_program().global_block()
+        helper = LayerHelper(self._name)
+        if self._step_var is None:
+            step = helper.create_global_variable(
+                name=unique_name(self._name + "_step"), shape=[1],
+                dtype="float32", persistable=True)
+            helper.set_variable_initializer(step, ConstantInitializer(0.0))
+            self._step_var = step
+            one = block.create_var(name=unique_name("ema_one"), shape=[1],
+                                   dtype="float32")
+            block.append_op(type="fill_constant", inputs={},
+                            outputs={"Out": [one]},
+                            attrs={"shape": [1], "dtype": "float32",
+                                   "value": 1.0})
+            block.append_op(type="elementwise_add",
+                            inputs={"X": [step], "Y": [one]},
+                            outputs={"Out": [step]}, attrs={"axis": -1})
+        for p in block.all_parameters():
+            if not p.trainable:
+                continue
+            if p.name not in self._shadow:
+                shadow = helper.create_global_variable(
+                    name=unique_name(p.name + "_ema"), shape=list(p.shape),
+                    dtype=p.dtype, persistable=True)
+                helper.set_variable_initializer(shadow,
+                                                ConstantInitializer(0.0))
+                self._shadow[p.name] = shadow
+            shadow = self._shadow[p.name]
+            block.append_op(
+                type="scale", inputs={"X": [shadow]},
+                outputs={"Out": [shadow]},
+                attrs={"scale": self._decay, "bias": 0.0,
+                       "bias_after_scale": True})
+            tmp = block.create_var(name=unique_name("ema_tmp"),
+                                   shape=p.shape, dtype=p.dtype)
+            block.append_op(
+                type="scale", inputs={"X": [p]}, outputs={"Out": [tmp]},
+                attrs={"scale": 1.0 - self._decay, "bias": 0.0,
+                       "bias_after_scale": True})
+            block.append_op(type="elementwise_add",
+                            inputs={"X": [shadow], "Y": [tmp]},
+                            outputs={"Out": [shadow]}, attrs={"axis": -1})
+
+    def _replacements(self):
+        corr = None
+        if self._step_var is not None:
+            t = _scope_tensor(self._step_var.name)
+            if t is not None:
+                # 1 - decay^t in float64 (float32 would cancel at small
+                # t), then in float32 as the reference divides
+                t = t.reshape(()).to(torch.float64)
+                corr = torch.where(t > 0, 1.0 - self._decay ** t,
+                                   torch.ones_like(t)).clamp_min(1e-12)
+        out = {}
+        for pname, shadow in self._shadow.items():
+            sv = _scope_tensor(shadow.name)
+            if sv is not None:
+                out[pname] = sv if corr is None \
+                    else sv / corr.to(sv.dtype)
+        return out
+
+
+class RecomputeOptimizer(Optimizer):
+    """Activation recompute (reference: `optimizer.py:1037`): the inner
+    optimizer's `minimize`, then the checkpoints recorded on the
+    backward op. The lowering splits the forward at them and recomputes
+    each segment's interior in the backward (`fluid/lowering.py
+    _remat_segments`)."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def __getattr__(self, item):
+        return getattr(self._optimizer, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        result = self._optimizer.minimize(loss, startup_program,
+                                          parameter_list, no_grad_set)
+        if self._checkpoints:
+            for op in loss.block.ops:
+                if op.type == "backward":
+                    op.attrs["checkpoints"] = [
+                        v.name if isinstance(v, Variable) else v
+                        for v in self._checkpoints]
+        return result
+
+
+class LookaheadOptimizer:
+    """Lookahead (reference: `optimizer.py:1067`): a persistable slow copy
+    of every parameter (assigned from it in the startup program) and a
+    step counter; after the inner optimizer's updates, one
+    `lookahead_step` op a parameter: every k steps the slow weights move
+    `alpha` of the way to the fast ones and the fast ones snap back."""
+
+    def __init__(self, inner_optimizer, alpha=0.5, k=5):
+        if not 0.0 <= alpha <= 1.0:
+            raise ValueError("alpha must be in [0, 1], got %r" % (alpha,))
+        if k < 1:
+            raise ValueError("k must be at least 1, got %r" % (k,))
+        self.inner_optimizer = inner_optimizer
+        self.alpha = alpha
+        self.k = k
+
+    def __getattr__(self, item):
+        return getattr(self.inner_optimizer, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        result = self.inner_optimizer.minimize(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+        block = loss.block
+        startup = startup_program or framework.default_startup_program()
+        helper = LayerHelper("lookahead")
+        counter = helper.create_global_variable(
+            name=unique_name("lookahead_counter"), shape=[1],
+            dtype="int64", persistable=True)
+        helper.set_variable_initializer(counter, ConstantInitializer(0))
+        block.append_op(type="increment", inputs={"X": [counter]},
+                        outputs={"Out": [counter]}, attrs={"step": 1.0})
+        for param, _ in result[1]:
+            slow = helper.create_global_variable(
+                name=unique_name(param.name + "@SLOW"), shape=param.shape,
+                dtype=param.dtype, persistable=True)
+            # the slow weights start as a copy of the initialized params
+            startup.global_block().create_var(
+                name=slow.name, shape=slow.shape, dtype=slow.dtype,
+                persistable=True)
+            startup.global_block().append_op(
+                type="assign", inputs={"X": [param.name]},
+                outputs={"Out": [slow.name]}, attrs={})
+            block.append_op(
+                type="lookahead_step",
+                inputs={"Param": [param], "SlowParam": [slow],
+                        "Step": [counter]},
+                outputs={"ParamOut": [param], "SlowParamOut": [slow]},
+                attrs={"alpha": float(self.alpha), "k": int(self.k)})
+        return result
+
+
+class GradientMergeOptimizer:
+    """k-step gradient accumulation (reference: `optimizer.py:1125`):
+    float32 persistable accumulators, one a gradient, and a step counter,
+    recorded on the backward op (``gradient_merge``: k_steps, avg, the
+    grad -> accumulator map, the counter) and threaded as scope state
+    through its ``GradMergeState`` slots. Every step adds the fresh
+    gradients into the accumulators; every k-th the optimizer section
+    runs once on the merged ones (divided by k when `avg`), the
+    accumulators reset and the counter wraps (`fluid/lowering.py`)."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        if k_steps < 1:
+            raise ValueError("k_steps must be at least 1, got %r"
+                             % (k_steps,))
+        self.inner_optimizer = inner_optimizer
+        self.k_steps = k_steps
+        self.avg = avg
+
+    def __getattr__(self, item):
+        return getattr(self.inner_optimizer, item)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        result = self.inner_optimizer.minimize(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+        if self.k_steps <= 1:
+            return result
+        block = loss.block
+        bop = next((op for op in block.ops if op.type == "backward"), None)
+        if bop is None:
+            raise ValueError("gradient merge needs a backward section")
+        helper = LayerHelper("gradient_merge")
+        acc_map = {}
+        for param, grad in result[1]:
+            acc = helper.create_global_variable(
+                name=unique_name(param.name + "@GRAD@MERGE"),
+                shape=param.shape, dtype="float32", persistable=True)
+            helper.set_variable_initializer(acc, ConstantInitializer(0.0))
+            acc_map[grad.name] = acc.name
+        counter = helper.create_global_variable(
+            name=unique_name("gradient_merge_counter"), shape=[1],
+            dtype="int64", persistable=True)
+        helper.set_variable_initializer(counter, ConstantInitializer(0))
+        bop.attrs["gradient_merge"] = {
+            "k_steps": int(self.k_steps), "avg": bool(self.avg),
+            "acc_map": acc_map, "counter": counter.name}
+        # the accumulators and the counter ride the backward op, so the
+        # block's dataflow analysis threads them as scope state
+        extra = list(acc_map.values()) + [counter.name]
+        bop.input_names["GradMergeState"] = list(extra)
+        bop.output_names["GradMergeState"] = list(extra)
+        return result
+
+
+class PipelineOptimizer:
+    """The pipeline-parallel program splitter (reference:
+    `optimizer.py:1181`). Its engine, `parallel/pipeline.py` (GPipe over a
+    pp mesh axis), is not ported (ROADMAP Queue 1 #10), so it raises."""
+
+    def __init__(self, optimizer, *args, **kwargs):
+        raise NotImplementedError(
+            "PipelineOptimizer needs the GPipe engine of "
+            "parallel/pipeline.py, which is not ported yet (ROADMAP "
+            "Queue 1 #10)")
 
 
 # paddle 2.0-style aliases

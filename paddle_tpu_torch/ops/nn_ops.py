@@ -4,7 +4,7 @@
 types (`_UNARY`, attrs and defaults as the reference reads them),
 `softmax`, `log_softmax`, `softmax_with_cross_entropy` (hard labels with
 `ignore_index`, or soft labels), `one_hot`, `label_smooth`, `conv2d` / `depthwise_conv2d`, `pool2d`, `batch_norm`,
-`layer_norm`, `dropout`, the embedding lookups and
+`layer_norm`, `dropout`, `pad`, `pad2d`, the embedding lookups and
 `scaled_dot_product_attention`.
 
 `conv2d` is `F.conv2d` (cuDNN on the card), NCHW input and OIHW filter.
@@ -368,6 +368,33 @@ def _layer_norm(ins, attrs):
         var = torch.reciprocal(torch.square(rstd)) - eps
     return {"Y": y.to(x.dtype), "Mean": mean.detach().reshape(red_shape),
             "Variance": var.reshape(red_shape)}
+
+
+@register_op("pad")
+def _pad(ins, attrs):
+    """X padded with `pad_value` by `paddings`, a (before, after) pair a
+    dim, dims in order."""
+    x = ins["X"][0]
+    p = [int(v) for v in attrs["paddings"]]
+    pads = []
+    for i in reversed(range(x.ndim)):
+        pads += [p[2 * i], p[2 * i + 1]]
+    return {"Out": F.pad(x, pads, value=float(attrs.get("pad_value", 0.0)))}
+
+
+@register_op("pad2d")
+def _pad2d(ins, attrs):
+    """NCHW X padded by `paddings` [top, bottom, left, right]: with
+    `pad_value` ("constant"), or "reflect" or "edge"."""
+    x = ins["X"][0]
+    t, b, l, r = (int(v) for v in attrs["paddings"])
+    mode = attrs.get("mode", "constant")
+    if mode == "constant":
+        return {"Out": F.pad(x, [l, r, t, b],
+                             value=float(attrs.get("pad_value", 0.0)))}
+    return {"Out": F.pad(x, [l, r, t, b],
+                         mode={"reflect": "reflect",
+                               "edge": "replicate"}[mode])}
 
 
 @register_op("dropout", rng="device")

@@ -15,11 +15,14 @@ the host.
 Two flags mirror the reference's: `no_jit` (a host-side op) and
 `dynamic_shape` (the output's shape depends on input values). A block
 holding either, or a ``rng="host"`` op, is never captured as a CUDA graph
-(`fluid/lowering.py capture_blocker`). No ported op sets either flag yet.
+(`fluid/lowering.py capture_blocker`): `range` and `seed` are `no_jit`;
+`where_index`, `masked_select`, `unique` and `unique_with_counts` both.
 
 Shape/dtype inference runs the same compute function on `meta` tensors
 (in place of `jax.eval_shape`), so no per-op InferShape code exists to
-keep in sync. Gradients come from `torch.autograd` over the forward
+keep in sync; a `no_jit` op, which reads values on the host, is probed
+on zero-filled CPU tensors instead, twice where a dim is -1, as the
+reference probes it. Gradients come from `torch.autograd` over the forward
 segment (`fluid/lowering.py`), so no per-op grad rules exist either.
 """
 from __future__ import annotations
@@ -143,6 +146,8 @@ def infer_outputs(type_: str, input_specs: Dict[str, list], attrs: dict):
     op = get_op(type_)
     if op.infer_shape is not None:
         return op.infer_shape(input_specs, attrs)
+    if op.no_jit:
+        return _probe_outputs(op, input_specs, attrs)
 
     dynamic = False
 
@@ -168,4 +173,33 @@ def infer_outputs(type_: str, input_specs: Dict[str, list], attrs: dict):
         slot: [(tuple(-1 if (dynamic and d == _DYN_SENTINEL) else int(d)
                       for d in t.shape), normalize_dtype(t.dtype))
                for t in ts]
+        for slot, ts in outs.items()}
+
+
+def _probe_outputs(op, input_specs, attrs):
+    """`infer_outputs` of a host-side op: it runs on zero-filled CPU
+    inputs, a -1 dim given the sentinel extent and then another; only
+    the output dims that follow it are -1."""
+    cpu = torch.device("cpu")
+    dynamic = any(d is None or d < 0 for specs in input_specs.values()
+                  for shape, _ in specs for d in shape)
+
+    def probe(sentinel):
+        ins = {slot: [torch.zeros([sentinel if d is None or d < 0
+                                   else int(d) for d in shape],
+                                  dtype=to_torch_dtype(dtype))
+                      for shape, dtype in specs]
+               for slot, specs in input_specs.items()}
+        run_attrs = dict(attrs, _device=cpu,
+                         _rng_seed=seed_tensor(0, cpu),
+                         _rng_generator=torch.Generator().manual_seed(0))
+        return normalize_outs(op.compute(ins, run_attrs))
+
+    outs = probe(_DYN_SENTINEL)
+    outs2 = probe(89) if dynamic else outs
+    return {
+        slot: [(tuple(-1 if (dynamic and t.ndim == t2.ndim and a != b)
+                      else int(a) for a, b in zip(t.shape, t2.shape)),
+                normalize_dtype(t.dtype))
+               for t, t2 in zip(ts, outs2[slot])]
         for slot, ts in outs.items()}

@@ -244,22 +244,47 @@ AMP_SLICE_OPT_OPS = {
     "proximal_gd", "proximal_adagrad", "lookahead_step",
     "average_accumulates", "dgc_momentum", "dgc_clip_by_norm"}
 AMP_SLICE_OPS = AMP_SLICE_MATH_OPS | AMP_SLICE_NN_OPS | AMP_SLICE_OPT_OPS
+#: the large-batch slice's op types, held by
+#: tests/test_torch_tensor_ops.py: the rest of `tensor_ops.py` (63), the
+#: rest of `rng_ops.py` (10) and `pad`, `pad2d` of `nn_ops.py`
+TENSOR_SLICE_TENSOR_OPS = set(
+    "allclose arg_max arg_min argsort broadcast_to concat crop crop_tensor "
+    "diag diag_embed diag_v2 diagonal expand_as expand_as_v2 expand_v2 eye "
+    "fill fill_any_like fill_zeros_like fill_zeros_like2 flatten flatten2 "
+    "flatten_contiguous_range flip gather_nd gaussian_random_batch_size_like "
+    "index_sample index_select is_empty isclose linspace logspace "
+    "masked_select merge_ids meshgrid numel pad3d pad_constant_like "
+    "partial_concat partial_sum range rank reshape reverse roll scatter_nd "
+    "scatter_nd_add shape shard_index size split_ids squeeze strided_slice "
+    "tile top_k_v2 transpose tril_triu unbind unique unique_with_counts "
+    "unsqueeze unstack where_index".split())
+TENSOR_SLICE_RNG_OPS = {
+    "bernoulli", "exponential", "gumbel_softmax", "multinomial", "poisson",
+    "randint", "randperm", "sampling_id", "seed",
+    "uniform_random_batch_size_like"}
+TENSOR_SLICE_OPS = TENSOR_SLICE_TENSOR_OPS | TENSOR_SLICE_RNG_OPS \
+    | {"pad", "pad2d"}
 
 
 def test_cases_cover_the_registry():
     """Every op type the port registers is held here, by
     tests/test_torch_fluid_ops.py, tests/test_torch_resnet_ops.py,
-    tests/test_torch_transformer_ops.py,
+    tests/test_torch_transformer_ops.py, tests/test_torch_tensor_ops.py,
     tests/test_torch_collective_ops.py or tests/test_torch_math_ops.py."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
     assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS \
         | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS \
-        == set(treg.registered_ops())
+        | TENSOR_SLICE_OPS == set(treg.registered_ops())
     assert (len(AMP_SLICE_MATH_OPS), len(AMP_SLICE_NN_OPS),
             len(AMP_SLICE_OPT_OPS)) == (36, 44, 16)
+    assert (len(TENSOR_SLICE_TENSOR_OPS), len(TENSOR_SLICE_RNG_OPS),
+            len(TENSOR_SLICE_OPS)) == (63, 10, 75)
+    assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
+                | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS
+                | AMP_SLICE_OPS) & TENSOR_SLICE_OPS
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS) \
-        & AMP_SLICE_OPS and len(treg.registered_ops()) == 197
+        & AMP_SLICE_OPS and len(treg.registered_ops()) == 272
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS) & COLLECTIVE_SLICE_OPS \
         and len(COLLECTIVE_SLICE_OPS) == 19

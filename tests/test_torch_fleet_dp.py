@@ -315,7 +315,16 @@ def test_unported_strategy_knobs_raise(knob):
     st = tfleet.DistributedStrategy()
     setattr(st, knob, True)
     if knob == "recompute":
+        # ported: the checkpoints are recorded on the backward op
         st.recompute_configs = {"checkpoints": ["x"]}
+        main = runner.build_mlp(tfluid, 1, lambda loss:
+                                tfleet.distributed_optimizer(
+                                    _sgd(tfluid, 0.1)(), st).minimize(
+                                        loss))[0]
+        bop = next(op for op in main.global_block().ops
+                   if op.type == "backward")
+        assert bop.attrs["checkpoints"] == ["x"]
+        return
     if knob == "lamb":
         # ported: the user optimizer is swapped for LAMB, with Adam's
         # betas and epsilon

@@ -546,6 +546,88 @@ def _reshard_round_trip(out, key, exe, main, prog, scope, feed, loss):
         < v.size for n, v in want.items()))
 
 
+#: gradient merge over the ranks: window, steps, the variants
+#: (FLAGS_tpu_sharded_weight_update, FLAGS_tpu_comm_bucket_mb)
+GM_K, GM_STEPS = 3, 6
+GM_VARIANTS = {"replicated": (False, ZERO_CAP_MB),
+               "zero": (True, ZERO_CAP_MB)}
+#: the collectives of the gradient exchange, counted a step
+GM_EXCHANGE_KINDS = ("all_reduce", "zero.reduce_scatter", "zero.all_gather")
+
+
+def build_gm_mlp(fluid, k=GM_K):
+    """The 31-wide MLP over Adam(0.01) under GradientMergeOptimizer(k,
+    avg): (main, startup, loss)."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 1234
+    with fluid.program_guard(main, startup), fluid.unique_name_guard():
+        img = fluid.layers.data(name="img", shape=[32], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        h = fluid.layers.fc(input=img, size=31, act="relu")
+        logits = fluid.layers.fc(input=h, size=4)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(logits, label))
+        fluid.optimizer.GradientMergeOptimizer(
+            fluid.optimizer.AdamOptimizer(learning_rate=0.01), k_steps=k,
+            avg=True).minimize(loss)
+    return main, startup, loss
+
+
+def gm_feeds(steps=GM_STEPS):
+    """A global batch of 64 a step, a different one each step."""
+    r = np.random.RandomState(5)
+    return [{"img": r.rand(64, 32).astype("float32"),
+             "label": r.randint(0, 4, (64, 1)).astype("int64")}
+            for _ in range(steps)]
+
+
+def gm_ranks(d):
+    """A `distributed.spawn` target: the gradient-merge MLP through
+    `with_data_parallel` from the start state `gm.state.npz`, replicated
+    and with the sharded update: each step's gathered loss and
+    collective calls, every persistable at its logical shape after the
+    steps; in `<d>/gm.rank<r>.npz`."""
+    import torch
+
+    from paddle_tpu_torch import distributed, fluid
+    from paddle_tpu_torch.core.scope import load_numpy_state
+    from paddle_tpu_torch.ops import collective_ops
+
+    torch.set_num_threads(2)
+    out = {}
+    state = _load(d, "gm")
+    for variant, (flag, cap) in GM_VARIANTS.items():
+        fluid.set_flags({"FLAGS_tpu_sharded_weight_update": flag,
+                         "FLAGS_tpu_comm_bucket_mb": cap})
+        main, startup, loss = build_gm_mlp(fluid)
+        exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+        exe.run(startup, scope=scope)
+        load_numpy_state(scope, state, "cpu")
+        prog = fluid.CompiledProgram(main).with_data_parallel()
+        losses, calls = [], []
+
+        def count():
+            return [collective_ops.stats.get(k, {}).get("calls", 0)
+                    for k in GM_EXCHANGE_KINDS]
+
+        for feed in gm_feeds():
+            before = count()
+            losses.append(exe.run(prog, feed=feed, fetch_list=[loss],
+                                  scope=scope)[0])
+            calls.append([a - b for a, b in zip(count(), before)])
+        key = variant + "."
+        out[key + "losses"] = np.stack(losses)
+        out[key + "calls"] = np.array(calls)
+        out[key + "sharded"] = np.array(len(
+            main._shard_plan.sharded_state if main._shard_plan else ()))
+        for n, v in logical_state(exe, main, scope, state).items():
+            out[key + "state." + n] = v
+    fluid.set_flags({"FLAGS_tpu_sharded_weight_update": True,
+                     "FLAGS_tpu_comm_bucket_mb": 25.0})
+    np.savez(os.path.join(d, "gm.rank%d.npz" % distributed.get_rank()),
+             **out)
+
+
 def zero_ranks(d):
     """A `distributed.spawn` target: case "zero" on this rank, its
     results in `<d>/zero.rank<r>.npz`."""
