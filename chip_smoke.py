@@ -344,7 +344,30 @@ Phases, each printing one JSON line:
    the card against the CPU (fp32 within 1e-5, integers exact; random
    types by shape, dtype, repetition and moments). Each leg prints a
    line (`bert_large_batch_leg`), the phase a closing one;
-19. kernels — one line listing every ported kernel with its launches on
+19. book — the Paddle book's programs (tests/torch_book_programs.py), with
+   ``FLAGS_cudnn_deterministic`` on. Leg a: understand_sentiment's
+   stacked_lstm_net at the book's widths (embedding 128 over a vocabulary
+   of 5,000, fc and dynamic_lstm size 512, hidden 128, 3 layers, the
+   second reversed; max over time, fc(2, softmax), cross_entropy,
+   Adagrad 0.002), T 256, batch 128, every row full: 7 steps captured
+   (the first eager, the second captured, then replays) and 3 eager from
+   one state; the captured and eager step ms (median), the capture's ms
+   and pool, tokens/s, the busy share and kernels of one profiled
+   replay, peak memory. Leg b, T 32 (depth and length only): leg a's
+   program captured against eager over 6 steps (losses and every
+   persistable bit-equal); with ragged Length, the card against the CPU
+   (2 steps' losses and every gradient within 1e-4 relative in norm);
+   machine_translation's dynamic_gru program likewise; one
+   bidirectional cudnn_lstm layer over a ragged SequenceLength (outputs
+   and gradients within 1e-4). Leg c: fit_a_line, recognize_digits and
+   recommender_system 20 steps captured against the CPU (losses within
+   1e-4 relative; recognize_digits' falls). Leg d: the 122 cases of
+   tests/torch_nn_cases.py (the slice's 81 op types), forward and
+   gradients, the card against the CPU within 1e-4 x (1 + max |value|),
+   integers exact; the cuDNN types and pool3d twice, bit-equal. Each leg
+   prints a line (`book_leg`), the phase a closing one. The path runs
+   none of the hand-written kernels;
+20. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, their launches and times on the fluid BERT path, their
@@ -353,7 +376,7 @@ Phases, each printing one JSON line:
    phase 17 leg b and their times at phase 5 case g; the dropout kernel
    with its launches on fluid BERT leg a and on phase 18 leg a); launches
    made by graph replays count;
-20. the last line, ``{"ok": true, "device": {...}}``, printed only when
+21. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -593,6 +616,25 @@ LB_B = dict(layers=4, rtol=1e-2)
 LB_LAMB = dict(lr=1e-4, weight_decay=0.01, clip=1.0)
 LB_C_STEPS, LB_C_RTOL = 10, 1e-4
 LB_D_DRAWS = 200000
+#: phase 19, the Paddle book's programs (tests/torch_book_programs.py) with
+#: FLAGS_cudnn_deterministic on: leg a understand_sentiment's stacked LSTM at
+#: the book's widths (embedding 128, fc and LSTM 512, 3 layers, a
+#: vocabulary of 5,000), T 256 (IMDB reviews run to a few hundred words),
+#: batch 128, every row full, captured (the first step eager, the second
+#: captured, then replays) and eager from one state; leg b its gates at T
+#: 32 (captured against eager bit for bit; ragged rows, machine_translation's
+#: GRUs and a bidirectional cudnn_lstm layer, the card against the CPU);
+#: leg c fit_a_line, recognize_digits and recommender_system card against
+#: CPU; leg d the slice's op cases card against CPU, and captured against
+#: eager
+BOOK_A = dict(seq=256, batch=128, graph_steps=7, eager_steps=3)
+BOOK_B = dict(seq=32, batch=128, steps=6, rtol=1e-4,
+              translation=dict(seq=32, src_vocab=10000, trg_vocab=10000,
+                               hid=256), translation_batch=32)
+BOOK_C = dict(steps=20, batch=64, rtol=1e-4)
+BOOK_D_RTOL = 1e-4
+#: leg d: the cuDNN types run twice on the card, bit-equal
+BOOK_D_REPEAT = {"conv2d_transpose", "conv3d", "conv3d_transpose", "pool3d"}
 
 
 _T0 = time.perf_counter()
@@ -2543,51 +2585,45 @@ def lb_leg_d(torch, fluid):
     """Leg d: the slice's new op types at the CPU tests' shapes
     (tests/torch_tensor_cases.py), the card against the CPU:
     deterministic types within fp32 1e-5 (integer, index and bool
-    outputs exact); random types by shape and dtype, one seed repeating
+    outputs exact), and those that a CUDA graph can capture
+    (tests/torch_case_runner.py capturable) again from one replay of a
+    graph captured around them and their gradients, bit-equal to eager;
+    random types by shape and dtype, one seed repeating
     its draws bit for bit, and the moments of a few against their
     distributions."""
     import numpy as np
 
-    from paddle_tpu_torch.core.rng import seed_tensor
-    from paddle_tpu_torch.core.types import to_torch_dtype
-    from paddle_tpu_torch.ops import registry
-
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
-    import torch_tensor_cases as tc
-
+    cr, tc = tests_modules("torch_case_runner", "torch_tensor_cases")
     dev = torch.device("cuda")
 
-    def run(op, ins, attrs, device, seed=7):
-        a = dict(attrs, _device=device, _rng_seed=seed_tensor(seed, device))
-        t = {s: [torch.as_tensor(np.asarray(v).copy(), dtype=to_torch_dtype(
-            np.asarray(v).dtype)).to(device) for v in vs]
-            for s, vs in ins.items()}
-        return registry.normalize_outs(registry.get_op(op).compute(t, a))
+    def run(op, ins, attrs, device):
+        return cr.run_case(op, ins, attrs, device, seed=7)
 
-    worst, bad = 0.0, []
+    worst, bad, captured = 0.0, [], 0
     for name, case in sorted(tc.CASES.items()):
         ins = tc.inputs(name)
-        got, want = (run(case[0], ins, case[2], d) for d in (dev, "cpu"))
-        for slot, vals in want.items():
-            for g, w in zip(got[slot], vals):
-                g = g.cpu()
-                if g.dtype != w.dtype or g.shape != w.shape:
-                    bad.append((name, slot, "dtype/shape"))
-                elif w.is_floating_point():
-                    err = float((g - w).abs().max()) if w.numel() else 0.0
-                    tol = 1e-5 * (1 + float(w.abs().max())) \
-                        if w.numel() else 0.0
-                    worst = max(worst, err)
-                    if err > tol:
-                        bad.append((name, slot, err))
-                elif not torch.equal(g, w):
-                    bad.append((name, slot, "values"))
+        got = run(case[0], ins, case[2], dev)
+        err, _, faults = cr.compare(got, run(case[0], ins, case[2], "cpu"),
+                                    1e-5)
+        worst = max(worst, err)
+        bad += [(name,) + f for f in faults]
+        if cr.capturable(case[0]):
+            try:
+                graph = cr.capture_case(case[0], ins, case[2], dev, case[3],
+                                        seed=7)
+            except RuntimeError as e:
+                bad.append((name, "capture", str(e).splitlines()[0][:200]))
+            else:
+                captured += 1
+                eager = cr.run_case(case[0], ins, case[2], dev, case[3],
+                                    seed=7)
+                bad += [(name, "captured") + f
+                        for f in cr.compare(graph, eager, 0.0)[2]]
     rng = {}
     for name, (makers, attrs) in sorted(tc.RNG_CASES.items()):
         ins = tc.inputs(name, tc.RNG_CASES)
-        a, b = (run(name, ins, attrs, dev)["Out"][0] for _ in range(2))
-        c = run(name, ins, attrs, "cpu")["Out"][0]
+        a, b = (run(name, ins, attrs, dev)[0] for _ in range(2))
+        c = run(name, ins, attrs, "cpu")[0]
         rng[name] = {"shape": list(a.shape), "dtype": str(a.dtype),
                      "repeats": torch.equal(a, b),
                      "like_cpu": a.dtype == c.dtype and a.shape == c.shape}
@@ -2596,12 +2632,12 @@ def lb_leg_d(torch, fluid):
     n = LB_D_DRAWS
     u = run("uniform_random_batch_size_like",
             {"Input": [np.zeros((n, 1), "float32")]},
-            {"shape": [-1, 1], "min": -1.0, "max": 1.0}, dev)["Out"][0]
+            {"shape": [-1, 1], "min": -1.0, "max": 1.0}, dev)[0]
     k = run("poisson", {"X": [np.full((n,), 30.0, "float32")]}, {},
-            dev)["Out"][0]
+            dev)[0]
     g = run("gaussian_random_batch_size_like",
             {"Input": [np.zeros((n, 1), "float32")]},
-            {"shape": [-1, 1], "mean": 0.0, "std": 1.0}, dev)["Out"][0]
+            {"shape": [-1, 1], "mean": 0.0, "std": 1.0}, dev)[0]
     moments = {"uniform_mean": float(u.mean()),
                "uniform_range": [float(u.min()), float(u.max())],
                "normal_mean": float(g.mean()), "normal_std": float(g.std()),
@@ -2616,12 +2652,15 @@ def lb_leg_d(torch, fluid):
                   and abs(moments["poisson30_mean"] - 30.0) <= se * 5.5
                   and abs(moments["poisson30_var"] / 30.0 - 1.0) <= 0.06)
     res = {"leg": "d", "deterministic_cases": len(tc.CASES),
+           "captured_cases": captured,
            "random_types": len(tc.RNG_CASES), "max_abs_err": worst,
-           "tol": "fp32 1e-5 x (1 + max |value|); integers exact",
+           "tol": "fp32 1e-5 x (1 + max |value|); integers exact; "
+           "captured (with gradients) bit-equal to eager",
            "random": rng, "moments": moments, "moments_ok": moments_ok,
            "failures": bad[:10]}
     emit({"phase": "bert_large_batch_leg", **res})
-    check(not bad, "large batch d: card against CPU: %s" % bad[:10])
+    check(not bad, "large batch d: card against CPU or captured against "
+          "eager: %s" % bad[:10])
     check(moments_ok, "large batch d: moments %s" % moments)
     return res
 
@@ -2652,6 +2691,339 @@ def phase_bert_large_batch(torch, name):
           "tokens_per_sec": a["tokens_per_sec"],
           "peak_mem_bytes": a["peak_mem_bytes"],
           "eager_micro_step_peak_bytes": a["eager_micro_step_peak_bytes"],
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
+# -- phase 19 -----------------------------------------------------------------
+
+def tests_modules(*names):
+    """The numpy case tables and helpers kept beside the port's tests
+    (they import no JAX)."""
+    import importlib
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    return [importlib.import_module(n) for n in names]
+
+
+def book_state(fluid, book):
+    """The startup's persistables on the card (name -> tensor)."""
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(book.startup, scope=scope)
+    state = {n: scope.find_var(n).clone() for n in sorted(
+        v.name for v in book.main.list_vars() if v.persistable)}
+    exe.close()
+    return state
+
+
+def book_cpu_run(torch, fluid, book, state, feeds, fetch):
+    """The steps on the CPU from `state` (moved there): the fetches of
+    each step (numpy)."""
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.cpu().clone())
+    out = [exe.run(book.main, feed=f, fetch_list=fetch, scope=scope)
+           for f in feeds]
+    exe.close()
+    return out
+
+
+def rel_err(a, b):
+    """|a - b| / |b| in norm (numpy or tensors, as float64)."""
+    import numpy as np
+
+    a, b = (np.asarray(v.cpu() if hasattr(v, "cpu") else v, "float64")
+            for v in (a, b))
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def book_leg_a(torch, fluid, bp):
+    """Leg a: understand_sentiment's stacked LSTM at the book's widths,
+    T 256, batch 128, every row full, Adagrad: trained captured (the
+    first step eager, the second captured, then replays) and, from the
+    same state, eagerly; step times, capture, busy share, kernels a
+    replay, peak memory, the graph pool."""
+    import numpy as np
+
+    seq, batch = BOOK_A["seq"], BOOK_A["batch"]
+    book = bp.understand_sentiment(fluid, seq)
+    state = book_state(fluid, book)
+    rng = np.random.RandomState(0)
+    feeds = [book.feed(batch, rng) for _ in range(BOOK_A["graph_steps"])]
+    torch.cuda.reset_peak_memory_stats()
+    graph = fluid_run(torch, fluid, book.main, state, feeds, [book.loss],
+                      True)
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, kernels = device_busy_share(
+        torch, lambda: graph["exe"].run(book.main, feed=feeds[-1],
+                                        fetch_list=[book.loss],
+                                        scope=graph["scope"]))
+    info = graph["info"]
+    graph["exe"].close()
+    del graph["exe"], graph["scope"]
+    eager = fluid_run(torch, fluid, book.main, state,
+                      feeds[:BOOK_A["eager_steps"]], [book.loss], False)
+    eager["exe"].close()
+    del eager["exe"], eager["scope"]
+    losses = [float(f[0].reshape(-1)[0]) for f in graph["fetches"]]
+    replay_ms = statistics.median(graph["step_ms"][2:])
+    eager_ms = statistics.median(eager["step_ms"][1:])
+    res = {"leg": "a", "model": "understand_sentiment stacked_lstm_net",
+           "widths": dict(bp.SENTIMENT, seq=seq, batch=batch),
+           "lstm_steps_a_step": seq * bp.SENTIMENT["stacked"],
+           "mode": info["mode"], "entry_phase": info["phase"],
+           "losses": losses, "eager_losses": [
+               float(f[0].reshape(-1)[0]) for f in eager["fetches"]],
+           "graph_step_ms": graph["step_ms"], "eager_step_ms":
+           eager["step_ms"], "captured_step_ms": replay_ms,
+           "eager_step_median_ms": eager_ms,
+           "first_eager_step_ms": graph["step_ms"][0],
+           "capture_step_ms": graph["step_ms"][1],
+           "capture_ms": info.get("capture_ms"),
+           "pool_bytes": info.get("pool_bytes"),
+           "tokens_per_sec": batch * seq / (replay_ms / 1e3),
+           "eager_tokens_per_sec": batch * seq / (eager_ms / 1e3),
+           "replay": {"wall_us": wall, "device_busy_us": busy,
+                      "device_busy_share": busy / wall, "kernels": kernels},
+           "peak_mem_bytes": peak}
+    del graph, eager, state
+    torch.cuda.empty_cache()
+    emit({"phase": "book_leg", **res})
+    check(info["mode"] == "graph" and info["phase"] == "captured",
+          "book a: the step is %s (%s), not captured" % (info["mode"],
+                                                         info["reason"]))
+    check(all(math.isfinite(x) for x in losses + res["eager_losses"]),
+          "book a: losses %s" % losses)
+    check(abs(losses[0] - math.log(2.0)) < 0.5,
+          "book a: first loss %s against ln 2" % losses[0])
+    return res
+
+
+def book_grads_vs_cpu(torch, fluid, book, feeds, steps):
+    """`steps` of `book` on the card (captured after the first) and on
+    the CPU from one startup state, fetching the loss and every
+    parameter's gradient: the largest relative difference of the losses
+    and of the gradients (in norm)."""
+    params = [p.name for p in book.main.all_parameters()]
+    fetch = [book.loss] + [p + "@GRAD" for p in params]
+    state = book_state(fluid, book)
+    card = fluid_run(torch, fluid, book.main, state, feeds[:steps], fetch,
+                     True)
+    card["exe"].close()
+    cpu = book_cpu_run(torch, fluid, book, state, feeds[:steps], fetch)
+    loss = max(rel_err(a[0], b[0]) for a, b in zip(card["fetches"], cpu))
+    grad = max(rel_err(x, y) for a, b in zip(card["fetches"], cpu)
+               for x, y in zip(a[1:], b[1:]))
+    return {"loss_rel_err": loss, "grad_rel_err": grad,
+            "losses_card": [float(a[0].reshape(-1)[0])
+                            for a in card["fetches"]],
+            "losses_cpu": [float(b[0].reshape(-1)[0]) for b in cpu],
+            "card_phase": card["info"]["phase"], "params": len(params)}
+
+
+def book_leg_b(torch, fluid, bp):
+    """Leg b, the gates at T 32: leg a's program captured against eager
+    over 6 steps (losses and every persistable bit-equal); with ragged
+    Length, the card against the CPU (losses and every gradient within
+    1e-4); machine_translation's dynamic_gru program and a bidirectional
+    cudnn_lstm layer over a ragged SequenceLength, the card against the
+    CPU."""
+    import numpy as np
+
+    seq, batch, tol = BOOK_B["seq"], BOOK_B["batch"], BOOK_B["rtol"]
+    rng = np.random.RandomState(1)
+    book = bp.understand_sentiment(fluid, seq)
+    feeds = [book.feed(batch, rng) for _ in range(BOOK_B["steps"])]
+    state = book_state(fluid, book)
+    runs = [fluid_run(torch, fluid, book.main, state, feeds, [book.loss], g)
+            for g in (True, False)]
+    graph, eager = runs
+    for r in runs:
+        r["exe"].close()
+    eager_tensors = dict(run_tensors(torch, eager))
+    differ = sorted(n for n, a in run_tensors(torch, graph)
+                    if not torch.equal(a, eager_tensors[n]))
+    res = {"leg": "b", "seq": seq, "batch": batch,
+           "captured_vs_eager": {"steps": len(feeds),
+                                 "mode": graph["info"]["mode"],
+                                 "entry_phase": graph["info"]["phase"],
+                                 "bit_equal": not differ,
+                                 "differ": differ[:5]}}
+    del graph, eager, runs, state
+    ragged = bp.understand_sentiment(fluid, seq, ragged=True)
+    rng = np.random.RandomState(2)
+    res["ragged_vs_cpu"] = book_grads_vs_cpu(
+        torch, fluid, ragged, [ragged.feed(batch, rng) for _ in range(2)], 2)
+    mt = bp.machine_translation(fluid, **BOOK_B["translation"])
+    rng = np.random.RandomState(3)
+    res["gru_vs_cpu"] = book_grads_vs_cpu(
+        torch, fluid, mt, [mt.feed(BOOK_B["translation_batch"], rng)
+                           for _ in range(2)], 2)
+    res["cudnn_lstm_vs_cpu"] = book_cudnn_lstm(torch)
+    res["rtol"] = tol
+    torch.cuda.empty_cache()
+    emit({"phase": "book_leg", **res})
+    check(res["captured_vs_eager"]["bit_equal"]
+          and res["captured_vs_eager"]["entry_phase"] == "captured",
+          "book b: captured against eager: %s" % res["captured_vs_eager"])
+    for key in ("ragged_vs_cpu", "gru_vs_cpu"):
+        check(res[key]["loss_rel_err"] <= tol
+              and res[key]["grad_rel_err"] <= tol,
+              "book b: %s: %s" % (key, res[key]))
+    check(res["cudnn_lstm_vs_cpu"]["max_rel_err"] <= tol,
+          "book b: cudnn_lstm: %s" % res["cudnn_lstm_vs_cpu"])
+    return res
+
+
+def book_cudnn_lstm(torch):
+    """One bidirectional `cudnn_lstm` layer (T 32, batch 128, input and
+    hidden 128) over ragged SequenceLength: its outputs and the
+    gradients of Input, W, InitH and InitC under one seeded cotangent,
+    the card against the CPU (relative, in norm)."""
+    import numpy as np
+
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.ops import registry
+
+    t, b, d, h = BOOK_B["seq"], BOOK_B["batch"], 128, 128
+    r = np.random.RandomState(4)
+    n_w = 2 * (4 * h * d + 4 * h * h + 8 * h)
+    ins = {"Input": r.randn(t, b, d), "W": r.randn(n_w) * 0.1,
+           "InitH": r.randn(2, b, h), "InitC": r.randn(2, b, h)}
+    lens = r.randint(1, t + 1, b)
+    attrs = {"hidden_size": h, "num_layers": 1, "is_bidirec": True}
+    outs = []
+    for dev in (resolve_device(None), torch.device("cpu")):
+        x = {k: torch.tensor(v, dtype=torch.float32, device=dev,
+                             requires_grad=True) for k, v in ins.items()}
+        x["SequenceLength"] = torch.tensor(lens, dtype=torch.int32,
+                                           device=dev)
+        o = registry.normalize_outs(registry.get_op("cudnn_lstm").compute(
+            {k: [v] for k, v in x.items()}, dict(attrs, _device=dev)))
+        cr = np.random.RandomState(5)
+        ys = [o[s][0] for s in ("Out", "last_h", "last_c")]
+        cts = [torch.tensor(cr.randn(*y.shape), dtype=torch.float32,
+                            device=dev) for y in ys]
+        grads = torch.autograd.grad(ys, [x[k] for k in sorted(ins)], cts)
+        outs.append([y.detach() for y in ys] + list(grads))
+    errs = [rel_err(a, c) for a, c in zip(*outs)]
+    return {"shape": [t, b, d], "hidden": h, "max_rel_err": max(errs),
+            "outputs_and_grads": len(errs)}
+
+
+def book_leg_c(torch, fluid, bp):
+    """Leg c: fit_a_line, recognize_digits and recommender_system, 20
+    steps each, captured on the card and on the CPU from one startup
+    state: losses within 1e-4 relative; recognize_digits' loss falls."""
+    import numpy as np
+
+    res = {"leg": "c", "steps": BOOK_C["steps"], "rtol": BOOK_C["rtol"]}
+    for name, build in (("fit_a_line", bp.fit_a_line),
+                        ("recognize_digits", bp.recognize_digits),
+                        ("recommender_system", bp.recommender_system)):
+        book = build(fluid)
+        rng = np.random.RandomState(6)
+        feeds = [book.feed(BOOK_C["batch"], rng)
+                 for _ in range(BOOK_C["steps"])]
+        state = book_state(fluid, book)
+        card = fluid_run(torch, fluid, book.main, state, feeds, [book.loss],
+                         True)
+        card["exe"].close()
+        cpu = book_cpu_run(torch, fluid, book, state, feeds, [book.loss])
+        a = [float(f[0].reshape(-1)[0]) for f in card["fetches"]]
+        b = [float(f[0].reshape(-1)[0]) for f in cpu]
+        res[name] = {"losses_card": a, "losses_cpu": b,
+                     "loss_max_rel_err": max(abs(x - y) / abs(y)
+                                             for x, y in zip(a, b)),
+                     "entry_phase": card["info"]["phase"],
+                     "step_ms": statistics.median(card["step_ms"][2:])}
+    emit({"phase": "book_leg", **res})
+    for name in ("fit_a_line", "recognize_digits", "recommender_system"):
+        check(res[name]["loss_max_rel_err"] <= BOOK_C["rtol"]
+              and res[name]["entry_phase"] == "captured",
+              "book c: %s: %s" % (name, res[name]))
+    digits = res["recognize_digits"]["losses_card"]
+    check(digits[-1] < digits[0], "book c: recognize_digits' loss %s"
+          % digits)
+    return res
+
+
+def book_leg_d(torch, cr, cases):
+    """Leg d: every case of tests/torch_nn_cases.py (the slice's 81 op
+    types), the card against the CPU: each output and the gradient of
+    each float input under one seeded cotangent within 1e-4 x (1 + max
+    |value|), integer outputs exact; each case again from one replay of
+    a CUDA graph captured around it and its gradients, bit-equal to the
+    card's eager run, but for the types that read a value on the host
+    (tests/torch_case_runner.py capturable); the convolution and
+    pooling cases run twice on the card, bit-equal
+    (FLAGS_cudnn_deterministic)."""
+    from paddle_tpu_torch.core.place import resolve_device
+
+    dev = resolve_device(None)
+    worst, bad, repeats, captured = 0.0, [], {}, 0
+    for name in sorted(cases.CASES):
+        op, _, attrs, diff, _ = cases.CASES[name]
+        ins = cases.inputs(name)
+        got = cr.run_case(op, ins, attrs, dev, diff)
+        _, err, faults = cr.compare(
+            got, cr.run_case(op, ins, attrs, "cpu", diff), BOOK_D_RTOL)
+        worst = max(worst, err)
+        bad += [(name,) + f for f in faults]
+        if cr.capturable(op):
+            try:
+                graph = cr.capture_case(op, ins, attrs, dev, diff)
+            except RuntimeError as e:
+                bad.append((name, "capture", str(e).splitlines()[0][:200]))
+            else:
+                captured += 1
+                bad += [(name, "captured") + f
+                        for f in cr.compare(graph, got, 0.0)[2]]
+        if op in BOOK_D_REPEAT:
+            again = cr.run_case(op, ins, attrs, dev, diff)
+            repeats[name] = all(torch.equal(a, b)
+                                for a, b in zip(got, again))
+    res = {"leg": "d", "cases": len(cases.CASES),
+           "types": len({c[0] for c in cases.CASES.values()}),
+           "captured_cases": captured, "max_rel_err": worst,
+           "tol": "%g x (1 + max |value|); integers exact; captured "
+           "bit-equal to eager" % BOOK_D_RTOL, "bit_repeat": repeats,
+           "failures": bad[:10]}
+    emit({"phase": "book_leg", **res})
+    check(not bad, "book d: card against CPU or captured against eager: "
+          "%s" % bad[:10])
+    check(all(repeats.values()), "book d: a repeat differs: %s" % repeats)
+    return res
+
+
+def phase_book(torch, name):
+    """Phase 19: the Paddle book's programs on the card, with
+    ``FLAGS_cudnn_deterministic`` on."""
+    from paddle_tpu_torch import fluid
+
+    bp, cr, cases = tests_modules("torch_book_programs",
+                                  "torch_case_runner", "torch_nn_cases")
+    t0 = time.perf_counter()
+    before = fluid.get_flags("FLAGS_cudnn_deterministic")
+    os.environ["FLAGS_cudnn_deterministic"] = "1"
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        res = {"leg_a": book_leg_a(torch, fluid, bp),
+               "leg_b": book_leg_b(torch, fluid, bp),
+               "leg_c": book_leg_c(torch, fluid, bp),
+               "leg_d": book_leg_d(torch, cr, cases)}
+    finally:
+        fluid.set_flags(before)
+        os.environ.pop("FLAGS_cudnn_deterministic", None)
+    a = res["leg_a"]
+    emit({"phase": "book", "device": name, "nvidia_smi": nvidia_smi_line(),
+          "captured_step_ms": a["captured_step_ms"],
+          "eager_step_median_ms": a["eager_step_median_ms"],
+          "tokens_per_sec": a["tokens_per_sec"],
+          "busy_share": a["replay"]["device_busy_share"],
+          "peak_mem_bytes": a["peak_mem_bytes"],
           "seconds": time.perf_counter() - t0})
     return res
 
@@ -5123,6 +5495,7 @@ def main():
     phase_ckpt(torch, name)
     f16 = phase_fluid_bert_fp16_lamb(torch, name)
     large = phase_bert_large_batch(torch, name)
+    phase_book(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

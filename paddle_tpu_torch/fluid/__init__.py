@@ -2,8 +2,9 @@
 PyTorch (counterpart: `paddle_tpu/fluid/`).
 
 Ported so far: Program / Block / Operator / Variable (with its
-operators), the layers of the MNIST MLP, BERT, ResNet and the WMT
-Transformer (`fluid.layers`, with `layers.Scan`, the collectives, the
+operators), the layers of the MNIST MLP, BERT, ResNet, the WMT
+Transformer and the Paddle book's models (`fluid.layers`, with
+`layers.Scan`, the recurrent units and losses of `nn_extra`, the
 control flow `While`, `while_loop`, `cond`, `switch_case` and `case`,
 the learning-rate schedules and `rnn_decode`), `append_backward`, the
 eager `Executor` (with `CompiledProgram.with_data_parallel`), the

@@ -14,7 +14,9 @@ and `expand`; for the float16 AMP slice `fc` over several inputs
 `l2_normalize`; and `mul`, `pad`, `pad2d`, `unstack`, `expand_as`,
 `gather_nd`, `strided_slice` and `flatten`, with the `logical_*` family,
 `uniform_random` and `gaussian_random`, which (as in the reference) this
-module defines but `fluid.layers` does not export. Each builder
+module defines but `fluid.layers` does not export; for the book slice
+`conv2d_transpose`, `group_norm`, `instance_norm`, `prelu` and the
+unexported `adaptive_pool2d`. Each builder
 creates its params through LayerHelper (init ops go to the startup
 program) and appends its compute op."""
 from __future__ import annotations
@@ -26,8 +28,9 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper, apply_op
 from ..param_attr import ParamAttr
 
-__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
-           "layer_norm", "dropout", "relu", "tanh", "gelu", "softmax",
+__all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
+           "batch_norm", "layer_norm", "group_norm", "instance_norm",
+           "prelu", "dropout", "relu", "tanh", "gelu", "softmax",
            "matmul", "elementwise_add", "elementwise_mul",
            "elementwise_div", "reduce_sum", "mean", "slice", "gather",
            "scatter", "accuracy", "topk", "scaled_dot_product_attention",
@@ -146,6 +149,36 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
     return _single("pool2d", {"X": [input]}, attrs, dtype=input.dtype)
 
 
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     stride=1, padding=0, dilation=1, groups=1,
+                     param_attr=None, bias_attr=None, act=None, name=None):
+    """A transposed 2-D convolution over NCHW `input` with an (in, out /
+    groups, kh, kw) filter created here (`output_size` is not read, as
+    in the reference)."""
+    helper = LayerHelper("conv2d_transpose", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    filter_shape = [input.shape[1], num_filters // groups] + _pair(
+        filter_size)
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype)
+    pre_bias = apply_op(helper, "conv2d_transpose",
+                        {"Input": [input], "Filter": [w]},
+                        {"strides": _pair(stride), "paddings": _pair(padding),
+                         "dilations": _pair(dilation), "groups": groups},
+                        ["Output"], out_dtype=input.dtype)[0]
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", name=None):
+    """`pool2d` to `pool_size` equal windows (H and W divisible by it);
+    as in the reference, defined here but not exported by
+    `fluid.layers`."""
+    return _single("pool2d", {"X": [input]},
+                   {"pooling_type": pool_type, "ksize": list(pool_size),
+                    "adaptive": True}, dtype=input.dtype)
+
+
 def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                param_attr=None, bias_attr=None, data_layout="NCHW",
                in_place=False, name=None, moving_mean_name=None,
@@ -215,6 +248,55 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                     {"begin_norm_axis": begin_norm_axis, "epsilon": epsilon},
                     ["Y", "Mean", "Variance"], out_dtype=input.dtype)
     return helper.append_activation(outs[0])
+
+
+def _norm_affine(helper, input):
+    """The per-channel Scale (ones) and Bias params of `group_norm` and
+    `instance_norm`, each left out where its attr is False."""
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    if helper.kwargs.get("param_attr") is not False:
+        inputs["Scale"] = [helper.create_parameter(
+            helper.param_attr, shape=[c], dtype=input.dtype,
+            default_initializer=ConstantInitializer(1.0))]
+    if helper.kwargs.get("bias_attr") is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            helper.bias_attr, shape=[c], dtype=input.dtype, is_bias=True)]
+    return inputs
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, name=None):
+    helper = LayerHelper("group_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    outs = apply_op(helper, "group_norm", _norm_affine(helper, input),
+                    {"groups": groups, "epsilon": epsilon},
+                    ["Y", "Mean", "Variance"], out_dtype=input.dtype)
+    return helper.append_activation(outs[0])
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    return apply_op(helper, "instance_norm", _norm_affine(helper, input),
+                    {"epsilon": epsilon},
+                    ["Y", "SavedMean", "SavedVariance"],
+                    out_dtype=input.dtype)[0]
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """max(0, x) + alpha * min(0, x) with alpha a param (0.25) of one
+    value ("all"), one a channel ("channel") or one an element
+    ("element")."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    shape = {"all": [1], "channel": [x.shape[1]]}.get(mode,
+                                                      list(x.shape[1:]))
+    alpha = helper.create_parameter(
+        helper.param_attr, shape=shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    return apply_op(helper, "prelu", {"X": [x], "Alpha": [alpha]},
+                    {"mode": mode}, ["Out"], out_dtype=x.dtype)[0]
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,

@@ -13,7 +13,8 @@ first run is eager, its second is captured as a CUDA graph
 (`core/graphs.py`, the state donated), and every later run replays the
 graph. A block runs eagerly by design where the reference would not jit
 it or where the port decides on the host (`capture_blocker`): an op
-flagged `no_jit` or `dynamic_shape`, an initializer (its generator is
+flagged `no_jit` or `dynamic_shape`, `bincount` (its length is read on
+the host), an initializer (its generator is
 seeded on the host), or `while`, `cond`, `conditional_block` and
 `switch_case`, which read their predicate on the host. The CPU runs
 every block eagerly, and `FLAGS_cuda_graphs` off (the counterpart of
@@ -1128,6 +1129,25 @@ def build_block_fn(program, block, feed_names, fetch_names,
 #: control-flow ops that read their predicate or index on the host
 _HOST_DECIDING = frozenset({"while", "cond", "conditional_block",
                             "switch_case"})
+#: ops that read a value on the host without a registry flag (the
+#: reference's flags do not mark them: its jitted op takes another path):
+#: type -> (whether `op` reads, why)
+_HOST_READS = {
+    "bincount": (lambda op: True,
+                 "reads max(X) on the host for its output length"),
+    "affine_grid": (lambda op: bool(op.input("OutputShape"))
+                    and op.attr("output_shape") is None,
+                    "reads its OutputShape tensor on the host"),
+    "linspace": (lambda op: True,
+                 "reads Start, Stop and Num on the host"),
+    "logspace": (lambda op: any(op.input(s) for s in ("Start", "Stop",
+                                                      "Num")),
+                 "reads its Start, Stop or Num tensor on the host"),
+    "crop": (lambda op: bool(op.input("Offsets")),
+             "reads its Offsets tensor on the host"),
+    "crop_tensor": (lambda op: bool(op.input("Offsets")),
+                    "reads its Offsets tensor on the host"),
+}
 
 
 def capture_blocker(program, block, ring=None) -> Optional[str]:
@@ -1136,6 +1156,7 @@ def capture_blocker(program, block, ring=None) -> Optional[str]:
     the program before any step). Looks through every sub-block. The
     reasons, each naming the first op that gives it: control flow that
     decides on the host, an op flagged `no_jit` or `dynamic_shape`, an
+    op that reads a value on the host for a shape (`_HOST_READS`), an
     initializer whose generator is seeded on the host; and a
     data-parallel block whose `ring` is a gloo group (NCCL collectives
     are captured with the block)."""
@@ -1152,6 +1173,9 @@ def capture_blocker(program, block, ring=None) -> Optional[str]:
                 reasons.setdefault(
                     "host control flow", "%s reads its predicate on the "
                     "host" % where)
+            elif t in _HOST_READS and _HOST_READS[t][0](op):
+                reasons.setdefault("host read", "%s %s"
+                                   % (where, _HOST_READS[t][1]))
             elif ops_lib.has_op(t):
                 od = ops_lib.get_op(t)
                 if od.no_jit:

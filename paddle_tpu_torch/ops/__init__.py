@@ -19,3 +19,6 @@ from . import fused_ops  # noqa: F401
 from . import beam_search_ops  # noqa: F401
 from . import collective_ops  # noqa: F401
 from . import specialty_ops  # noqa: F401
+from . import loss_ops  # noqa: F401
+from . import linalg_ops  # noqa: F401
+from . import rnn_unit_ops  # noqa: F401

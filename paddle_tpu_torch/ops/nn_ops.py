@@ -5,7 +5,26 @@ types (`_UNARY`, attrs and defaults as the reference reads them),
 `softmax`, `log_softmax`, `softmax_with_cross_entropy` (hard labels with
 `ignore_index`, or soft labels), `one_hot`, `label_smooth`, `conv2d` / `depthwise_conv2d`, `pool2d`, `batch_norm`,
 `layer_norm`, `dropout`, `pad`, `pad2d`, the embedding lookups and
-`scaled_dot_product_attention`.
+`scaled_dot_product_attention`; and the rest of the reference's file:
+`prelu`, the losses (`cross_entropy` of probabilities,
+`sigmoid_cross_entropy_with_logits`, `square_error_cost`, `huber_loss`,
+`smooth_l1_loss`, `kldiv_loss`), `conv2d_transpose`, `conv3d`,
+`conv3d_transpose`, `pool3d`, `max_pool2d_with_index`, `spp`, the norms
+(`instance_norm`, `group_norm`, `norm`, `lrn`, `spectral_norm`,
+`data_norm`), `lstm_seq`, `gru_seq` and the rearrangements and samplers
+(`interp_nearest`, `one_hot_v2`, `maxout`, `row_conv`, `affine_channel`,
+`fsp`, `pixel_shuffle`, `shuffle_channel`, `space_to_depth`,
+`temporal_shift`, `grid_sampler`, `affine_grid`, `unfold`,
+`im2sequence`).
+
+The convolutions are cuDNN's on the card; `pool3d`'s max gradient there
+is summed in a fixed order (`_SortedMaxPool3d`), so under
+`FLAGS_cudnn_deterministic` the four repeat bit for bit. So is the
+gradient of `pad2d`'s and `pad3d`'s reflect, edge and replicate modes
+(`_SortedModePad`), at any setting. Where the
+reference departs from Paddle, the port follows Paddle: `maxout` takes a
+negative axis, and `conv3d_transpose` pads as Paddle's transposed
+convolution does (ROADMAP Queue 3, reference-side).
 
 `conv2d` is `F.conv2d` (cuDNN on the card), NCHW input and OIHW filter.
 `pool2d` pads as the reference's `lax.reduce_window` does (the left
@@ -23,12 +42,14 @@ loss.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
 from .registry import register_op
+from .rnn_unit_ops import _batch_major, _cudnn_dir, _time_major
 from ..core.rng import flash_seed
 from ..utils.flags import get_flag
 
@@ -392,9 +413,46 @@ def _pad2d(ins, attrs):
     if mode == "constant":
         return {"Out": F.pad(x, [l, r, t, b],
                              value=float(attrs.get("pad_value", 0.0)))}
-    return {"Out": F.pad(x, [l, r, t, b],
-                         mode={"reflect": "reflect",
-                               "edge": "replicate"}[mode])}
+    return {"Out": mode_pad(x, [l, r, t, b], {"reflect": "reflect",
+                                              "edge": "replicate"}[mode])}
+
+
+class _SortedModePad(torch.autograd.Function):
+    """`F.pad` in a mode that copies cells of X (reflect, replicate,
+    circular) whose gradient on the card is summed into each cell of X
+    in a fixed order (`index_put_` with accumulate under PyTorch's
+    deterministic algorithms). The default CUDA backwards of reflect and
+    replicate add with atomics, so two runs differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, x, pads, mode):
+        ctx.x_shape, ctx.pads, ctx.mode = x.shape, pads, mode
+        return F.pad(x, pads, mode=mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        spatial = ctx.x_shape[2:]
+        n = math.prod(spatial)
+        # the source cell of each output cell: padding float64 cell
+        # numbers (exact to 2**53) the same way
+        src = F.pad(torch.arange(n, dtype=torch.float64, device=g.device)
+                    .reshape((1, 1) + tuple(spatial)), ctx.pads,
+                    mode=ctx.mode).long().reshape(1, -1)
+        nc = ctx.x_shape[0] * ctx.x_shape[1]
+        planes = torch.arange(nc, device=g.device).reshape(nc, 1)
+        with _deterministic():
+            gx = g.new_zeros((nc, n)).index_put_(
+                (planes.expand(nc, src.shape[1]), src.expand(nc, -1)),
+                g.reshape(nc, -1), accumulate=True)
+        return gx.reshape(ctx.x_shape), None, None
+
+
+def mode_pad(x, pads, mode):
+    """`F.pad(x, pads, mode=mode)` for reflect, replicate and circular,
+    its gradient on the card summed in a fixed order (`_SortedModePad`)."""
+    if x.is_cuda and x.requires_grad:
+        return _SortedModePad.apply(x, list(pads), mode)
+    return F.pad(x, pads, mode=mode)
 
 
 @register_op("dropout", rng="device")
@@ -416,6 +474,19 @@ def _dropout(ins, attrs):
     return {"Out": out, "Mask": mask}
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms (warn only) inside, then the
+    setting as it was."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
 class _SortedLookup(torch.autograd.Function):
     """`F.embedding` whose weight gradient on the card takes PyTorch's
     deterministic CUDA path (sort the ids, then sum each id's rows in
@@ -432,14 +503,9 @@ class _SortedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        was = torch.are_deterministic_algorithms_enabled()
-        warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
+        with _deterministic():
             gw = torch.ops.aten.embedding_dense_backward(
                 g, ids, ctx.rows, -1, False)
-        finally:
-            torch.use_deterministic_algorithms(was, warn_only=warn_only)
         return gw, None
 
 
@@ -539,3 +605,558 @@ def _sdpa(ins, attrs):
     if drop_active:
         probs, _ = dropout(probs, attrs["_rng_seed"], p_drop)
     return {"Out": torch.matmul(probs.to(q.dtype), v).to(q.dtype)}
+
+
+# -- the rest of the reference's nn_ops: activations with a weight, losses,
+# -- convolutions and pools, norms, recurrences and rearrangements -----------
+
+@register_op("prelu")
+def _prelu(ins, attrs):
+    """X where X >= 0, else X * Alpha; mode "all" (one alpha), "channel"
+    (one per dim-1 channel) or "element" (Alpha shaped like X[0])."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    return {"Out": torch.where(x >= 0, x, x * alpha)}
+
+
+_CE_EPS = 1e-9
+
+
+def _take_last(x, idx):
+    """x[..., idx] along the last axis as `jnp.take_along_axis` reads it:
+    a negative index counts from the end, one outside [-n, n) gives NaN
+    (a float x) with no host sync."""
+    n = x.shape[-1]
+    idx = idx.unsqueeze(-1)
+    valid = (idx >= -n) & (idx < n)
+    picked = torch.gather(x, -1, torch.remainder(idx, n).long())
+    return picked.masked_fill(~valid, float("nan"))
+
+
+@register_op("cross_entropy")
+def _cross_entropy(ins, attrs):
+    """-log(X[label] + 1e-9) of probabilities X, an `ignore_index` label
+    giving 0; with `soft_label`, -sum(Label * log(X + 1e-9)) over the
+    last axis."""
+    x, label = ins["X"][0], ins["Label"][0]
+    if attrs.get("soft_label", False):
+        return {"Y": -torch.sum(label * torch.log(x + _CE_EPS), dim=-1,
+                                keepdim=True)}
+    idx = label.reshape(label.shape[:-1]).to(torch.int32)
+    loss = -torch.log(_take_last(x, idx) + _CE_EPS)
+    return {"Y": loss.masked_fill(
+        idx.unsqueeze(-1) == attrs.get("ignore_index", -100), 0.0)}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def _sigmoid_ce(ins, attrs):
+    """The stable logistic loss of logits X against Label, 0 where the
+    label is `ignore_index`; `normalize` divides by the count of the
+    other labels (at least 1)."""
+    x, label = ins["X"][0], ins["Label"][0]
+    loss = torch.clamp_min(x, 0) - x * label + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    ignore = label == attrs.get("ignore_index", -100)
+    loss = loss.masked_fill(ignore, 0.0)
+    if attrs.get("normalize", False):
+        n = torch.sum((~ignore).to(loss.dtype))
+        loss = loss / torch.clamp_min(n, 1.0)
+    return {"Out": loss}
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ins, attrs):
+    return {"Out": torch.square(ins["X"][0] - ins["Y"][0])}
+
+
+@register_op("huber_loss")
+def _huber_loss(ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    a = torch.abs(r)
+    return {"Out": torch.where(a <= delta, 0.5 * r * r,
+                               delta * (a - 0.5 * delta)), "Residual": r}
+
+
+@register_op("smooth_l1_loss")
+def _smooth_l1_loss(ins, attrs):
+    """The smooth L1 distance summed over the last axis, and Diff = X -
+    Y (the inside and outside weights are not read, as in the
+    reference)."""
+    x, y = ins["X"][0], ins["Y"][0]
+    s2 = attrs.get("sigma", 1.0) ** 2
+    diff = x - y
+    a = torch.abs(diff)
+    elem = torch.where(a < 1.0 / s2, 0.5 * s2 * diff * diff, a - 0.5 / s2)
+    return {"Out": torch.sum(elem, dim=-1, keepdim=True), "Diff": diff}
+
+
+@register_op("kldiv_loss")
+def _kldiv_loss(ins, attrs):
+    """Target * (log(Target) - X) where Target > 0, else 0; reduced by
+    "mean", "sum" or "batchmean" to a [1] tensor, or kept ("none")."""
+    x, target = ins["X"][0], ins["Target"][0]
+    loss = _where0(target > 0, target * (torch.log(target) - x))
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        loss = torch.mean(loss).reshape(1)
+    elif red == "sum":
+        loss = torch.sum(loss).reshape(1)
+    elif red == "batchmean":
+        loss = (torch.sum(loss) / x.shape[0]).reshape(1)
+    return {"Loss": loss}
+
+
+def _triple(v, n=3):
+    return list(v) if isinstance(v, (list, tuple)) else [v] * n
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ins, attrs):
+    """The transposed 2-D convolution (cuDNN on the card): NCHW input,
+    filter (in, out / groups, kh, kw); each output side (H - 1) * stride
+    - 2 * padding + dilation * (k - 1) + 1, as the reference's
+    lhs-dilated convolution with the flipped filter gives it."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    return {"Output": F.conv_transpose2d(
+        x.to(dt), w.to(dt), None, stride=_pair(attrs.get("strides", [1, 1])),
+        padding=[pads[0], pads[1]], groups=int(attrs.get("groups", 1)),
+        dilation=_pair(attrs.get("dilations", [1, 1])))}
+
+
+@register_op("conv3d")
+def _conv3d(ins, attrs):
+    """NCDHW input, OIDHW filter, symmetric padding (cuDNN on the
+    card)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return {"Output": F.conv3d(
+        x.to(dt), w.to(dt), None,
+        stride=_triple(attrs.get("strides", [1, 1, 1])),
+        padding=_triple(attrs.get("paddings", [0, 0, 0])),
+        dilation=_triple(attrs.get("dilations", [1, 1, 1])),
+        groups=int(attrs.get("groups", 1)))}
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ins, attrs):
+    """Paddle's transposed 3-D convolution (cuDNN on the card): filter
+    (in, out / groups, kd, kh, kw), each output side (D - 1) * stride -
+    2 * padding + dilation * (k - 1) + 1. The reference pads its
+    transposed convolution by `padding` itself, which agrees with this
+    only where padding = dilation * (k - 1) / 2 (ROADMAP Queue 3,
+    reference-side)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return {"Output": F.conv_transpose3d(
+        x.to(dt), w.to(dt), None,
+        stride=_triple(attrs.get("strides", [1, 1, 1])),
+        padding=_triple(attrs.get("paddings", [0, 0, 0])),
+        groups=int(attrs.get("groups", 1)),
+        dilation=_triple(attrs.get("dilations", [1, 1, 1])))}
+
+
+class _SortedMaxPool3d(torch.autograd.Function):
+    """`F.max_pool3d` whose gradient on the card is summed into each
+    input cell in a fixed order (`index_put_` with accumulate under
+    PyTorch's deterministic algorithms: sort the cells, then sum). The
+    default CUDA backward adds overlapping windows' gradients with
+    atomics, so two runs differ in the last bits."""
+
+    @staticmethod
+    def forward(ctx, x, ksize, strides):
+        out, idx = F.max_pool3d(x, ksize, strides, return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.x_shape = x.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n, c = ctx.x_shape[:2]
+        planes = torch.arange(n * c, device=g.device).reshape(
+            n * c, 1).expand(n * c, idx[0, 0].numel())
+        with _deterministic():
+            gx = g.new_zeros((n * c, math.prod(ctx.x_shape[2:]))).index_put_(
+                (planes, idx.reshape(n * c, -1)), g.reshape(n * c, -1),
+                accumulate=True)
+        return gx.reshape(ctx.x_shape), None, None
+
+
+@register_op("pool3d")
+def _pool3d(ins, attrs):
+    """max or average over NCDHW windows with symmetric padding; the
+    average divides by the count of input cells in the window (the
+    reference's, whatever `exclusive` says)."""
+    x = ins["X"][0]
+    ksize = _triple(attrs.get("ksize", [2, 2, 2]))
+    strides = _triple(attrs.get("strides", ksize))
+    p = _triple(attrs.get("paddings", [0, 0, 0]))
+    pads = (p[2], p[2], p[1], p[1], p[0], p[0])
+    if attrs.get("pooling_type", "max") == "max":
+        xp = F.pad(x, pads, value=float("-inf"))
+        if xp.is_cuda and xp.requires_grad:
+            return {"Out": _SortedMaxPool3d.apply(xp, ksize, strides)}
+        return {"Out": F.max_pool3d(xp, ksize, strides)}
+    total = F.avg_pool3d(F.pad(x, pads), ksize, strides, divisor_override=1)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    cnt = F.avg_pool3d(F.pad(ones, pads), ksize, strides,
+                       divisor_override=1)
+    return {"Out": total / cnt}
+
+
+@register_op("max_pool2d_with_index")
+def _max_pool2d_with_index(ins, attrs):
+    """Max pooling that also gives, in Mask, the flat index (h * W + w)
+    of each window's maximum in the unpadded input; the first maximum
+    of a window wins a tie (as `jnp.argmax`), and Out's gradient is
+    shared among tied cells (as `jnp.max`)."""
+    x = ins["X"][0]
+    kh, kw = _pair(attrs.get("ksize", [2, 2]))
+    sh, sw = _pair(attrs.get("strides", [kh, kw]))
+    ph, pw = _pair(attrs.get("paddings", [0, 0]))
+    w = x.shape[3]
+    xp = F.pad(x, (pw, pw, ph, ph), value=float("-inf"))
+    # [n, c, oh, ow, kh * kw]
+    wins = xp.unfold(2, kh, sh).unfold(3, kw, sw).flatten(-2)
+    amax = torch.argmax(wins, dim=-1).to(torch.int32)
+    oh, ow = wins.shape[2], wins.shape[3]
+    row0 = torch.arange(oh, dtype=torch.int32, device=x.device) * sh - ph
+    col0 = torch.arange(ow, dtype=torch.int32, device=x.device) * sw - pw
+    rh = torch.div(amax, kw, rounding_mode="floor") + row0[:, None]
+    rw = torch.remainder(amax, kw) + col0[None, :]
+    return {"Out": torch.amax(wins, dim=-1), "Mask": rh * w + rw}
+
+
+@register_op("interp_nearest")
+def _interp_nearest(ins, attrs):
+    """Nearest resampling of NCHW X to (out_h, out_w): source row
+    floor(i * (H / out_h)) in float32, as the reference computes it
+    (not `F.interpolate(mode="nearest")`'s rule at every size), the
+    indices made on X's device."""
+    x = ins["X"][0]
+
+    def src(n_in, n_out):
+        scale = float(torch.tensor(n_in / n_out, dtype=torch.float32))
+        return (torch.arange(n_out, dtype=torch.float32, device=x.device)
+                * scale).long()
+
+    rows, cols = src(x.shape[2], attrs["out_h"]), src(x.shape[3],
+                                                      attrs["out_w"])
+    return {"Out": x[:, :, rows][:, :, :, cols]}
+
+
+@register_op("one_hot_v2")
+def _one_hot_v2(ins, attrs):
+    """[...] ids -> [..., depth] float32 rows (an id outside [0, depth)
+    a row of zeros)."""
+    ids = ins["X"][0].to(torch.int32)
+    classes = torch.arange(attrs["depth"], dtype=torch.int32,
+                           device=ids.device)
+    return {"Out": (ids.unsqueeze(-1) == classes).to(torch.float32)}
+
+
+def _channel_affine(y, ins, x_ndim):
+    cshape = (1, -1) + (1,) * (x_ndim - 2)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(cshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(cshape)
+    return y
+
+
+@register_op("instance_norm")
+def _instance_norm(ins, attrs):
+    """Normalizes each (sample, channel) over its spatial cells (biased
+    variance), then the optional per-channel Scale and Bias; SavedMean
+    and SavedVariance (1 / sqrt(var + eps)) are [N, C]."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    axes = tuple(range(2, x.ndim))
+    mean = torch.mean(x, dim=axes, keepdim=True)
+    std = torch.sqrt(torch.var(x, dim=axes, unbiased=False, keepdim=True)
+                     + eps)
+    y = _channel_affine((x - mean) / std, ins, x.ndim)
+    return {"Y": y, "SavedMean": mean.reshape(x.shape[:2]),
+            "SavedVariance": (1.0 / std).reshape(x.shape[:2])}
+
+
+@register_op("group_norm")
+def _group_norm(ins, attrs):
+    """Normalizes each sample's `groups` channel groups (biased
+    variance), then the optional per-channel Scale and Bias; Mean and
+    Variance are [N, groups]."""
+    x = ins["X"][0]
+    groups = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.ndim))
+    mean = torch.mean(xg, dim=axes, keepdim=True)
+    var = torch.var(xg, dim=axes, unbiased=False, keepdim=True)
+    y = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    return {"Y": _channel_affine(y, ins, x.ndim),
+            "Mean": mean.reshape(n, groups),
+            "Variance": var.reshape(n, groups)}
+
+
+@register_op("lstm_seq")
+def _lstm_seq(ins, attrs):
+    """One LSTM layer over batch-major [B, T, D] (gates i, f, g, o along
+    4H, as `torch.nn.LSTM`, one combined Bias): `cudnn_lstm`'s
+    recurrence over one direction; `is_reverse` runs from the last
+    step."""
+    reverse = attrs.get("is_reverse", False)
+    ys, h, c = _cudnn_dir(_time_major(ins["Input"][0], reverse),
+                          ins["WeightIh"][0], ins["WeightHh"][0],
+                          ins["Bias"][0], ins["InitH"][0], ins["InitC"][0],
+                          None)
+    return {"Out": _batch_major(ys, reverse), "LastH": h, "LastC": c}
+
+
+@register_op("gru_seq")
+def _gru_seq(ins, attrs):
+    """One GRU layer over batch-major [B, T, D] (gates r, z, n along 3H,
+    as `torch.nn.GRU`)."""
+    w_hh, b_hh = ins["WeightHh"][0], ins["BiasHh"][0]
+    reverse = attrs.get("is_reverse", False)
+    xp = torch.matmul(_time_major(ins["Input"][0], reverse),
+                      ins["WeightIh"][0].t()) + ins["BiasIh"][0]
+    h = ins["InitH"][0]
+    ys = []
+    for xt in torch.unbind(xp):
+        xr, xz, xn = torch.chunk(xt, 3, dim=-1)
+        hr, hz, hn = torch.chunk(h @ w_hh.t() + b_hh, 3, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+    return {"Out": _batch_major(ys, reverse), "LastH": h}
+
+
+@register_op("maxout")
+def _maxout(ins, attrs):
+    x = ins["X"][0]
+    groups = attrs["groups"]
+    axis = attrs.get("axis", 1) % x.ndim
+    shape = (tuple(x.shape[:axis]) + (x.shape[axis] // groups, groups)
+             + tuple(x.shape[axis + 1:]))
+    return {"Out": torch.amax(x.reshape(shape), dim=axis + 1)}
+
+
+@register_op("norm")
+def _norm(ins, attrs):
+    """X / sqrt(sum(X^2) + eps) along `axis`, and that Norm."""
+    x = ins["X"][0]
+    n = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                             keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": x / n, "Norm": n}
+
+
+@register_op("lrn")
+def _lrn(ins, attrs):
+    """Local response norm across NCHW channels: MidOut = k + alpha *
+    (the sum of squares over the n channels around each), Out = X /
+    MidOut^beta."""
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    half = n // 2
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = sq[:, 0:c]
+    for i in range(1, n):
+        acc = acc + sq[:, i:i + c]
+    mid = attrs.get("k", 2.0) + attrs.get("alpha", 1e-4) * acc
+    return {"Out": x / torch.pow(mid, attrs.get("beta", 0.75)),
+            "MidOut": mid}
+
+
+@register_op("spectral_norm")
+def _spectral_norm(ins, attrs):
+    """Weight / sigma, sigma its largest singular value estimated by
+    `power_iters` power iterations from U and V (U and V are not
+    updated: the op writes no state, as the reference's)."""
+    w, u, v = ins["Weight"][0], ins["U"][0], ins["V"][0]
+    dim = attrs.get("dim", 0)
+    eps = attrs.get("eps", 1e-12)
+    wm = torch.movedim(w, dim, 0).reshape(w.shape[dim], -1)
+    for _ in range(max(attrs.get("power_iters", 1), 0)):
+        v = wm.t() @ u
+        v = v / (torch.linalg.vector_norm(v) + eps)
+        u = wm @ v
+        u = u / (torch.linalg.vector_norm(u) + eps)
+    return {"Out": w / (u @ wm @ v)}
+
+
+@register_op("data_norm")
+def _data_norm(ins, attrs):
+    """(X - mean) * scale from the accumulated BatchSize, BatchSum and
+    BatchSquareSum (not updated: the op writes no state, as the
+    reference's)."""
+    x = ins["X"][0]
+    size, sums = ins["BatchSize"][0], ins["BatchSum"][0]
+    mean = sums / size
+    scale = torch.sqrt(size / (ins["BatchSquareSum"][0]
+                               - size * torch.square(mean)
+                               + attrs.get("epsilon", 1e-4)))
+    return {"Y": (x - mean) * scale, "Means": mean.expand(x.shape),
+            "Scales": scale.expand(x.shape)}
+
+
+@register_op("row_conv")
+def _row_conv(ins, attrs):
+    """The lookahead convolution over [B, T, D]: Out[t] = sum over i of
+    X[t + i] * Filter[i] (zeros past the end)."""
+    x, filt = ins["X"][0], ins["Filter"][0]
+    t = x.shape[1]
+    pad = F.pad(x, (0, 0, 0, filt.shape[0] - 1))
+    out = pad[:, 0:t] * filt[0]
+    for i in range(1, filt.shape[0]):
+        out = out + pad[:, i:i + t] * filt[i]
+    return {"Out": out}
+
+
+@register_op("affine_channel")
+def _affine_channel(ins, attrs):
+    x = ins["X"][0]
+    if attrs.get("data_layout", "NCHW") == "NCHW":
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+    else:
+        shape = (1,) * (x.ndim - 1) + (-1,)
+    return {"Out": x * ins["Scale"][0].reshape(shape)
+            + ins["Bias"][0].reshape(shape)}
+
+
+@register_op("fsp")
+def _fsp(ins, attrs):
+    """The flow-of-solution matrix: X [N, Cx, H, W] and Y [N, Cy, H, W]
+    -> [N, Cx, Cy], each entry a mean over the H * W cells."""
+    x, y = ins["X"][0], ins["Y"][0]
+    hw = x.shape[2] * x.shape[3]
+    return {"Out": torch.matmul(x.reshape(x.shape[0], x.shape[1], hw),
+                                y.reshape(y.shape[0], y.shape[1], hw)
+                                .transpose(1, 2)) / hw}
+
+
+@register_op("pixel_shuffle")
+def _pixel_shuffle(ins, attrs):
+    x = ins["X"][0]
+    r = attrs.get("upscale_factor", 1)
+    n, c, h, w = x.shape
+    out = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return {"Out": out.reshape(n, c // (r * r), h * r, w * r)}
+
+
+@register_op("shuffle_channel")
+def _shuffle_channel(ins, attrs):
+    x = ins["X"][0]
+    group = attrs.get("group", 1)
+    n, c, h, w = x.shape
+    return {"Out": x.reshape(n, group, c // group, h, w).transpose(1, 2)
+            .reshape(n, c, h, w)}
+
+
+@register_op("space_to_depth")
+def _space_to_depth(ins, attrs):
+    x = ins["X"][0]
+    b = attrs.get("blocksize", 1)
+    n, c, h, w = x.shape
+    out = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return {"Out": out.reshape(n, c * b * b, h // b, w // b)}
+
+
+@register_op("temporal_shift")
+def _temporal_shift(ins, attrs):
+    """[N * seg, C, H, W]: the first C * ratio channels move one segment
+    back in time, the next C * ratio one forward (zeros enter), the
+    rest stay."""
+    x = ins["X"][0]
+    seg = attrs.get("seg_num", 1)
+    ratio = attrs.get("shift_ratio", 0.25)
+    nt, c, h, w = x.shape
+    xr = x.reshape(nt // seg, seg, c, h, w)
+    c1, c2 = int(c * ratio), int(c * 2 * ratio)
+    fwd = F.pad(xr[:, 1:, :c1], (0, 0, 0, 0, 0, 0, 0, 1))
+    back = F.pad(xr[:, :-1, c1:c2], (0, 0, 0, 0, 0, 0, 1, 0))
+    return {"Out": torch.cat([fwd, back, xr[:, :, c2:]], dim=2)
+            .reshape(nt, c, h, w)}
+
+
+@register_op("grid_sampler")
+def _grid_sampler(ins, attrs):
+    """Bilinear sampling of NCHW X at Grid [N, Ho, Wo, 2] (x, y in [-1,
+    1], the corners at the edge cells' centres), zero outside."""
+    x, grid = ins["X"][0], ins["Grid"][0]
+    return {"Output": F.grid_sample(x, grid.to(x.dtype), mode="bilinear",
+                                    padding_mode="zeros",
+                                    align_corners=True)}
+
+
+@register_op("affine_grid")
+def _affine_grid(ins, attrs):
+    """The [N, H, W, 2] sampling grid of affine Theta [N, 2, 3] over
+    `output_shape` [N, C, H, W] (corners aligned; where the attr is
+    absent, the OutputShape tensor, read on the host, so that its block
+    runs eagerly: `fluid/lowering.py capture_blocker`)."""
+    theta = ins["Theta"][0]
+    out_shape = attrs.get("output_shape")
+    if out_shape is None and ins.get("OutputShape"):
+        out_shape = [int(v) for v in ins["OutputShape"][0].tolist()]
+    _, c, h, w = out_shape
+    return {"Output": F.affine_grid(theta, [theta.shape[0], c, h, w],
+                                    align_corners=True)}
+
+
+def _pads4(p):
+    """[top, left, bottom, right] (or [h, w]) -> F.pad's (left, right,
+    top, bottom)."""
+    p = list(p)
+    if len(p) == 2:
+        p = [p[0], p[1], p[0], p[1]]
+    return (p[1], p[3], p[0], p[2])
+
+
+@register_op("unfold")
+def _unfold(ins, attrs):
+    """im2col: [N, C, H, W] -> [N, C * kh * kw, L]; `paddings` [top,
+    left, bottom, right]."""
+    x = F.pad(ins["X"][0], _pads4(attrs.get("paddings", [0, 0, 0, 0])))
+    return {"Y": F.unfold(x, _pair(attrs["kernel_sizes"]),
+                          dilation=_pair(attrs.get("dilations", [1, 1])),
+                          stride=_pair(attrs.get("strides", [1, 1])))}
+
+
+@register_op("im2sequence")
+def _im2sequence(ins, attrs):
+    """Image patches as rows: [N, C, H, W] -> [N * oh * ow, C * kh *
+    kw]; `paddings` [top, left, bottom, right]."""
+    x = F.pad(ins["X"][0], _pads4(attrs.get("paddings", [0, 0, 0, 0])))
+    cols = F.unfold(x, _pair(attrs["kernels"]),
+                    stride=_pair(attrs.get("strides", [1, 1])))
+    return {"Out": cols.transpose(1, 2).reshape(-1, cols.shape[1])}
+
+
+@register_op("spp")
+def _spp(ins, attrs):
+    """Spatial pyramid pooling: level p pools to 2^p x 2^p bins (kernel
+    ceil(dim / bins), padding (kernel * bins - dim + 1) // 2) through
+    `pool2d`; the levels flattened and concatenated."""
+    x = ins["X"][0]
+    n, c, h, w = x.shape
+    outs = []
+    for p in range(int(attrs.get("pyramid_height", 1))):
+        bins = 2 ** p
+        kh, kw = -(-h // bins), -(-w // bins)
+        lvl = _pool2d({"X": [x]}, {
+            "pooling_type": attrs.get("pooling_type", "max"),
+            "ksize": [kh, kw], "strides": [kh, kw],
+            "paddings": [(kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2],
+            "exclusive": True})["Out"]
+        outs.append(lvl.reshape(n, c * bins * bins))
+    return {"Out": torch.cat(outs, dim=1)}

@@ -19,6 +19,7 @@ import collections
 
 import numpy as np
 
+from .nn_ops import mode_pad
 from .registry import register_op
 from .rng_ops import device_normal
 from ..core.types import to_numpy_dtype, to_torch_dtype
@@ -720,7 +721,7 @@ def _pad3d(ins, attrs):
     if mode == "constant":
         return {"Out": torch.nn.functional.pad(
             x, p, value=float(attrs.get("value", 0.0)))}
-    return {"Out": torch.nn.functional.pad(x, p, mode=_PAD_MODES[mode])}
+    return {"Out": mode_pad(x, p, _PAD_MODES[mode])}
 
 
 @register_op("shard_index")

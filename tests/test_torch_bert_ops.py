@@ -30,6 +30,8 @@ from paddle_tpu_torch.core.rng import keep_mask, seed_tensor
 from paddle_tpu_torch.core.types import to_torch_dtype
 from paddle_tpu_torch.ops import registry as treg
 
+from torch_nn_cases import CASES as NN_CASES
+
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -264,17 +266,26 @@ TENSOR_SLICE_RNG_OPS = {
     "uniform_random_batch_size_like"}
 TENSOR_SLICE_OPS = TENSOR_SLICE_TENSOR_OPS | TENSOR_SLICE_RNG_OPS \
     | {"pad", "pad2d"}
+#: the book slice's op types, every one a case of tests/torch_nn_cases.py
+#: (the rest of `nn_ops.py`, `linalg_ops.py`, `loss_ops.py` and
+#: `rnn_unit_ops.py`)
+BOOK_SLICE_OPS = {c[0] for c in NN_CASES.values()}
 
 
 def test_cases_cover_the_registry():
     """Every op type the port registers is held here, by
     tests/test_torch_fluid_ops.py, tests/test_torch_resnet_ops.py,
     tests/test_torch_transformer_ops.py, tests/test_torch_tensor_ops.py,
-    tests/test_torch_collective_ops.py or tests/test_torch_math_ops.py."""
+    tests/test_torch_collective_ops.py, tests/test_torch_math_ops.py, or
+    the book slice's files (the cases of tests/torch_nn_cases.py)."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
     assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS \
         | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS \
-        | TENSOR_SLICE_OPS == set(treg.registered_ops())
+        | TENSOR_SLICE_OPS | BOOK_SLICE_OPS == set(treg.registered_ops())
+    assert len(BOOK_SLICE_OPS) == 81 and not (
+        types | FLUID_SLICE_OPS | RESNET_SLICE_OPS | TRANSFORMER_SLICE_OPS
+        | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS | TENSOR_SLICE_OPS) \
+        & BOOK_SLICE_OPS
     assert (len(AMP_SLICE_MATH_OPS), len(AMP_SLICE_NN_OPS),
             len(AMP_SLICE_OPT_OPS)) == (36, 44, 16)
     assert (len(TENSOR_SLICE_TENSOR_OPS), len(TENSOR_SLICE_RNG_OPS),
@@ -284,7 +295,7 @@ def test_cases_cover_the_registry():
                 | AMP_SLICE_OPS) & TENSOR_SLICE_OPS
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS) \
-        & AMP_SLICE_OPS and len(treg.registered_ops()) == 272
+        & AMP_SLICE_OPS and len(treg.registered_ops()) == 353
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS) & COLLECTIVE_SLICE_OPS \
         and len(COLLECTIVE_SLICE_OPS) == 19

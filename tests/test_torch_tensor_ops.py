@@ -428,3 +428,34 @@ def test_host_ops_keep_their_block_eager(op_type, flag):
     block.append_op(type=op_type, inputs={}, outputs={}, attrs={})
     reason = lowering.capture_blocker(main, block)
     assert "op %r" % op_type in reason and flag in reason
+
+
+@pytest.mark.parametrize("op_type,slots,attrs", [
+    ("linspace", ["Start", "Stop", "Num"], {}),
+    ("logspace", ["Num"], {"start": 0.0, "stop": 1.0}),
+    ("crop", ["X", "Offsets"], {"shape": [2, 2]}),
+    ("crop_tensor", ["X", "Offsets"], {"shape": [2, 2]}),
+])
+def test_tensor_inputs_read_on_the_host_keep_their_block_eager(
+        op_type, slots, attrs):
+    """An op that reads a tensor input on the host (a CUDA graph cannot
+    capture the read) keeps its block eager and is named; without that
+    input (the attr instead) its block is captured."""
+    main = tfluid.Program()
+    block = main.global_block()
+    ins = {s: [block.create_var(name=s.lower(), shape=[1], dtype="int32")]
+           for s in slots}
+    out = block.create_var(name="out", shape=[2, 2], dtype="float32")
+    block.append_op(type=op_type, inputs=ins, outputs={"Out": [out]},
+                    attrs=attrs)
+    reason = lowering.capture_blocker(main, block)
+    assert reason is not None and "op %r" % op_type in reason \
+        and "on the host" in reason
+    if op_type != "linspace":
+        main = tfluid.Program()
+        block = main.global_block()
+        x = block.create_var(name="x", shape=[3, 3], dtype="float32")
+        block.append_op(type=op_type, inputs={"X": [x]} if "X" in slots
+                        else {}, outputs={"Out": [out]},
+                        attrs=dict(attrs, num=3, offsets=[0, 1]))
+        assert lowering.capture_blocker(main, block) is None
