@@ -367,7 +367,31 @@ Phases, each printing one JSON line:
    integers exact; the cuDNN types and pool3d twice, bit-equal. Each leg
    prints a line (`book_leg`), the phase a closing one. The path runs
    none of the hand-written kernels;
-20. kernels — one line listing every ported kernel with its launches on
+20. sequences — Paddle's sequence ops, with ``FLAGS_cudnn_deterministic``
+   on. Leg a: the book's convolution_net (tests/torch_book_programs.py:
+   an embedding of 128 over a vocabulary of 5,000, two
+   `nets.sequence_conv_pool` of 512 filters, sizes 3 and 4, tanh and
+   sqrt pooling, fc(2, softmax), cross_entropy, Adagrad 0.002) with a
+   streaming `auc` over 4,096 buckets, T 256, batch 128, every row full:
+   7 steps captured and 3 eager from one state; step ms, tokens/s, the
+   capture's ms and pool, busy share and kernels of one profiled replay,
+   peak memory, the AUC after the last step. Leg b, T 32: leg a's
+   program captured against eager over 6 steps (losses, accuracies, AUCs
+   and every persistable, the AUC's histograms among them, bit-equal); a
+   ragged classifier (tests/torch_seq_cases.py `ragged_net`: its rows
+   padded by `fluid.create_lod_tensor(...).to_padded()`, every
+   `sequence_pool` type, `sequence_softmax` and `sequence_reverse` with
+   Length) card against CPU, 2 steps' losses and every gradient within
+   1e-5 relative in norm. Leg c: the cases of tests/torch_seq_cases.py
+   (the slice's 58 op types; `run_program` on a Program of its own),
+   card against CPU within 1e-4 x (1 + max |value|), integers exact;
+   every capturable case captured with its gradients, one replay
+   bit-equal to eager; every host-side case run in a one-op program on
+   the card, its block eager with the reason naming the op;
+   `sequence_scatter` and `SelectedRows.merge` at 65,536 rows twice,
+   bit-equal. Each leg prints a line (`sequences_leg`), the phase a
+   closing one. The path runs none of the hand-written kernels;
+21. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, their launches and times on the fluid BERT path, their
@@ -376,7 +400,7 @@ Phases, each printing one JSON line:
    phase 17 leg b and their times at phase 5 case g; the dropout kernel
    with its launches on fluid BERT leg a and on phase 18 leg a); launches
    made by graph replays count;
-21. the last line, ``{"ok": true, "device": {...}}``, printed only when
+22. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -635,6 +659,16 @@ BOOK_C = dict(steps=20, batch=64, rtol=1e-4)
 BOOK_D_RTOL = 1e-4
 #: leg d: the cuDNN types run twice on the card, bit-equal
 BOOK_D_REPEAT = {"conv2d_transpose", "conv3d", "conv3d_transpose", "pool3d"}
+#: phase 20, Paddle's sequence ops: leg a the book's convolution_net at its
+#: widths (tests/torch_book_programs.py CONV_SENTIMENT), T 256 as phase
+#: 19's, batch 128; leg b its gates at T 32 (and the ragged classifier of
+#: tests/torch_seq_cases.py within SEQ_B's rtol of the CPU); leg c the
+#: slice's op cases card against CPU within SEQ_C_RTOL, and the ordered
+#: sums at SEQ_C_ROWS rows
+SEQ_A = dict(seq=256, batch=128, graph_steps=7, eager_steps=3)
+SEQ_B = dict(seq=32, batch=128, steps=6, rtol=1e-5, ragged_steps=2)
+SEQ_C_RTOL = 1e-4
+SEQ_C_ROWS = 65536
 
 
 _T0 = time.perf_counter()
@@ -3024,6 +3058,287 @@ def phase_book(torch, name):
           "tokens_per_sec": a["tokens_per_sec"],
           "busy_share": a["replay"]["device_busy_share"],
           "peak_mem_bytes": a["peak_mem_bytes"],
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
+# -- phase 20 -----------------------------------------------------------------
+
+def seq_leg_a(torch, fluid, bp):
+    """Leg a: convolution_net with its streaming AUC at the book's widths,
+    T 256, batch 128, every row full: trained captured (the first step
+    eager, the second captured, then replays) and, from the same state,
+    eagerly; step times, capture, busy share, kernels a replay, peak
+    memory, the graph pool, the AUC."""
+    import numpy as np
+
+    seq, batch = SEQ_A["seq"], SEQ_A["batch"]
+    book = bp.convolution_net(fluid, seq)
+    fetch = [book.loss] + book.fetch
+    state = book_state(fluid, book)
+    rng = np.random.RandomState(0)
+    feeds = [book.feed(batch, rng) for _ in range(SEQ_A["graph_steps"])]
+    torch.cuda.reset_peak_memory_stats()
+    graph = fluid_run(torch, fluid, book.main, state, feeds, fetch, True)
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, kernels = device_busy_share(
+        torch, lambda: graph["exe"].run(book.main, feed=feeds[-1],
+                                        fetch_list=fetch,
+                                        scope=graph["scope"]))
+    info = graph["info"]
+    graph["exe"].close()
+    eager = fluid_run(torch, fluid, book.main, state,
+                      feeds[:SEQ_A["eager_steps"]], fetch, False)
+    eager["exe"].close()
+
+    def col(run, j):
+        return [float(f[j].reshape(-1)[0]) for f in run["fetches"]]
+
+    replay_ms = statistics.median(graph["step_ms"][2:])
+    eager_ms = statistics.median(eager["step_ms"][1:])
+    res = {"leg": "a", "model": "convolution_net + streaming auc",
+           "widths": dict(bp.CONV_SENTIMENT, seq=seq, batch=batch,
+                          auc_buckets=bp.AUC_THRESHOLDS + 1),
+           "mode": info["mode"], "entry_phase": info["phase"],
+           "losses": col(graph, 0), "eager_losses": col(eager, 0),
+           "accuracies": col(graph, 1), "aucs": col(graph, 2),
+           "auc_last": col(graph, 2)[-1],
+           "graph_step_ms": graph["step_ms"], "eager_step_ms":
+           eager["step_ms"], "captured_step_ms": replay_ms,
+           "eager_step_median_ms": eager_ms,
+           "first_eager_step_ms": graph["step_ms"][0],
+           "capture_step_ms": graph["step_ms"][1],
+           "capture_ms": info.get("capture_ms"),
+           "pool_bytes": info.get("pool_bytes"),
+           "tokens_per_sec": batch * seq / (replay_ms / 1e3),
+           "eager_tokens_per_sec": batch * seq / (eager_ms / 1e3),
+           "replay": {"wall_us": wall, "device_busy_us": busy,
+                      "device_busy_share": busy / wall, "kernels": kernels},
+           "peak_mem_bytes": peak}
+    del graph, eager, state
+    torch.cuda.empty_cache()
+    emit({"phase": "sequences_leg", **res})
+    check(info["mode"] == "graph" and info["phase"] == "captured",
+          "sequences a: the step is %s (%s), not captured"
+          % (info["mode"], info["reason"]))
+    check(all(math.isfinite(x) for x in res["losses"] + res["eager_losses"]),
+          "sequences a: losses %s" % res["losses"])
+    check(abs(res["losses"][0] - math.log(2.0)) < 0.5,
+          "sequences a: first loss %s against ln 2" % res["losses"][0])
+    check(all(0.0 <= a <= 1.0 for a in res["aucs"]),
+          "sequences a: AUCs %s" % res["aucs"])
+    return res
+
+
+def seq_leg_b(torch, fluid, bp, sc):
+    """Leg b, the gates at T 32: leg a's program captured against eager
+    over 6 steps (losses, accuracies, AUCs and every persistable
+    bit-equal); the ragged classifier, the card against the CPU (losses
+    and every gradient within SEQ_B's rtol, relative in norm)."""
+    import numpy as np
+
+    seq, batch, tol = SEQ_B["seq"], SEQ_B["batch"], SEQ_B["rtol"]
+    book = bp.convolution_net(fluid, seq)
+    rng = np.random.RandomState(1)
+    feeds = [book.feed(batch, rng) for _ in range(SEQ_B["steps"])]
+    state = book_state(fluid, book)
+    runs = [fluid_run(torch, fluid, book.main, state, feeds,
+                      [book.loss] + book.fetch, g) for g in (True, False)]
+    graph, eager = runs
+    for r in runs:
+        r["exe"].close()
+    eager_tensors = dict(run_tensors(torch, eager))
+    differ = sorted(n for n, a in run_tensors(torch, graph)
+                    if not torch.equal(a, eager_tensors[n]))
+    res = {"leg": "b", "seq": seq, "batch": batch,
+           "captured_vs_eager": {"steps": len(feeds),
+                                 "mode": graph["info"]["mode"],
+                                 "entry_phase": graph["info"]["phase"],
+                                 "tensors": len(eager_tensors),
+                                 "bit_equal": not differ,
+                                 "differ": differ[:5]}}
+    del graph, eager, runs, state
+    main, startup, loss, feed = sc.ragged_net(fluid, seq)
+    ragged = bp.Book(main, startup, loss, [], feed)
+    rng = np.random.RandomState(2)
+    feeds = [feed(batch, rng) for _ in range(SEQ_B["ragged_steps"])]
+    res["ragged_vs_cpu"] = dict(book_grads_vs_cpu(
+        torch, fluid, ragged, feeds, SEQ_B["ragged_steps"]),
+        lengths=[int(x) for x in feeds[0]["length"][:8]])
+    res["rtol"] = tol
+    torch.cuda.empty_cache()
+    emit({"phase": "sequences_leg", **res})
+    check(res["captured_vs_eager"]["bit_equal"]
+          and res["captured_vs_eager"]["entry_phase"] == "captured",
+          "sequences b: captured against eager: %s"
+          % res["captured_vs_eager"])
+    r = res["ragged_vs_cpu"]
+    check(r["loss_rel_err"] <= tol and r["grad_rel_err"] <= tol
+          and r["card_phase"] == "captured",
+          "sequences b: ragged card against CPU: %s" % r)
+    return res
+
+
+def one_op_program(fluid, op, ins, out_slots, attrs):
+    """A program of op `op` alone over data vars fed `ins` (slot -> numpy
+    arrays), its outputs new vars: (program, feed, output vars in slot
+    order)."""
+    main = fluid.Program()
+    block = main.global_block()
+    feed, inputs = {}, {}
+    for slot, arrs in ins.items():
+        inputs[slot] = []
+        for i, a in enumerate(arrs):
+            name = "%s_%d" % (slot, i)
+            inputs[slot].append(block.create_var(
+                name=name, shape=list(a.shape), dtype=str(a.dtype)))
+            feed[name] = a
+    outputs = {slot: [block.create_var(name="out_%s_%d" % (slot, i))
+                      for i in range(n)] for slot, n in out_slots.items()}
+    block.append_op(type=op, inputs=inputs, outputs=outputs,
+                    attrs=dict(attrs))
+    return main, feed, [v for s in sorted(outputs) for v in outputs[s]]
+
+
+def seq_host_case(fluid, cr, sc, name, exe):
+    """A host-side case as a one-op program run twice by `exe` (the
+    card's executor): its block's entry eager with a reason naming the
+    op, its outputs those of the op run directly."""
+    from paddle_tpu_torch.core.types import from_numpy
+    from paddle_tpu_torch.ops import registry
+
+    op, _, attrs, _, _ = sc.CASES[name]
+    ins = sc.inputs(name)
+    direct = registry.normalize_outs(registry.get_op(op).compute(
+        {s: [from_numpy(a, exe.device) for a in v] for s, v in ins.items()},
+        dict(attrs, _device=exe.device)))
+    main, feed, outs = one_op_program(
+        fluid, op, ins, {s: len(v) for s, v in direct.items()}, attrs)
+    scope = fluid.Scope()
+    for _ in range(2):
+        got = exe.run(main, feed=feed, fetch_list=outs, scope=scope,
+                      return_numpy=False)
+    entry = exe.last_entry
+    exe.close()
+    want = [t for s in sorted(direct) for t in direct[s]]
+    bad = cr.compare(list(got), want, 0.0)[2]
+    ok = entry.mode == "eager" and "%r" % op in (entry.reason or "")
+    return {"mode": entry.mode, "reason": entry.reason, "ok": ok and not bad,
+            "faults": bad[:3]}
+
+
+def seq_leg_c(torch, fluid, cr, sc):
+    """Leg c: every case of tests/torch_seq_cases.py, the card against
+    the CPU (each output and the gradient of each float input within
+    SEQ_C_RTOL x (1 + max |value|), integers exact); each capturable case
+    from one replay of a CUDA graph captured around it and its
+    gradients, bit-equal to the card's eager run; each host-side case as
+    a one-op program, its block eager; `run_program` card against CPU;
+    `sequence_scatter` and `SelectedRows.merge` at SEQ_C_ROWS rows twice,
+    bit-equal."""
+    import numpy as np
+
+    import paddle_tpu_torch.ops.framework_ops as tfo
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.ops import registry
+
+    sc.prepare(tfo)
+    dev = resolve_device(None)
+    worst, bad, captured, host = 0.0, [], 0, {}
+    for name in sorted(sc.CASES):
+        op, _, attrs, diff, _ = sc.CASES[name]
+        ins = sc.inputs(name)
+        got = cr.run_case(op, ins, attrs, dev, diff, seed=7)
+        _, err, faults = cr.compare(
+            got, cr.run_case(op, ins, attrs, "cpu", diff, seed=7),
+            SEQ_C_RTOL)
+        worst = max(worst, err)
+        bad += [(name,) + f for f in faults]
+        if cr.capturable(op):
+            try:
+                graph = cr.capture_case(op, ins, attrs, dev, diff, seed=7)
+            except RuntimeError as e:
+                bad.append((name, "capture", str(e).splitlines()[0][:200]))
+            else:
+                captured += 1
+                bad += [(name, "captured") + f
+                        for f in cr.compare(graph, got, 0.0)[2]]
+        elif op not in host:
+            host[op] = seq_host_case(fluid, cr, sc, name, fluid.Executor())
+            if not host[op]["ok"]:
+                bad.append((name, "host block", host[op]))
+    runs = []
+    for place in (fluid.CUDAPlace(dev.index or 0), fluid.CPUPlace()):
+        scope, ins, attrs = sc.run_program_case(fluid, place)
+        if runs:
+            for n, v in runs[0][1].items():
+                scope.set_var(n, v.cpu().clone())
+        d = scope.find_var("fc_0.w_0").device
+        with fluid.scope_guard(scope):
+            out = registry.get_op("run_program").compute(
+                {"X": [torch.tensor(ins["X"][0]).to(d)]},
+                dict(attrs, _device=d))["Out"]
+        runs.append((out, {n: scope.find_var(n)
+                           for n in ("fc_0.w_0", "fc_0.b_0")}))
+    program_err, _, faults = cr.compare(runs[0][0], runs[1][0], SEQ_C_RTOL)
+    bad += [("run_program",) + f for f in faults]
+    r = np.random.RandomState(9)
+    n, width = SEQ_C_ROWS, 64
+    ids = torch.tensor(r.randint(0, 512, n), device=dev)
+    upd = torch.tensor(r.randn(n, width).astype("float32"), device=dev)
+    x = torch.zeros(512, width, device=dev)
+    scatter = [registry.get_op("sequence_scatter").compute(
+        {"X": [x], "Ids": [ids], "Updates": [upd]}, {"_device": dev})["Out"]
+        for _ in range(2)]
+    merged = [SelectedRows(ids, upd, 512).merge() for _ in range(2)]
+    repeats = {"sequence_scatter": torch.equal(*scatter),
+               "selected_rows_merge": torch.equal(merged[0].values,
+                                                  merged[1].values)
+               and torch.equal(merged[0].rows, merged[1].rows)}
+    res = {"leg": "c", "cases": len(sc.CASES),
+           "types": len({c[0] for c in sc.CASES.values()}) + 1,
+           "captured_cases": captured, "host_types": sorted(host),
+           "host_reason_example": next(iter(host.values()))["reason"]
+           if host else None, "max_rel_err": worst,
+           "run_program_max_abs_err": program_err,
+           "tol": "%g x (1 + max |value|); integers exact; captured "
+           "bit-equal to eager" % SEQ_C_RTOL, "bit_repeat": repeats,
+           "failures": bad[:10]}
+    emit({"phase": "sequences_leg", **res})
+    check(not bad, "sequences c: card against CPU, captured against eager "
+          "or a host block: %s" % bad[:10])
+    check(all(repeats.values()), "sequences c: a repeat differs: %s"
+          % repeats)
+    return res
+
+
+def phase_sequences(torch, name):
+    """Phase 20: Paddle's sequence ops on the card, with
+    ``FLAGS_cudnn_deterministic`` on."""
+    from paddle_tpu_torch import fluid
+
+    bp, cr, sc = tests_modules("torch_book_programs", "torch_case_runner",
+                               "torch_seq_cases")
+    t0 = time.perf_counter()
+    before = fluid.get_flags("FLAGS_cudnn_deterministic")
+    os.environ["FLAGS_cudnn_deterministic"] = "1"
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        res = {"leg_a": seq_leg_a(torch, fluid, bp),
+               "leg_b": seq_leg_b(torch, fluid, bp, sc),
+               "leg_c": seq_leg_c(torch, fluid, cr, sc)}
+    finally:
+        fluid.set_flags(before)
+        os.environ.pop("FLAGS_cudnn_deterministic", None)
+    a = res["leg_a"]
+    emit({"phase": "sequences", "device": name,
+          "nvidia_smi": nvidia_smi_line(),
+          "captured_step_ms": a["captured_step_ms"],
+          "eager_step_median_ms": a["eager_step_median_ms"],
+          "tokens_per_sec": a["tokens_per_sec"],
+          "busy_share": a["replay"]["device_busy_share"],
+          "peak_mem_bytes": a["peak_mem_bytes"], "auc_last": a["auc_last"],
           "seconds": time.perf_counter() - t0})
     return res
 
@@ -5496,6 +5811,7 @@ def main():
     f16 = phase_fluid_bert_fp16_lamb(torch, name)
     large = phase_bert_large_batch(torch, name)
     phase_book(torch, name)
+    phase_sequences(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

@@ -9,6 +9,7 @@ parallelism (one process per rank) the default card is the rank's own
 (`rank_device_index`)."""
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -117,3 +118,17 @@ def _current_expected_place():
     not a card is present (the reference falls back to the CPU; the port
     does not)."""
     return CUDAPlace(rank_device_index())
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms (warn only) inside, then the
+    setting as it was: an accumulating `index_put_` on the card then
+    sums each cell's values in a fixed order, not with atomics."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)

@@ -11,7 +11,7 @@ eager `Executor` (with `CompiledProgram.with_data_parallel`), the
 optimizers of the reference's `optimizer.py:37-718` (SGD to Dpsgd),
 gradient clipping (`clip`), weight decay (`regularizer`),
 `fuse_optimizer_ops`, bf16 and float16 mixed precision with loss scaling
-(`contrib.mixed_precision`),
+(`contrib.mixed_precision`), `nets`, `LoDTensor` and `create_lod_tensor`,
 saving and loading (`io`, in the reference's formats), numbered
 checkpoints (`checkpoint`) and `Executor.train_from_dataset`. What is
 not ported yet is absent.
@@ -24,6 +24,9 @@ from .framework import (  # noqa: F401
 )
 from . import unique_name  # noqa: F401
 from ..core.scope import Scope, global_scope, scope_guard  # noqa: F401
+from ..core.lod import (  # noqa: F401
+    LoDTensor, create_lod_tensor, create_random_int_lodtensor,
+)
 from .executor import Executor  # noqa: F401
 from .compiler import (  # noqa: F401
     CompiledProgram, BuildStrategy, ExecutionStrategy,
@@ -49,6 +52,7 @@ from .io import (  # noqa: F401
     save_inference_model, load_inference_model,
 )
 from . import checkpoint  # noqa: F401
+from . import nets  # noqa: F401
 from ..utils.flags import get_flags, set_flags  # noqa: F401
 
 

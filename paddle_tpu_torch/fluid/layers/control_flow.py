@@ -9,8 +9,9 @@ appends one op (`scan`, `while`, `cond`, `switch_case`) that
 `fluid/lowering.py` runs. Loop-carried vars are created and initialized
 before the loop and rebound inside it (``layers.assign(new, output=x)``);
 a branch's results are assigned onto output vars created in the
-enclosing block. `StaticRNN`, `Print`, `Assert` and
-`reorder_lod_tensor_by_rank` are not ported yet.
+enclosing block. `Print` and `Assert` append the host-side `print` and
+`assert` ops (their block runs eagerly), and `reorder_lod_tensor_by_rank`
+permutes rows by a rank table. `StaticRNN` is not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from . import tensor as tensor_layers
 
 __all__ = ["Scan", "While", "while_loop", "cond", "switch_case", "case",
            "increment", "is_empty", "less_than", "less_equal",
-           "greater_than", "greater_equal", "equal", "not_equal"]
+           "greater_than", "greater_equal", "equal", "not_equal", "Print",
+           "Assert", "reorder_lod_tensor_by_rank"]
 
 
 def _flatten(x):
@@ -373,3 +375,40 @@ def equal(x, y, cond=None):
 
 def not_equal(x, y, cond=None):
     return _compare("not_equal", x, y, cond)
+
+
+def Print(input, first_n=-1, message=None, summarize=20,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """Prints `input` when the step runs (the `print` op, on the host);
+    returns its output, `input` itself, so it chains."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="print", inputs={"In": [input]}, outputs={"Out": [out]},
+        attrs={"message": message or "", "summarize": summarize,
+               "first_n": first_n, "print_phase": print_phase})
+    return out
+
+
+def Assert(cond, data=None, summarize=20, name=None):
+    """Raises AssertionError when the step runs with `cond` not all
+    true (the `assert` op, on the host)."""
+    inputs = {"Cond": [cond]}
+    if data:
+        inputs["Data"] = list(data)
+    LayerHelper("assert").append_op(
+        type="assert", inputs=inputs, outputs={},
+        attrs={"summarize": summarize, "message": name or ""})
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """x's rows in the rank table's order (reference:
+    reorder_lod_tensor_by_rank_op.cc)."""
+    helper = LayerHelper("reorder_lod_tensor_by_rank")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="reorder_lod_tensor_by_rank",
+                     inputs={"X": [x], "RankTable": [rank_table]},
+                     outputs={"Out": [out]}, attrs={})
+    return out

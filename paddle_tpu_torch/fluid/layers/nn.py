@@ -16,7 +16,11 @@ and `expand`; for the float16 AMP slice `fc` over several inputs
 `uniform_random` and `gaussian_random`, which (as in the reference) this
 module defines but `fluid.layers` does not export; for the book slice
 `conv2d_transpose`, `group_norm`, `instance_norm`, `prelu` and the
-unexported `adaptive_pool2d`. Each builder
+unexported `adaptive_pool2d`; for the sequence slice `sequence_pool`,
+`sequence_softmax`, `sequence_mask`, `sequence_expand`,
+`sequence_reshape` and `sequence_reverse` (padded [B, T, ...] inputs,
+with an optional `length` var where the reference takes one). Each
+builder
 creates its params through LayerHelper (init ops go to the startup
 program) and appends its compute op."""
 from __future__ import annotations
@@ -44,7 +48,9 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "erf", "sin", "maximum", "minimum", "reduce_mean", "reduce_max",
            "reduce_min", "reduce_prod", "reduce_all", "reduce_any", "clip",
            "clip_by_norm", "l2_normalize", "mul", "pad", "pad2d",
-           "unstack", "expand_as", "gather_nd", "strided_slice", "flatten"]
+           "unstack", "expand_as", "gather_nd", "strided_slice", "flatten",
+           "sequence_pool", "sequence_softmax", "sequence_mask",
+           "sequence_expand", "sequence_reshape", "sequence_reverse"]
 
 
 def _single(op_type, inputs, attrs, dtype=None, helper=None):
@@ -633,3 +639,55 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32",
                    {"shape": list(shape), "mean": float(mean),
                     "std": float(std), "seed": seed, "dtype": dtype},
                    dtype=dtype)
+
+
+# -- sequence layers (padded [B, T, ...] + an optional Length var) ----------
+
+_POOL_TYPES = ("AVERAGE", "SUM", "SQRT", "LAST", "FIRST", "MAX")
+
+
+def _with_length(ins, length):
+    if length is not None:
+        ins["Length"] = [length]
+    return ins
+
+
+def sequence_pool(input, pool_type, is_test=False, pad_value=0.0,
+                  length=None):
+    """[B, T, D] pooled over time to [B, D]: average, sum, sqrt, last,
+    first or max (checked here, as the reference's InEnum checks it)."""
+    if pool_type.upper() not in _POOL_TYPES:
+        raise ValueError("sequence_pool pool_type must be one of "
+                         "average/sum/sqrt/last/first/max, got %r"
+                         % (pool_type,))
+    return apply_op("sequence_pool", "sequence_pool",
+                    _with_length({"X": [input]}, length),
+                    {"pooltype": pool_type.upper()}, ["Out", "MaxIndex"],
+                    out_dtype=input.dtype)[0]
+
+
+def sequence_softmax(input, use_cudnn=False, name=None, length=None):
+    return _single("sequence_softmax", _with_length({"X": [input]}, length),
+                   {}, dtype=input.dtype)
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    return apply_op("sequence_mask", "sequence_mask", {"X": [x]},
+                    {"maxlen": maxlen or -1, "out_dtype": dtype}, ["Y"],
+                    out_dtype=dtype)[0]
+
+
+def sequence_expand(x, y, ref_level=-1, name=None):
+    return _single("sequence_expand", {"X": [x], "Y": [y]},
+                   {"ref_level": ref_level}, dtype=x.dtype)
+
+
+def sequence_reshape(input, new_dim):
+    return _single("sequence_reshape", {"X": [input]}, {"new_dim": new_dim},
+                   dtype=input.dtype)
+
+
+def sequence_reverse(x, name=None, length=None):
+    return apply_op("sequence_reverse", "sequence_reverse",
+                    _with_length({"X": [x]}, length), {}, ["Y"],
+                    out_dtype=x.dtype)[0]

@@ -4,8 +4,12 @@ slice's op types: the 3-D convolutions and pools, the vision
 rearrangements, the recurrent units (`dynamic_lstm`, `dynamic_lstmp`,
 `dynamic_gru`, `gru_unit`, `lstm_unit`, and `lstm`, the `cudnn_lstm`
 builder), `row_conv`, `fsp_matrix`, `im2sequence`, `spectral_norm`,
-`cos_sim` and the small losses. Its functions that emit later groups'
-types (interpolation, `nce`, `hsigmoid`, `warpctc`, `linear_chain_crf`,
+`cos_sim` and the small losses; `multiplex` and `py_func` (the
+framework ops); and the activations `selu`, `softshrink`, `hard_shrink`,
+`tanh_shrink`, `brelu`, `soft_relu`, `thresholded_relu`, with
+`pad_constant_like`, `shard_index`, `uniform_random_batch_size_like`
+and `sampling_id`. Its functions that emit later groups' types
+(interpolation, `nce`, `hsigmoid`, `warpctc`, `linear_chain_crf`,
 `deformable_conv`, `unpool`, ...) are not ported yet (ROADMAP Queue 1
 #5)."""
 from __future__ import annotations
@@ -25,7 +29,10 @@ __all__ = [
     "dynamic_gru", "gru_unit", "lstm_unit", "lstm", "im2sequence",
     "dice_loss", "log_loss", "npair_loss", "rank_loss", "margin_rank_loss",
     "bpr_loss", "center_loss", "teacher_student_sigmoid_loss",
-    "sigmoid_focal_loss", "cos_sim", "spectral_norm",
+    "sigmoid_focal_loss", "cos_sim", "spectral_norm", "multiplex",
+    "py_func", "selu", "softshrink", "hard_shrink", "tanh_shrink", "brelu",
+    "soft_relu", "thresholded_relu", "pad_constant_like", "shard_index",
+    "uniform_random_batch_size_like", "sampling_id",
 ]
 
 
@@ -427,3 +434,70 @@ def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
                     {"Weight": [weight], "U": [u], "V": [v]},
                     {"dim": dim, "power_iters": power_iters, "eps": eps},
                     ["Out"], out_dtype=weight.dtype)[0]
+
+
+# -- the framework ops' builders ---------------------------------------------
+
+def multiplex(inputs, index):
+    return _one("multiplex", {"X": list(inputs), "Ids": [index]}, {})
+
+
+def py_func(func, x, out, backward_func=None,
+            skip_vars_in_backward_input=None):
+    """Calls `func` on the values of `x` when the step runs (the host-side
+    `py_func` op); `out` gives the number of outputs."""
+    from ...ops.framework_ops import register_py_func
+
+    xs = list(x) if isinstance(x, (list, tuple)) else [x]
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    got = apply_op("py_func", "py_func", {"X": xs},
+                   {"func_id": register_py_func(func)}, {"Out": len(outs)})
+    return got if len(got) > 1 else got[0]
+
+
+# -- builders of types ported earlier -----------------------------------------
+
+def _act_wrapper(op_type, attr_names=()):
+    """A builder of `op_type` over X whose positional and keyword
+    arguments `attr_names` become attrs."""
+    def fn(x, *args, **kwargs):
+        attrs = dict(zip(attr_names, args))
+        attrs.update((k, v) for k, v in kwargs.items() if k in attr_names)
+        return _one(op_type, {"X": [x]}, attrs)
+    fn.__name__ = op_type
+    return fn
+
+
+selu = _act_wrapper("selu", ("scale", "alpha"))
+softshrink = _act_wrapper("softshrink", ("lambda",))
+hard_shrink = _act_wrapper("hard_shrink", ("threshold",))
+tanh_shrink = _act_wrapper("tanh_shrink")
+brelu = _act_wrapper("brelu", ("t_min", "t_max"))
+soft_relu = _act_wrapper("soft_relu", ("threshold",))
+thresholded_relu = _act_wrapper("thresholded_relu", ("threshold",))
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _one("pad_constant_like", {"X": [x], "Y": [y]},
+                {"pad_value": pad_value})
+
+
+def shard_index(input, index_num, nshards, shard_id, ignore_value=-1):
+    return _one("shard_index", {"X": [input]},
+                {"index_num": index_num, "nshards": nshards,
+                 "shard_id": shard_id, "ignore_value": ignore_value},
+                dtype="int64")
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    return _one("uniform_random_batch_size_like", {"Input": [input]},
+                {"shape": list(shape), "input_dim_idx": input_dim_idx,
+                 "output_dim_idx": output_dim_idx, "min": min,
+                 "max": max, "seed": seed}, dtype=dtype)
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    return _one("sampling_id", {"X": [x]},
+                {"min": min, "max": max, "seed": seed}, dtype="int64")

@@ -5,8 +5,7 @@ numpy array as `assign_value`), `create_parameter`, `create_global_var`,
 `reshape`, `transpose`, `scale`, `take_along_axis`, `cumsum`, `concat`,
 `create_tensor`, `argmax`, `argmin`, `argsort`, `zeros`, `ones`,
 `zeros_like`, `ones_like`, `reverse`, `range`, `linspace`, `shape`,
-`eye`, `diag`, `tril` and `triu` (`tensor_array_to_tensor` waits for
-the array ops)."""
+`eye`, `diag`, `tril`, `triu` and `tensor_array_to_tensor`."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,7 +20,7 @@ __all__ = ["data", "fill_constant", "fill_constant_batch_size_like", "cast",
            "transpose", "scale", "take_along_axis", "cumsum", "concat",
            "create_tensor", "argmax", "argmin", "argsort", "zeros", "ones",
            "zeros_like", "ones_like", "reverse", "range", "linspace",
-           "shape", "eye", "diag", "tril", "triu"]
+           "shape", "eye", "diag", "tril", "triu", "tensor_array_to_tensor"]
 
 
 def _single(op_type, inputs, attrs, dtype=None):
@@ -250,3 +249,13 @@ def tril(x, diagonal=0, name=None):
 def triu(x, diagonal=0, name=None):
     return _single("tril_triu", {"X": [x]},
                    {"diagonal": diagonal, "lower": False}, dtype=x.dtype)
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    """Every entry of a tensor array (a stacked [T, ...] var) concatenated,
+    or stacked, along `axis` (reference: tensor_array_to_tensor_op.cc);
+    also each entry's extent along that axis."""
+    return tuple(apply_op("tensor_array_to_tensor", "tensor_array_to_tensor",
+                          {"X": [input]},
+                          {"axis": axis, "use_stack": use_stack},
+                          ["Out", "OutIndex"]))

@@ -22,3 +22,6 @@ from . import specialty_ops  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import linalg_ops  # noqa: F401
 from . import rnn_unit_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401
+from . import array_ops  # noqa: F401
+from . import framework_ops  # noqa: F401

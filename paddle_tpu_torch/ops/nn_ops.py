@@ -42,7 +42,6 @@ loss.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
@@ -50,6 +49,7 @@ import torch.nn.functional as F
 
 from .registry import register_op
 from .rnn_unit_ops import _batch_major, _cudnn_dir, _time_major
+from ..core.place import deterministic_algorithms
 from ..core.rng import flash_seed
 from ..utils.flags import get_flag
 
@@ -440,7 +440,7 @@ class _SortedModePad(torch.autograd.Function):
                     mode=ctx.mode).long().reshape(1, -1)
         nc = ctx.x_shape[0] * ctx.x_shape[1]
         planes = torch.arange(nc, device=g.device).reshape(nc, 1)
-        with _deterministic():
+        with deterministic_algorithms():
             gx = g.new_zeros((nc, n)).index_put_(
                 (planes.expand(nc, src.shape[1]), src.expand(nc, -1)),
                 g.reshape(nc, -1), accumulate=True)
@@ -474,19 +474,6 @@ def _dropout(ins, attrs):
     return {"Out": out, "Mask": mask}
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """PyTorch's deterministic algorithms (warn only) inside, then the
-    setting as it was."""
-    was = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn_only)
-
-
 class _SortedLookup(torch.autograd.Function):
     """`F.embedding` whose weight gradient on the card takes PyTorch's
     deterministic CUDA path (sort the ids, then sum each id's rows in
@@ -503,7 +490,7 @@ class _SortedLookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        with _deterministic():
+        with deterministic_algorithms():
             gw = torch.ops.aten.embedding_dense_backward(
                 g, ids, ctx.rows, -1, False)
         return gw, None
@@ -780,7 +767,7 @@ class _SortedMaxPool3d(torch.autograd.Function):
         n, c = ctx.x_shape[:2]
         planes = torch.arange(n * c, device=g.device).reshape(
             n * c, 1).expand(n * c, idx[0, 0].numel())
-        with _deterministic():
+        with deterministic_algorithms():
             gx = g.new_zeros((n * c, math.prod(ctx.x_shape[2:]))).index_put_(
                 (planes, idx.reshape(n * c, -1)), g.reshape(n * c, -1),
                 accumulate=True)

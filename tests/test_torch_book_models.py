@@ -1,17 +1,19 @@
 """The Paddle book's programs (`tests/torch_book_programs.py`: fit_a_line,
 recognize_digits, recommender_system, understand_sentiment's stacked LSTM
-with full and ragged rows, machine_translation) built in the port
-(paddle_tpu_torch, on the CPU) and in the JAX package at a small size
-(T 8, LSTM hidden 16).
+with full and ragged rows, machine_translation, and convolution_net with
+its streaming AUC) built in the port (paddle_tpu_torch, on the CPU) and
+in the JAX package at a small size (T 8, LSTM hidden 16; convolution_net
+at T 16, vocabulary 200, embedding 16, 32 filters).
 
 Both programs hold the same op types, attrs and slots op by op. The
 reference's startup state is carried into the port's scope; then both
 take the same 5 batches: losses within fp32 rtol 1e-5 (the programs
 have no dropout), the other fetches likewise (accuracies exactly), and
 every persistable within 1e-4 (atol 1e-5) after the steps, but the two
-of `NOISE_GRAD_VARS`. The stacked LSTM's block
-through the executor's graph path (the step on static buffers, as a
-replay runs it) equals its eager run bit for bit."""
+of `NOISE_GRAD_VARS`, and the AUC's histograms equal. The stacked LSTM's
+and convolution_net's blocks through the executor's graph path (the step
+on static buffers, as a replay runs it) equal their eager runs bit for
+bit."""
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,8 @@ NOISE_GRAD_VARS = {"recognize_digits": {"conv2d_0.b_0",
                                         "batch_norm_0.mean_0"}}
 STEPS, BATCH, SEQ = 5, 8, 8
 SMALL_SENTIMENT = dict(vocab=100, emb=16, hid=64)
+SMALL_CONV = dict(vocab=200, emb=16, filters=32)
+CONV_SEQ = 16
 
 BOOKS = {
     "fit_a_line": lambda f: bp.fit_a_line(f, lr=0.01),
@@ -49,6 +53,8 @@ BOOKS = {
         f, SEQ, ragged=True, **SMALL_SENTIMENT),
     "machine_translation": lambda f: bp.machine_translation(f, seq=SEQ,
                                                             hid=16),
+    "convolution_net": lambda f: bp.convolution_net(f, CONV_SEQ,
+                                                    **SMALL_CONV),
 }
 
 
@@ -106,11 +112,13 @@ def test_book_program_matches_reference(name, one_torch_thread):
         np.testing.assert_allclose(state[n], np.asarray(rscope.find_var(n)),
                                    rtol=STATE_RTOL, atol=STATE_ATOL,
                                    err_msg=n)
+        if n.startswith("auc_stat"):
+            np.testing.assert_array_equal(state[n],
+                                          np.asarray(rscope.find_var(n)))
 
 
-def _sentiment_losses(graph_runner, state, feeds):
-    book = bp.understand_sentiment(tfluid, SEQ, ragged=True,
-                                   **SMALL_SENTIMENT)
+def _sentiment_losses(graph_runner, state, feeds, build):
+    book = build(tfluid)
     exe = tfluid.Executor(tfluid.CPUPlace(), graph_runner=graph_runner)
     scope = tfluid.Scope()
     if state is None:
@@ -118,9 +126,22 @@ def _sentiment_losses(graph_runner, state, feeds):
         state = dump_numpy_state(scope, _persistables(book.main))
     else:
         load_numpy_state(scope, state, "cpu")
-    losses = [exe.run(book.main, feed=f, fetch_list=[book.loss],
-                      scope=scope)[0] for f in feeds]
+    losses = [np.concatenate(exe.run(book.main, feed=f,
+                                     fetch_list=[book.loss] + book.fetch,
+                                     scope=scope)) for f in feeds]
     return losses, state, exe.last_entry
+
+
+def _graph_against_eager(name):
+    rng = np.random.RandomState(5)
+    book = BOOKS[name](tfluid)
+    feeds = [book.feed(BATCH, rng) for _ in range(4)]
+    eager, state, e_entry = _sentiment_losses(None, None, feeds, BOOKS[name])
+    graph, _, g_entry = _sentiment_losses(lambda body: body(), state, feeds,
+                                          BOOKS[name])
+    assert e_entry.mode == "eager" and g_entry.mode == "graph"
+    np.testing.assert_array_equal(np.concatenate(graph),
+                                  np.concatenate(eager))
 
 
 def test_sentiment_graph_path_bit_equal_to_eager(one_torch_thread):
@@ -128,15 +149,13 @@ def test_sentiment_graph_path_bit_equal_to_eager(one_torch_thread):
     step on the entry's static buffers, which a replay runs) and
     eagerly, from one state: the same losses bit for bit; the block is
     capturable (no op reads a value on the host)."""
-    rng = np.random.RandomState(5)
-    book = bp.understand_sentiment(tfluid, SEQ, ragged=True,
-                                   **SMALL_SENTIMENT)
-    feeds = [book.feed(BATCH, rng) for _ in range(4)]
-    eager, state, e_entry = _sentiment_losses(None, None, feeds)
-    graph, _, g_entry = _sentiment_losses(lambda body: body(), state, feeds)
-    assert e_entry.mode == "eager" and g_entry.mode == "graph"
-    np.testing.assert_array_equal(np.concatenate(graph),
-                                  np.concatenate(eager))
+    _graph_against_eager("understand_sentiment_ragged")
+
+
+def test_convolution_net_graph_path_bit_equal_to_eager(one_torch_thread):
+    """convolution_net with its streaming AUC likewise: losses,
+    accuracies and AUCs bit for bit."""
+    _graph_against_eager("convolution_net")
 
 
 def test_ragged_rows_read_their_length():

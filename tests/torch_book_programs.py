@@ -21,7 +21,12 @@ feed from a `numpy.random.RandomState`.
   cross_entropy, Adagrad 0.002) over padded [B, T] ids, with an optional
   Length feed that every `lstm` op reads (ragged rows);
 - `machine_translation`: a dynamic_gru encoder and teacher-forced
-  decoder with dot-product attention, softmax_with_cross_entropy, Adam.
+  decoder with dot-product attention, softmax_with_cross_entropy, Adam;
+- `convolution_net`: the book's other sentiment model (embedding, two
+  `nets.sequence_conv_pool` of filter sizes 3 and 4 with tanh and sqrt
+  pooling, fc(2, softmax) over both, cross_entropy, accuracy, Adagrad
+  0.002) with a streaming `auc` op on the positive class, its histograms
+  persistable int vars, so the AUC runs over every step so far.
 """
 import collections
 
@@ -33,6 +38,11 @@ Book = collections.namedtuple("Book", "main startup loss fetch feed")
 #: the book's IMDB dictionary, embedding 128, fc and LSTM size 512 (hidden
 #: 128), 3 stacked layers, 2 classes
 SENTIMENT = dict(vocab=5000, emb=128, hid=512, stacked=3, classes=2)
+#: convolution_net at the book's widths: embedding 128, 512 filters
+CONV_SENTIMENT = dict(vocab=SENTIMENT["vocab"], emb=128, filters=512,
+                      classes=2)
+#: the streaming AUC's thresholds (num_thresholds + 1 buckets)
+AUC_THRESHOLDS = 4095
 
 
 def _programs(fluid, seed):
@@ -189,3 +199,48 @@ def machine_translation(fluid, seq=8, src_vocab=200, trg_vocab=200, hid=32,
                     "int64")}
 
     return Book(main, startup, loss, [], feed)
+
+
+def convolution_net(fluid, seq, vocab=CONV_SENTIMENT["vocab"],
+                    emb=CONV_SENTIMENT["emb"],
+                    filters=CONV_SENTIMENT["filters"],
+                    classes=CONV_SENTIMENT["classes"], lr=0.002, seed=31):
+    """The book's convolution_net over padded [B, seq] ids, every row
+    full (`sequence_conv_pool` passes no Length), with a streaming `auc`
+    op appended by hand (no reference layer emits it): its StatPos and
+    StatNeg are persistable int64 vars of AUC_THRESHOLDS + 1 buckets,
+    written back by the op. Fetches: accuracy, then the AUC."""
+    main, startup = _programs(fluid, seed)
+    L = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name_guard():
+        words = L.data(name="words", shape=[seq], dtype="int64")
+        label = L.data(name="label", shape=[1], dtype="int64")
+        e = L.embedding(words, size=[vocab, emb])
+        conv_3 = fluid.nets.sequence_conv_pool(
+            input=e, num_filters=filters, filter_size=3, act="tanh",
+            pool_type="sqrt")
+        conv_4 = fluid.nets.sequence_conv_pool(
+            input=e, num_filters=filters, filter_size=4, act="tanh",
+            pool_type="sqrt")
+        pred = L.fc(input=[conv_3, conv_4], size=classes, act="softmax")
+        loss = L.mean(L.cross_entropy(input=pred, label=label))
+        acc = L.accuracy(input=pred, label=label)
+        stats = [L.create_global_var([AUC_THRESHOLDS + 1], 0, "int64",
+                                     persistable=True, name=n)
+                 for n in ("auc_stat_pos", "auc_stat_neg")]
+        block = main.global_block()
+        auc = block.create_var(name="auc", shape=[1], dtype="float32")
+        block.append_op(type="auc",
+                        inputs={"Predict": [pred], "Label": [label],
+                                "StatPos": [stats[0]],
+                                "StatNeg": [stats[1]]},
+                        outputs={"AUC": [auc], "StatPosOut": [stats[0]],
+                                 "StatNegOut": [stats[1]]},
+                        attrs={"num_thresholds": AUC_THRESHOLDS})
+        fluid.optimizer.Adagrad(learning_rate=lr).minimize(loss)
+
+    def feed(batch, rng):
+        return {"words": rng.randint(0, vocab, (batch, seq)).astype("int64"),
+                "label": rng.randint(0, classes, (batch, 1)).astype("int64")}
+
+    return Book(main, startup, loss, [acc, auc], feed)
