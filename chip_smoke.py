@@ -669,6 +669,28 @@ SEQ_A = dict(seq=256, batch=128, graph_steps=7, eager_steps=3)
 SEQ_B = dict(seq=32, batch=128, steps=6, rtol=1e-5, ragged_steps=2)
 SEQ_C_RTOL = 1e-4
 SEQ_C_ROWS = 65536
+#: phase 21, detection and quantization (tests/torch_detection_programs.py)
+#: with FLAGS_cudnn_deterministic on: leg a YOLOv3 DarkNet-53 at
+#: PaddleDetection's widths (608 x 608, 80 classes, 50 ground-truth rows),
+#: batch 8, captured (the first step eager, the second captured, then
+#: replays) and eager from one state, then its inference program once on a
+#: batch of 8; leg b ResNet50 under slim's QAT pass at 224 x 224, batch 128
+#: (phase 9's), the same, with the scales' drift, the plain network's
+#: captured step beside it, the freeze, a save and a load; leg c the
+#: tests' tiny YOLOv3, small QAT ResNet and window-max MLP captured
+#: against eager and eager against eager over DET_C_STEPS steps, bit for
+#: bit, and card against CPU within the CPU tests' tolerances (dp.TOL);
+#: leg d the slice's op cases card against CPU within DET_D_RTOL and
+#: captured against eager, the NMS cases as one-op programs
+DET_A = dict(batch=8, graph_steps=7, eager_steps=3, infer_batch=8)
+DET_B = dict(depth=50, img=224, classes=1000, batch=128, graph_steps=7,
+             eager_steps=3, plain_steps=4)
+DET_C_STEPS = 6
+DET_D_RTOL = 1e-4
+#: leg d: the types whose gradients gather (a fixed-order sum), run twice
+DET_D_REPEAT = {"yolov3_loss", "roi_align", "linear_interp",
+                "bilinear_interp", "trilinear_interp", "bicubic_interp",
+                "nearest_interp"}
 
 
 _T0 = time.perf_counter()
@@ -3343,6 +3365,509 @@ def phase_sequences(torch, name):
     return res
 
 
+# -- phase 21 -----------------------------------------------------------------
+
+def recorded_warnings(fn):
+    """fn() with warnings recorded: (its result, the first lines of the
+    nondeterminism warnings PyTorch raised)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        out = fn()
+    return out, sorted({str(w.message).splitlines()[0][:200] for w in seen
+                        if "determinis" in str(w.message)})
+
+
+def train_leg(torch, fluid, prog, batch, steps, fetch, rng):
+    """`prog` trained captured (`steps` runs) and eagerly (`eager`) from
+    one startup state, over two batches in turn: the captured run
+    (executor closed), its peak
+    memory, a profiled replay, the eager run (executor open, for what
+    follows on its scope), the nondeterminism warnings."""
+    state = book_state(fluid, prog)
+    # two batches in turn: drawing 128 images of 224 x 224 a step takes
+    # the host about 0.5 s
+    drawn = [prog.feed(batch, rng) for _ in range(2)]
+    feeds = [drawn[i % 2] for i in range(steps[0])]
+    torch.cuda.reset_peak_memory_stats()
+    graph, warned = recorded_warnings(lambda: fluid_run(
+        torch, fluid, prog.main, state, feeds, fetch, True))
+    peak = torch.cuda.max_memory_allocated()
+    busy, wall, kernels = device_busy_share(
+        torch, lambda: graph["exe"].run(prog.main, feed=feeds[-1],
+                                        fetch_list=fetch,
+                                        scope=graph["scope"]))
+    graph["exe"].close()
+    graph.pop("scope")
+    torch.cuda.empty_cache()
+    eager, warned2 = recorded_warnings(lambda: fluid_run(
+        torch, fluid, prog.main, state, feeds[:steps[1]], fetch, False))
+    replay_ms = statistics.median(graph["step_ms"][2:])
+    return {"graph": graph, "eager": eager, "peak": peak, "state": state,
+            "replay": {"wall_us": wall, "device_busy_us": busy,
+                       "device_busy_share": busy / wall,
+                       "kernels": kernels},
+            "replay_ms": replay_ms,
+            "eager_ms": statistics.median(eager["step_ms"][1:]),
+            "warnings": sorted(set(warned) | set(warned2))}
+
+
+def train_summary(run, batch):
+    """The numbers legs a and b report of a `train_leg`."""
+    info = run["graph"]["info"]
+    return {"mode": info["mode"], "entry_phase": info["phase"],
+            "losses": [float(f[0].reshape(-1)[0])
+                       for f in run["graph"]["fetches"]],
+            "eager_losses": [float(f[0].reshape(-1)[0])
+                             for f in run["eager"]["fetches"]],
+            "graph_step_ms": run["graph"]["step_ms"],
+            "eager_step_ms": run["eager"]["step_ms"],
+            "captured_step_ms": run["replay_ms"],
+            "eager_step_median_ms": run["eager_ms"],
+            "first_eager_step_ms": run["graph"]["step_ms"][0],
+            "capture_step_ms": run["graph"]["step_ms"][1],
+            "capture_ms": info.get("capture_ms"),
+            "pool_bytes": info.get("pool_bytes"),
+            "images_per_sec": batch / (run["replay_ms"] / 1e3),
+            "eager_images_per_sec": batch / (run["eager_ms"] / 1e3),
+            "replay": run["replay"], "peak_mem_bytes": run["peak"],
+            "nondeterminism_warnings": run["warnings"]}
+
+
+def det_inference(torch, fluid, det, state, batch):
+    """The inference program once on `batch` images from the startup
+    `state` (its first run; the convolutions warmed by the calibration
+    below): its ms, its entry (eager, the NMS naming the reason), the
+    detections it keeps, the ms of its `multiclass_nms` on the host
+    (timed inside the run) and of its three `yolo_box` on the card (run
+    again on its head outputs, which must give the boxes and scores the
+    NMS read). The batch norms' running statistics are first set from
+    the batch (a copy of the program up to the heads, batch norm in
+    training mode with momentum 0): at their initial 0 and 1 the
+    untrained heads overflow `exp`, and a net trained a few steps on
+    random boxes scores every box below `conf_thresh`, where an
+    untrained one passes them all, the NMS's full load (80 classes x
+    `nms_top_k` 1,000 an image)."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import registry
+
+    exe = fluid.Executor()
+    dev = exe.device
+    scope = fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    feed = det.infer_feed(batch, np.random.RandomState(3))
+    ops = det.infer.global_block().ops
+    yb = [op for op in ops if op.type == "yolo_box"]
+    nms = next(op for op in ops if op.type == "multiclass_nms")
+    heads = [op.input_names["X"][0] for op in yb]
+    calib = det.infer.clone()
+    block = calib.global_block()
+    block.ops = block.ops[:next(i for i, op in enumerate(block.ops)
+                                if op.type == "yolo_box")]
+    for op in block.ops:
+        if op.type == "batch_norm":
+            op.attrs.update(is_test=False, momentum=0.0)
+    exe.run(calib, feed={"image": feed["image"]}, fetch_list=heads,
+            scope=scope)
+    fetch = heads + [nms.input_names[s][0] for s in ("BBoxes", "Scores")] \
+        + [nms.output_names["Out"][0]]
+    nms_def = registry.get_op("multiclass_nms")
+    inner, spent = nms_def.compute, []
+
+    def timed(ins, attrs):
+        t = time.perf_counter()
+        out = inner(ins, attrs)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    nms_def.compute = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(det.infer, feed=feed, fetch_list=fetch, scope=scope,
+                      return_numpy=False)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        nms_def.compute = inner
+    entry = exe.last_entry
+    exe.close()
+    img = torch.tensor(feed["im_size"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decoded = [registry.get_op("yolo_box").compute(
+        {"X": [x], "ImgSize": [img]}, dict(op.attrs, _device=dev))
+        for op, x in zip(yb, out[:3])]
+    boxes = torch.cat([d["Boxes"] for d in decoded], 1)
+    scores = torch.cat([d["Scores"] for d in decoded], 1).transpose(1, 2)
+    torch.cuda.synchronize()
+    yolo_box_ms = (time.perf_counter() - t0) * 1e3
+    dets = out[5]
+    return {"batch": batch, "boxes": int(boxes.shape[1]),
+            "classes": int(scores.shape[1]), "run_ms": run_ms,
+            "mode": entry.mode, "reason": entry.reason,
+            "detections": int(dets.shape[0]),
+            "candidates": int((scores > nms.attrs["score_threshold"])
+                              .sum()),
+            "yolo_box_ms": yolo_box_ms, "nms_ms": sum(spent) * 1e3,
+            "yolo_box_nms_ms": yolo_box_ms + sum(spent) * 1e3,
+            "same_as_program": torch.equal(boxes, out[3])
+            and torch.equal(scores, out[4]) and len(spent) == 1,
+            "finite": bool(torch.isfinite(boxes).all()
+                           and torch.isfinite(dets).all())}
+
+
+def det_leg_a(torch, fluid, dp):
+    """Leg a: YOLOv3 DarkNet-53 at 608 x 608, batch 8, trained captured
+    and eagerly from one state; then its inference program on 8 images
+    from the startup state (`det_inference`)."""
+    import numpy as np
+
+    a = DET_A
+    t0 = time.perf_counter()
+    det = dp.yolov3_darknet53(fluid, **dp.YOLO_FULL)
+    build_s = time.perf_counter() - t0
+    run = train_leg(torch, fluid, det, a["batch"],
+                    (a["graph_steps"], a["eager_steps"]), [det.loss],
+                    np.random.RandomState(0))
+    infer = det_inference(torch, fluid, det, run["state"],
+                          a["infer_batch"])
+    run["eager"]["exe"].close()
+    res = dict(train_summary(run, a["batch"]), leg="a",
+               model="yolov3 darknet-53", widths=dict(dp.YOLO_FULL),
+               batch=a["batch"], build_s=build_s, inference=infer)
+    del run
+    torch.cuda.empty_cache()
+    emit({"phase": "detection_leg", **res})
+    check(res["mode"] == "graph" and res["entry_phase"] == "captured",
+          "detection a: the step is %s, not captured" % res["mode"])
+    check(all(math.isfinite(x) for x in res["losses"]
+              + res["eager_losses"]), "detection a: losses %s"
+          % res["losses"])
+    check(not res["nondeterminism_warnings"],
+          "detection a: nondeterminism warnings %s"
+          % res["nondeterminism_warnings"])
+    check(infer["mode"] == "eager" and "multiclass_nms" in (
+        infer["reason"] or "") and infer["same_as_program"]
+        and infer["finite"] and 0 < infer["detections"]
+        <= 100 * a["infer_batch"], "detection a: inference %s" % infer)
+    return res
+
+
+def det_leg_b(torch, fluid, dp):
+    """Leg b: ResNet50 under slim's QAT pass at 224 x 224, batch 128,
+    trained captured and eagerly from one state; the scale states over
+    the captured steps; the plain network's captured step; then the
+    evaluation clone frozen, saved, loaded and run on one batch."""
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.contrib.slim import quantization as slim
+
+    b = DET_B
+    cfg = dict(depth=b["depth"], img=b["img"], classes=b["classes"])
+    t0 = time.perf_counter()
+    qat = dp.resnet_qat(fluid, **cfg)
+    build_s = time.perf_counter() - t0
+    states = dp.quant_state_names(qat.main)
+    run = train_leg(torch, fluid, qat, b["batch"],
+                    (b["graph_steps"], b["eager_steps"]),
+                    [qat.loss] + states, np.random.RandomState(1))
+    scales = np.asarray([[float(v.reshape(-1)[0]) for v in f[1:]]
+                         for f in run["graph"]["fetches"]])
+    drift = np.abs(scales[-1] - scales[0]) / np.maximum(scales[0], 1e-30)
+    # the evaluation clone, frozen from the eager run's state
+    scope, exe = run["eager"]["scope"], run["eager"]["exe"]
+    test = qat.test.clone()
+    slim.QuantizationFreezePass(
+        scope=scope, weight_quantize_type="channel_wise_abs_max").apply(
+            test, scope=scope)
+    image = np.random.RandomState(2).randn(
+        b["batch"], 3, b["img"], b["img"]).astype("float32")
+    frozen = exe.run(test, feed={"image": image, "label": np.zeros(
+        (b["batch"], 1), "int64")}, fetch_list=qat.fetch, scope=scope)[0]
+    with tempfile.TemporaryDirectory() as d, fluid.scope_guard(scope):
+        fluid.io.save_inference_model(d, ["image"], qat.fetch, exe,
+                                      main_program=test)
+        prog, _, fetch = fluid.io.load_inference_model(d, exe)
+        exe.run(prog, feed={"image": image}, fetch_list=fetch, scope=scope)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = exe.run(prog, feed={"image": image}, fetch_list=fetch,
+                         scope=scope)[0]
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t0) * 1e3
+    exe.close()
+    res = dict(train_summary(run, b["batch"]), leg="b",
+               model="resnet50 + QuantizationTransformPass", widths=cfg,
+               batch=b["batch"], build_s=build_s,
+               quant_states=len(states),
+               scale_first=scales[0, :3].tolist(),
+               scale_last=scales[-1, :3].tolist(),
+               scale_drift_median=float(np.median(drift)),
+               scale_drift_max=float(drift.max()),
+               frozen={"infer_ms": infer_ms, "batch": b["batch"],
+                       "finite": bool(np.isfinite(loaded).all()),
+                       "equal_after_load": bool(np.array_equal(loaded,
+                                                               frozen))})
+    del run
+    torch.cuda.empty_cache()
+    plain = dp.resnet_qat(fluid, quant=False, **cfg)
+    state = book_state(fluid, plain)
+    feeds = [plain.feed(b["batch"], np.random.RandomState(1))] \
+        * b["plain_steps"]
+    prun = fluid_run(torch, fluid, plain.main, state, feeds, [plain.loss],
+                     True)
+    prun["exe"].close()
+    res["plain_captured_step_ms"] = statistics.median(prun["step_ms"][2:])
+    res["quant_share"] = 1.0 - res["plain_captured_step_ms"] \
+        / res["captured_step_ms"]
+    del prun, state
+    torch.cuda.empty_cache()
+    emit({"phase": "detection_leg", **res})
+    check(res["mode"] == "graph" and res["entry_phase"] == "captured",
+          "detection b: the step is %s, not captured" % res["mode"])
+    check(all(math.isfinite(x) for x in res["losses"]
+              + res["eager_losses"]), "detection b: losses %s"
+          % res["losses"])
+    check(np.isfinite(scales).all() and (scales > 0).all(),
+          "detection b: scales not positive and finite")
+    check(not res["nondeterminism_warnings"],
+          "detection b: nondeterminism warnings %s"
+          % res["nondeterminism_warnings"])
+    check(res["frozen"]["finite"] and res["frozen"]["equal_after_load"],
+          "detection b: frozen program %s" % res["frozen"])
+    return res
+
+
+def det_small(torch, fluid, name, prog, batch, fetch, cpu_check):
+    """One program of leg c: captured against eager and eager against
+    eager over DET_C_STEPS steps (every fetch and persistable bit-equal,
+    no nondeterminism warning), then its first 3 steps on the CPU from
+    the same state, held by `cpu_check(card fetches, cpu fetches)`."""
+    import numpy as np
+
+    state = book_state(fluid, prog)
+    rng = np.random.RandomState(5)
+    feeds = [prog.feed(batch, rng) for _ in range(DET_C_STEPS)]
+    runs, warned = recorded_warnings(lambda: [
+        fluid_run(torch, fluid, prog.main, state, feeds, fetch, g)
+        for g in (True, False, False)])
+    for r in runs:
+        r["exe"].close()
+    tensors = [dict(run_tensors(torch, r)) for r in runs]
+    differ = {what: sorted(n for n, t in tensors[0 if what == "graph"
+                                                 else 2].items()
+                           if not torch.equal(t, tensors[1][n]))[:5]
+              for what in ("graph", "eager")}
+    cpu = book_cpu_run(torch, fluid, prog, state, feeds[:3], fetch)
+    res = {"program": name, "steps": DET_C_STEPS,
+           "mode": runs[0]["info"]["mode"],
+           "entry_phase": runs[0]["info"]["phase"],
+           "tensors": len(tensors[1]), "captured_vs_eager": differ["graph"],
+           "eager_vs_eager": differ["eager"],
+           "nondeterminism_warnings": warned,
+           "vs_cpu": cpu_check(runs[0]["fetches"][:3], cpu)}
+    res["ok"] = (not differ["graph"] and not differ["eager"]
+                 and not warned and res["entry_phase"] == "captured"
+                 and res["vs_cpu"]["ok"])
+    return res, runs[0]["final"]
+
+
+def det_frozen_vs_cpu(torch, fluid, qat, state):
+    """The small QAT ResNet's evaluation clone frozen from `state` on the
+    card (then saved and loaded) and on the CPU: the largest difference
+    of their logits over the largest |logit|."""
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.contrib.slim import quantization as slim
+
+    feed = qat.feed(8, np.random.RandomState(6))
+    cpu_feed = {"image": feed["image"], "label": feed["label"]}
+    out = []
+    for place in (None, fluid.CPUPlace()):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        for n, v in state.items():
+            scope.set_var(n, v.clone() if place is None else v.cpu().clone())
+        test = qat.test.clone()
+        slim.QuantizationFreezePass(
+            scope=scope, weight_quantize_type="channel_wise_abs_max").apply(
+                test, scope=scope)
+        if place is None:
+            with tempfile.TemporaryDirectory() as d, \
+                    fluid.scope_guard(scope):
+                fluid.io.save_inference_model(d, ["image"], qat.fetch, exe,
+                                              main_program=test)
+                test, _, fetch = fluid.io.load_inference_model(d, exe)
+            run_feed = {"image": feed["image"]}
+        else:
+            fetch, run_feed = qat.fetch, cpu_feed
+        out.append(exe.run(test, feed=run_feed, fetch_list=fetch,
+                           scope=scope)[0])
+        exe.close()
+    scale = float(np.abs(out[1]).max())
+    return float(np.abs(out[0] - out[1]).max()) / scale
+
+
+def det_leg_c(torch, fluid, dp):
+    """Leg c, the gates at small size (module constants)."""
+    import numpy as np
+
+    tol = dp.TOL
+
+    def loss_of(f):
+        return float(f[0].reshape(-1)[0])
+
+    def yolo_check(card, cpu):
+        first = rel_err(card[0][0], cpu[0][0])
+        steps = max(abs(loss_of(a) / loss_of(b) - 1)
+                    for a, b in zip(card, cpu))
+        return {"first_loss_rel_err": first, "steps_loss_rel_err": steps,
+                "ok": first <= tol["yolo_first"]
+                and steps <= tol["yolo_steps"]}
+
+    def qat_check(card, cpu):
+        first = abs(loss_of(card[0]) / loss_of(cpu[0]) - 1)
+        scales = max(float(np.max(np.abs(a / b - 1)))
+                     for a, b in zip(card[-1][1:], cpu[-1][1:]))
+        return {"first_loss_rel_err": first, "scales_rel_err": scales,
+                "ok": first <= tol["qat_loss"]
+                and scales <= tol["qat_scales"]}
+
+    def range_check(card, cpu):
+        err = max(rel_err(a, b) for f, g in zip(card, cpu)
+                  for a, b in zip(f[:3], g[:3]))
+        iters = all(np.array_equal(f[3], g[3]) for f, g in zip(card, cpu))
+        return {"rel_err": err, "iter_equal": iters,
+                "ok": err <= 1e-5 and iters}
+
+    yolo = dp.yolov3_darknet53(fluid, **dp.TINY_YOLO)
+    qat = dp.resnet_qat(fluid, **dp.SMALL_QAT)
+    rmlp = dp.range_mlp(fluid)
+    states = dp.quant_state_names(qat.main)
+    out = {}
+    out["tiny_yolov3"], _ = det_small(torch, fluid, "tiny_yolov3", yolo,
+                                      dp.TINY_YOLO_BATCH, [yolo.loss],
+                                      yolo_check)
+    out["small_qat_resnet"], final = det_small(
+        torch, fluid, "small_qat_resnet", qat, dp.SMALL_QAT_BATCH,
+        [qat.loss] + states, qat_check)
+    out["range_mlp"], _ = det_small(torch, fluid, "range_mlp", rmlp, 8,
+                                    [rmlp.loss] + rmlp.fetch, range_check)
+    frozen = det_frozen_vs_cpu(torch, fluid, qat, final)
+    res = {"leg": "c", **out, "frozen_qat_vs_cpu": frozen, "tol": dict(tol)}
+    emit({"phase": "detection_leg", **res})
+    bad = [k for k, v in out.items() if not v["ok"]]
+    check(not bad, "detection c: %s" % {k: out[k] for k in bad})
+    check(frozen <= tol["frozen"],
+          "detection c: frozen QAT card against CPU %g" % frozen)
+    return res
+
+
+def det_leg_d(torch, fluid, cr, dq):
+    """Leg d: every case of tests/torch_det_quant_cases.py card against
+    CPU (outputs and gradients within DET_D_RTOL x (1 + max |value|),
+    integers exact); each capturable case from one replay of a CUDA
+    graph captured around it and its gradients, bit-equal to eager; the
+    gathering types' cases run twice, bit-equal; each NMS case as a
+    one-op program (its block eager, the NMS named) whose outputs are
+    the reference's recorded ones (`NMS_DIGESTS`)."""
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.core.types import to_numpy
+    from paddle_tpu_torch.ops import registry
+
+    dev = resolve_device(None)
+    worst, bad, captured, repeated, host = 0.0, [], 0, 0, {}
+    for name in sorted(dq.CASES):
+        op, _, attrs, diff, _ = dq.CASES[name]
+        ins = dq.inputs(name)
+        got = cr.run_case(op, ins, attrs, dev, diff, seed=7)
+        _, err, faults = cr.compare(
+            got, cr.run_case(op, ins, attrs, "cpu", diff, seed=7),
+            DET_D_RTOL)
+        worst = max(worst, err)
+        bad += [(name,) + f for f in faults]
+        if op in DET_D_REPEAT:
+            repeated += 1
+            bad += [(name, "repeat") + f for f in cr.compare(
+                cr.run_case(op, ins, attrs, dev, diff, seed=7), got,
+                0.0)[2]]
+        if cr.capturable(op):
+            try:
+                graph = cr.capture_case(op, ins, attrs, dev, diff, seed=7)
+            except RuntimeError as e:
+                bad.append((name, "capture", str(e).splitlines()[0][:200]))
+            else:
+                captured += 1
+                bad += [(name, "captured") + f
+                        for f in cr.compare(graph, got, 0.0)[2]]
+            continue
+        block = seq_host_case(fluid, cr, dq, name, fluid.Executor())
+        outs = registry.normalize_outs(registry.get_op(op).compute(
+            {s: [torch.tensor(a).to(dev) for a in v]
+             for s, v in ins.items()}, dict(attrs, _device=dev)))
+        digests = {s: dq.digest(to_numpy(v[0])) for s, v in outs.items()}
+        host[name] = {"mode": block["mode"], "ok": block["ok"],
+                      "recorded": digests == dq.NMS_DIGESTS[name]}
+        if not (block["ok"] and host[name]["recorded"]):
+            bad.append((name, "host", host[name], block["reason"]))
+    res = {"leg": "d", "cases": len(dq.CASES),
+           "types": len({c[0] for c in dq.CASES.values()}),
+           "captured_cases": captured, "repeated_cases": repeated,
+           "host_cases": sorted(host), "max_rel_err": worst,
+           "tol": "%g x (1 + max |value|); integers exact; captured and "
+           "repeats bit-equal; NMS outputs the reference's recorded ones"
+           % DET_D_RTOL, "failures": bad[:10]}
+    emit({"phase": "detection_leg", **res})
+    check(not bad, "detection d: %s" % bad[:10])
+    return res
+
+
+def phase_detection(torch, name):
+    """Phase 21: detection and quantization on the card, with
+    ``FLAGS_cudnn_deterministic`` on."""
+    from paddle_tpu_torch import fluid
+
+    dp, cr, dq = tests_modules("torch_detection_programs",
+                               "torch_case_runner", "torch_det_quant_cases")
+    t0 = time.perf_counter()
+    before = fluid.get_flags("FLAGS_cudnn_deterministic")
+    os.environ["FLAGS_cudnn_deterministic"] = "1"
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        res = {"leg_a": det_leg_a(torch, fluid, dp),
+               "leg_b": det_leg_b(torch, fluid, dp),
+               "leg_c": det_leg_c(torch, fluid, dp),
+               "leg_d": det_leg_d(torch, fluid, cr, dq)}
+    finally:
+        fluid.set_flags(before)
+        os.environ.pop("FLAGS_cudnn_deterministic", None)
+    a, b = res["leg_a"], res["leg_b"]
+    emit({"phase": "detection", "device": name,
+          "nvidia_smi": nvidia_smi_line(),
+          "yolov3_captured_step_ms": a["captured_step_ms"],
+          "yolov3_eager_step_ms": a["eager_step_median_ms"],
+          "yolov3_images_per_sec": a["images_per_sec"],
+          "yolov3_busy_share": a["replay"]["device_busy_share"],
+          "yolov3_peak_mem_bytes": a["peak_mem_bytes"],
+          "yolov3_infer_yolo_box_nms_ms": a["inference"]["yolo_box_nms_ms"],
+          "qat_captured_step_ms": b["captured_step_ms"],
+          "qat_eager_step_ms": b["eager_step_median_ms"],
+          "qat_images_per_sec": b["images_per_sec"],
+          "qat_busy_share": b["replay"]["device_busy_share"],
+          "qat_peak_mem_bytes": b["peak_mem_bytes"],
+          "qat_quant_share": b["quant_share"],
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
 # -- phase 9 ------------------------------------------------------------------
 
 def build_fluid_resnet(fluid, img, classes, lr, amp, strategy=None):
@@ -5812,6 +6337,7 @@ def main():
     large = phase_bert_large_batch(torch, name)
     phase_book(torch, name)
     phase_sequences(torch, name)
+    phase_detection(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

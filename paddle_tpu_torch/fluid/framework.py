@@ -359,8 +359,12 @@ _OPTIMIZER_OPS = frozenset({
     "lars_momentum", "dpsgd", "backward",
     "fused_sgd", "fused_momentum", "fused_adam",
 })
-# op types whose `is_test` attr a for_test clone sets
-_IS_TEST_OPS = frozenset({"dropout", "batch_norm"})
+# op types whose `is_test` attr a for_test clone sets (the stateful
+# quantizers among them: an evaluation clone must not move their scales)
+_IS_TEST_OPS = frozenset({
+    "dropout", "batch_norm", "fake_quantize_moving_average_abs_max",
+    "fake_quantize_dequantize_moving_average_abs_max",
+    "fake_quantize_range_abs_max", "moving_average_abs_max_scale"})
 
 
 def _touches_grad(op):
@@ -435,8 +439,9 @@ class Program:
 
     def clone(self, for_test=False) -> "Program":
         """A copy; with `for_test`, without the backward section, the ops
-        over gradients and the optimizer updates, and with dropout and
-        batch_norm in their `is_test` mode (an evaluation program)."""
+        over gradients and the optimizer updates, and with dropout,
+        batch_norm and the stateful quantizers in their `is_test` mode
+        (an evaluation program)."""
         p = Program()
         p.random_seed = self.random_seed
         p.blocks = []

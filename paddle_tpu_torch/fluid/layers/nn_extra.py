@@ -8,10 +8,13 @@ builder), `row_conv`, `fsp_matrix`, `im2sequence`, `spectral_norm`,
 framework ops); and the activations `selu`, `softshrink`, `hard_shrink`,
 `tanh_shrink`, `brelu`, `soft_relu`, `thresholded_relu`, with
 `pad_constant_like`, `shard_index`, `uniform_random_batch_size_like`
-and `sampling_id`. Its functions that emit later groups' types
-(interpolation, `nce`, `hsigmoid`, `warpctc`, `linear_chain_crf`,
-`deformable_conv`, `unpool`, ...) are not ported yet (ROADMAP Queue 1
-#5)."""
+and `sampling_id`; and the interpolation functions `interpolate`,
+`resize_bilinear`, `resize_trilinear`, `resize_linear`, `resize_bicubic`
+and `image_resize_short` (the `*_interp` types; `resize_nearest` and
+`image_resize` stay in `nn.py`, emitting `interp_nearest` as the
+reference's do). Its functions that emit later groups' types (`nce`,
+`hsigmoid`, `warpctc`, `linear_chain_crf`, `deformable_conv`, `unpool`,
+...) are not ported yet (ROADMAP Queue 1 #5)."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,7 +25,9 @@ from ..layer_helper import LayerHelper, apply_op
 from ..param_attr import ParamAttr
 
 __all__ = [
-    "pool3d", "adaptive_pool3d", "conv3d", "conv3d_transpose",
+    "interpolate", "resize_bilinear", "resize_trilinear", "resize_linear",
+    "resize_bicubic", "image_resize_short", "pool3d", "adaptive_pool3d",
+    "conv3d", "conv3d_transpose",
     "grid_sampler", "affine_grid", "affine_channel", "lrn", "unfold",
     "space_to_depth", "shuffle_channel", "temporal_shift", "pixel_shuffle",
     "maxout", "row_conv", "fsp_matrix", "dynamic_lstm", "dynamic_lstmp",
@@ -43,6 +48,73 @@ def _one(op, inputs, attrs, slot="Out", dtype=None, helper=None):
 
 def _n(v, n):
     return [v] * n if isinstance(v, int) else list(v)
+
+
+# -- interpolation -------------------------------------------------------------
+
+_RESAMPLE_OP = {"NEAREST": "nearest_interp", "BILINEAR": "bilinear_interp",
+                "TRILINEAR": "trilinear_interp", "BICUBIC": "bicubic_interp",
+                "LINEAR": "linear_interp"}
+
+
+def interpolate(input, out_shape=None, scale=None, name=None,
+                resample="BILINEAR", actual_shape=None, align_corners=True,
+                align_mode=1, data_format="NCHW"):
+    """The `*_interp` op of `resample`, its output size static: from
+    `out_shape` (or `actual_shape`; a list or an array, read here), else
+    from `scale`."""
+    op_type = _RESAMPLE_OP[resample.upper()]
+    attrs = {"align_corners": align_corners, "align_mode": align_mode,
+             "data_layout": data_format}
+    shape = out_shape if out_shape is not None else actual_shape
+    if shape is not None:
+        dims = [int(d) for d in (
+            shape.tolist() if hasattr(shape, "tolist") else shape)]
+        keys = {1: ["out_w"], 2: ["out_h", "out_w"],
+                3: ["out_d", "out_h", "out_w"]}[len(dims)]
+        attrs.update(zip(keys, dims))
+    elif scale is not None:
+        attrs["scale"] = float(scale)
+    else:
+        raise ValueError("interpolate needs out_shape or scale")
+    return _one(op_type, {"X": [input]}, attrs)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1,
+                    data_format="NCHW"):
+    return interpolate(input, out_shape, scale, name, "BILINEAR",
+                       actual_shape, align_corners, align_mode, data_format)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     actual_shape=None, align_corners=True, align_mode=1,
+                     data_format="NCDHW"):
+    return interpolate(input, out_shape, scale, name, "TRILINEAR",
+                       actual_shape, align_corners, align_mode, data_format)
+
+
+def resize_linear(input, out_shape=None, scale=None, name=None,
+                  align_corners=True, align_mode=1, data_format="NCW"):
+    return interpolate(input, out_shape, scale, name, "LINEAR", None,
+                       align_corners, align_mode, data_format)
+
+
+def resize_bicubic(input, out_shape=None, scale=None, name=None,
+                   align_corners=True, data_format="NCHW"):
+    return interpolate(input, out_shape, scale, name, "BICUBIC", None,
+                       align_corners, 0, data_format)
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resizes the shorter spatial side to `out_short_len`, keeping the
+    aspect ratio."""
+    h, w = input.shape[2], input.shape[3]
+    short, long_ = (h, w) if h < w else (w, h)
+    ratio = out_short_len / float(short)
+    out_shape = ([out_short_len, int(long_ * ratio)] if h < w
+                 else [int(long_ * ratio), out_short_len])
+    return interpolate(input, out_shape=out_shape, resample=resample)
 
 
 # -- 3-d convolution and pooling ---------------------------------------------

@@ -25,3 +25,6 @@ from . import rnn_unit_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import array_ops  # noqa: F401
 from . import framework_ops  # noqa: F401
+from . import interp_ops  # noqa: F401
+from . import quant_ops  # noqa: F401
+from . import detection_ops  # noqa: F401

@@ -2,13 +2,15 @@
 
 Ported so far: `sync_batch_norm` (`:515`), the batch norm whose moments
 are averaged over the data-parallel ring (reference:
-sync_batch_norm_op.cu, ncclAllReduce of the moments).
+sync_batch_norm_op.cu, ncclAllReduce of the moments), and `yolov3_loss`
+(`:415`), YOLOv3's training loss, vectorized as in the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from . import collective_ops
+from .interp_ops import consts, f32, take
 from .registry import get_op, register_op
 from ..parallel import env as penv
 
@@ -66,3 +68,150 @@ def _sync_batch_norm(ins, attrs):
     return {"Y": y.to(x.dtype), "MeanOut": mean_out,
             "VarianceOut": var_out, "SavedMean": bm,
             "SavedVariance": inv.detach()}
+
+
+# -- yolov3 loss --------------------------------------------------------------
+
+def _sce(x, lbl):
+    """Stable sigmoid cross entropy against a soft target."""
+    return (torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+            - x * lbl + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+def _box_iou_xywh(b1, b2):
+    """IoU of (cx, cy, w, h) boxes, broadcast."""
+    lt = torch.maximum(b1[..., :2] - b1[..., 2:] / 2,
+                       b2[..., :2] - b2[..., 2:] / 2)
+    rb = torch.minimum(b1[..., :2] + b1[..., 2:] / 2,
+                       b2[..., :2] + b2[..., 2:] / 2)
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (b1[..., 2] * b1[..., 3] + b2[..., 2] * b2[..., 3]
+                    - inter + 1e-10)
+
+
+def _wh_iou(w1, h1, w2, h2):
+    inter = torch.minimum(w1, w2) * torch.minimum(h1, h2)
+    return inter / (w1 * h1 + w2 * h2 - inter + 1e-10)
+
+
+@register_op("yolov3_loss")
+def _yolov3_loss(ins, attrs):
+    """The YOLOv3 training loss of one head (reference:
+    detection/yolov3_loss_op.h): X [N, M*(5+C), H, W], GTBox [N, B, 4]
+    (cx, cy, w, h over the image), GTLabel [N, B], GTScore [N, B]. Loss
+    [N] is the location, class and objectness terms; ObjectnessMask
+    [N, M, H, W] is -1 where the best IoU with a ground truth passes
+    `ignore_thresh`, a positive cell's score where a ground truth's best
+    anchor (over all anchors) is in `anchor_mask`, else 0; GTMatchMask
+    [N, B] is that anchor's place in the mask or -1.
+
+    A ground truth with w or h <= 0 is dropped. Where two fall on one
+    cell and anchor, the later one (in index order) sets the mask, as
+    Paddle's loop does: the winner of each cell is found by comparison,
+    not by a scatter, so no run can pick another. The cell gather's
+    gradient is summed in a fixed order (`interp_ops.take`)."""
+    x = ins["X"][0]
+    gtbox = ins["GTBox"][0]
+    gtlabel = ins["GTLabel"][0].to(torch.int64)
+    anchors = consts(attrs["anchors"], x.device).reshape(-1, 2)
+    mask = [int(a) for a in attrs["anchor_mask"]]
+    class_num = int(attrs["class_num"])
+    ignore_thresh = f32(attrs.get("ignore_thresh", 0.7))
+    downsample = int(attrs.get("downsample_ratio", 32))
+    scale_xy = float(attrs.get("scale_x_y", 1.0))
+    bias_xy = -0.5 * (scale_xy - 1.0)
+    n, _, h, w = x.shape
+    m = len(mask)
+    nb = gtbox.shape[1]
+    input_size = downsample * h
+    dev = x.device
+    x = x.reshape(n, m, 5 + class_num, h, w)
+    gtscore = ins["GTScore"][0] if ins.get("GTScore") \
+        else torch.ones((n, nb), dtype=x.dtype, device=dev)
+    label_pos, label_neg = 1.0, 0.0
+    if attrs.get("use_label_smooth", True):
+        sw = min(1.0 / class_num, 1.0 / 40.0)
+        label_pos, label_neg = 1.0 - sw, sw
+
+    gt_valid = (gtbox[..., 2] > 0) & (gtbox[..., 3] > 0)      # [N, B]
+    # the predicted boxes (over the image) for the ignore mask
+    gx = torch.arange(w, dtype=x.dtype, device=dev)[None, None, None, :]
+    gy = torch.arange(h, dtype=x.dtype, device=dev)[None, None, :, None]
+    mask_t = consts(mask, x.device).to(torch.int64)
+    manchors = anchors.index_select(0, mask_t)                 # [M, 2]
+    aw = (manchors[:, 0] / input_size)[None, :, None, None]
+    ah = (manchors[:, 1] / input_size)[None, :, None, None]
+    px = (gx + torch.sigmoid(x[:, :, 0]) * f32(scale_xy) + f32(bias_xy)) / w
+    py = (gy + torch.sigmoid(x[:, :, 1]) * f32(scale_xy) + f32(bias_xy)) / h
+    pw = torch.exp(x[:, :, 2]) * aw
+    ph = torch.exp(x[:, :, 3]) * ah
+    pred = torch.stack([px, py, pw, ph], -1)                   # [N,M,H,W,4]
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    gtb = torch.where(gt_valid[..., None], gtbox, zero)
+    iou = _box_iou_xywh(pred[:, :, :, :, None, :],
+                        gtb[:, None, None, None, :, :])        # [N,M,H,W,B]
+    iou = torch.where(gt_valid[:, None, None, None, :], iou, zero)
+    best_iou = torch.amax(iou, -1)
+    obj_mask = torch.where(best_iou > ignore_thresh,
+                           torch.full((), -1.0, device=dev), zero)
+
+    # each ground truth's best anchor over the full set (w, h IoU only)
+    an_iou = _wh_iou(anchors[None, None, :, 0] / input_size,
+                     anchors[None, None, :, 1] / input_size,
+                     gtb[..., 2:3], gtb[..., 3:4])             # [N, B, An]
+    best_n = torch.argmax(an_iou, -1)                          # [N, B]
+    mask_hit = mask_t[None, None, :] == best_n[..., None]
+    mask_idx = torch.where(mask_hit.any(-1),
+                           torch.argmax(mask_hit.to(torch.int32), -1),
+                           torch.full((), -1, dtype=torch.int64,
+                                      device=dev))             # [N, B]
+    gt_match = torch.where(gt_valid, mask_idx,
+                           torch.full((), -1, dtype=torch.int64,
+                                      device=dev))
+    gi = torch.clamp((gtb[..., 0] * w).to(torch.int32), 0, w - 1).long()
+    gj = torch.clamp((gtb[..., 1] * h).to(torch.int32), 0, h - 1).long()
+    pos = gt_valid & (mask_idx >= 0)                           # [N, B]
+    posf = pos.to(x.dtype) * gtscore
+
+    # the prediction vector at each ground truth's cell
+    mcl = torch.clamp(mask_idx, 0, m - 1)
+    bidx = torch.arange(n, device=dev)[:, None].expand(n, nb)
+    cells = ((bidx * m + mcl) * h + gj) * w + gi               # [N, B]
+    rows = x.permute(0, 1, 3, 4, 2).reshape(n * m * h * w, 5 + class_num)
+    cell = take(rows, cells.reshape(-1), 0).reshape(n, nb, 5 + class_num)
+    tx = gtb[..., 0] * w - gi
+    ty = gtb[..., 1] * h - gj
+    a_w = anchors[best_n, 0] / input_size
+    a_h = anchors[best_n, 1] / input_size
+    tw = torch.log(torch.clamp(gtb[..., 2] / torch.clamp(a_w, min=1e-10),
+                               min=1e-9))
+    th = torch.log(torch.clamp(gtb[..., 3] / torch.clamp(a_h, min=1e-10),
+                               min=1e-9))
+    box_scale = 2.0 - gtb[..., 2] * gtb[..., 3]
+    loc = (_sce(cell[..., 0], tx) + _sce(cell[..., 1], ty)
+           + torch.abs(cell[..., 2] - tw) + torch.abs(cell[..., 3] - th))
+    loc_loss = torch.sum(loc * box_scale * posf, 1)
+    onehot = (gtlabel[..., None] == torch.arange(
+        class_num, device=dev)).to(x.dtype)
+    cls_target = onehot * f32(label_pos) + (1.0 - onehot) * f32(label_neg)
+    cls_loss = torch.sum(torch.sum(_sce(cell[..., 5:], cls_target), -1)
+                         * posf, 1)
+
+    # a positive cell's mask is the score of the last ground truth on it
+    flat = (mcl * h + gj) * w + gi                             # [N, B]
+    hits = (flat[:, None, :] == torch.arange(m * h * w, device=dev)
+            [None, :, None]) & pos[:, None, :]                 # [N, MHW, B]
+    order = torch.arange(nb, device=dev)
+    winner = torch.amax(torch.where(hits, order, torch.full(
+        (), -1, dtype=order.dtype, device=dev)), -1)           # [N, MHW]
+    won = torch.gather(gtscore, 1, winner.clamp(min=0))
+    obj_mask = torch.where(winner >= 0, won,
+                           obj_mask.reshape(n, -1)).reshape(n, m, h, w)
+    pobj = x[:, :, 4]
+    obj_loss = torch.sum(torch.where(
+        obj_mask > 0, _sce(pobj, 1.0) * obj_mask,
+        torch.where(obj_mask == 0, _sce(pobj, 0.0), zero)), (1, 2, 3))
+    return {"Loss": loc_loss + cls_loss + obj_loss,
+            "ObjectnessMask": obj_mask,
+            "GTMatchMask": gt_match.to(torch.int32)}

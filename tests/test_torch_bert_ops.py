@@ -32,6 +32,7 @@ from paddle_tpu_torch.ops import registry as treg
 
 from torch_nn_cases import CASES as NN_CASES
 from torch_seq_cases import CASES as SEQ_CASES
+from torch_det_quant_cases import CASES as DET_CASES
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -275,6 +276,10 @@ BOOK_SLICE_OPS = {c[0] for c in NN_CASES.values()}
 #: tests/torch_seq_cases.py but `run_program` (`sequence_ops.py`,
 #: `array_ops.py`, `framework_ops.py` and the rest of `metric_ops.py`)
 SEQ_SLICE_OPS = {c[0] for c in SEQ_CASES.values()} | {"run_program"}
+#: the detection and quantization slice's op types, every one a case of
+#: tests/torch_det_quant_cases.py (`interp_ops.py`, `quant_ops.py`,
+#: `detection_ops.py` and `specialty_ops.py`'s `yolov3_loss`)
+DET_SLICE_OPS = {c[0] for c in DET_CASES.values()}
 
 
 def test_cases_cover_the_registry():
@@ -282,13 +287,18 @@ def test_cases_cover_the_registry():
     tests/test_torch_fluid_ops.py, tests/test_torch_resnet_ops.py,
     tests/test_torch_transformer_ops.py, tests/test_torch_tensor_ops.py,
     tests/test_torch_collective_ops.py, tests/test_torch_math_ops.py, or
-    the book slice's files (the cases of tests/torch_nn_cases.py), or
-    the sequence slice's (the cases of tests/torch_seq_cases.py)."""
+    the book slice's files (the cases of tests/torch_nn_cases.py), the
+    sequence slice's (the cases of tests/torch_seq_cases.py), or the
+    detection and quantization slice's (tests/torch_det_quant_cases.py)."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
     assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS \
         | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS \
         | TENSOR_SLICE_OPS | BOOK_SLICE_OPS | SEQ_SLICE_OPS \
-        == set(treg.registered_ops())
+        | DET_SLICE_OPS == set(treg.registered_ops())
+    assert len(DET_SLICE_OPS) == 30 and not (
+        types | FLUID_SLICE_OPS | RESNET_SLICE_OPS | TRANSFORMER_SLICE_OPS
+        | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS | TENSOR_SLICE_OPS
+        | BOOK_SLICE_OPS | SEQ_SLICE_OPS) & DET_SLICE_OPS
     assert len(SEQ_SLICE_OPS) == 58 and not (
         types | FLUID_SLICE_OPS | RESNET_SLICE_OPS | TRANSFORMER_SLICE_OPS
         | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS | TENSOR_SLICE_OPS
@@ -306,7 +316,7 @@ def test_cases_cover_the_registry():
                 | AMP_SLICE_OPS) & TENSOR_SLICE_OPS
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS) \
-        & AMP_SLICE_OPS and len(treg.registered_ops()) == 411
+        & AMP_SLICE_OPS and len(treg.registered_ops()) == 441
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS) & COLLECTIVE_SLICE_OPS \
         and len(COLLECTIVE_SLICE_OPS) == 19

@@ -45,8 +45,11 @@ def _reference(op_type, ins, attrs):
 
 
 #: types whose reference reads a value on the host for a shape, which it
-#: does only outside jit (the others run jitted, one compile a case)
-EAGER_REFERENCE = {"bincount"}
+#: does only outside jit, or whose jitted reference rounds otherwise
+#: than its own op-by-op arithmetic (XLA fuses `bicubic_interp`'s cubic
+#: weight polynomial; run op by op it is the port's bit for bit); the
+#: others run jitted, one compile a case
+EAGER_REFERENCE = {"bincount", "bicubic_interp"}
 
 
 def reference_results(names, threads=4, cases=torch_nn_cases):
