@@ -391,7 +391,27 @@ Phases, each printing one JSON line:
    `sequence_scatter` and `SelectedRows.merge` at 65,536 rows twice,
    bit-equal. Each leg prints a line (`sequences_leg`), the phase a
    closing one. The path runs none of the hand-written kernels;
-21. kernels — one line listing every ported kernel with its launches on
+21. detection — YOLOv3, ResNet50 under QAT, the small programs and the
+   op cases of tests/torch_det_quant_cases.py (PERF.md §4);
+22. detection pipeline — with ``FLAGS_cudnn_deterministic`` on, float32.
+   Leg a: Mask R-CNN R50-FPN at 800 x 1344 (tests/torch_detection_programs
+   .py MASK_RCNN_FULL, random weights from the startup), 5 training steps
+   (eager: the proposal and label ops run on the host) and one
+   evaluation pass (box_decoder_and_assign, multiclass_nms,
+   detection_map): step ms, the host seconds of each host type a step,
+   busy share and kernels of one profiled step, peak memory, the
+   evaluation's ms and mAP, the blocks' modes and reasons. Leg b: SSD
+   MobileNet-v1 at 300 (SSD_FULL, 1,917 priors), the same. Leg c: the
+   tiny programs of the CPU tests, card against CPU (losses and
+   gradients within DET_TOL), their input-exact host ops' outputs the
+   reference's recorded ones (HOST_OUTPUT_DIGESTS). Leg d: every case of
+   tests/torch_det_extra_cases.py card against CPU within 1e-4 x (1 +
+   max |value|), integers exact; the capturable ones captured with their
+   gradients and bit-equal to eager; the gathering types twice, bit-equal;
+   each host case a one-op program (its block eager, named) whose
+   outputs are the reference's recorded ones (HOST_DIGESTS). The phase
+   runs none of the hand-written kernels;
+23. kernels — one line listing every ported kernel with its launches on
    its main path and its times (RPA at the decode bucket, with its prefill
    case's times beside; the flash kernels also with their design and
    TFLOP/s, their launches and times on the fluid BERT path, their
@@ -400,7 +420,7 @@ Phases, each printing one JSON line:
    phase 17 leg b and their times at phase 5 case g; the dropout kernel
    with its launches on fluid BERT leg a and on phase 18 leg a); launches
    made by graph replays count;
-22. the last line, ``{"ok": true, "device": {...}}``, printed only when
+24. the last line, ``{"ok": true, "device": {...}}``, printed only when
    every phase passed. Any failure exits non-zero.
 
 It needs one card and exits non-zero without one, or without the
@@ -691,6 +711,18 @@ DET_D_RTOL = 1e-4
 DET_D_REPEAT = {"yolov3_loss", "roi_align", "linear_interp",
                 "bilinear_interp", "trilinear_interp", "bicubic_interp",
                 "nearest_interp"}
+# phase 22: Mask R-CNN R50-FPN at 800 x 1344 and SSD MobileNet-v1 at 300
+# (tests/torch_detection_programs.py MASK_RCNN_FULL, SSD_FULL), one image
+# a step: training steps, then one evaluation pass; leg d's tolerance
+DX_STEPS = 5
+DX_D_RTOL = 1e-4
+# leg d's types whose gradients gather: each case run twice, bit-equal
+DX_D_REPEAT = {"deformable_conv", "deformable_conv_v1",
+               "deformable_psroi_pooling", "roi_perspective_transform",
+               "bilateral_slice", "conv_shift", "hsigmoid", "target_assign",
+               "box_decoder_and_assign", "prroi_pool", "psroi_pool",
+               "unpool", "max_pool3d_with_index", "sample_logits",
+               "sampled_softmax_with_cross_entropy", "random_crop"}
 
 
 _T0 = time.perf_counter()
@@ -1667,8 +1699,9 @@ def fluid_bert_kernels_vs_plain(torch, fluid):
         else:
             for n, v in state.items():
                 scope.set_var(n, v.clone())
-        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
-                       scope=scope, return_numpy=False)
+        vals = [f.value for f in exe.run(
+            main, feed=feed, fetch_list=[total] + grads, scope=scope,
+            return_numpy=False)]
         out[impl] = (float(vals[0].reshape(-1)[0]),
                      dict(zip(grads, (v.float() for v in vals[1:]))))
     lk, gk = out["auto"]
@@ -2003,8 +2036,9 @@ def f16_leg_d(torch, fluid):
         else:
             for n, v in state.items():
                 scope.set_var(n, v.clone())
-        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
-                       scope=scope, return_numpy=False)
+        vals = [f.value for f in exe.run(
+            main, feed=feed, fetch_list=[total] + grads, scope=scope,
+            return_numpy=False)]
         out[impl] = (float(vals[0].reshape(-1)[0]),
                      dict(zip(grads, (v.float() for v in vals[1:]))),
                      scale_state(scope, dec))
@@ -2284,8 +2318,9 @@ def lb_recompute_gate(torch, fluid, feed, state_of):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         lb_zero()
-        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
-                       scope=scope, return_numpy=False)
+        vals = [f.value for f in exe.run(
+            main, feed=feed, fetch_list=[total] + grads, scope=scope,
+            return_numpy=False)]
         torch.cuda.synchronize()
         out[rc] = {"loss": vals[0].clone(), "grads": dict(zip(grads, (
             v.clone() for v in vals[1:]))), "launches": lb_counts(),
@@ -2404,7 +2439,7 @@ def lb_capture_gate(torch, fluid, feed, state_of):
             def steps(fs):
                 return [host_bits(exe.run(main, feed=f, fetch_list=[total],
                                           scope=scope,
-                                          return_numpy=False)[0])
+                                          return_numpy=False)[0].value)
                         for f in fs]
 
             losses = steps(feeds[:6])
@@ -2464,8 +2499,9 @@ def lb_kernels_vs_plain(torch, fluid, feed, state_of):
             attention_impl=impl)
         exe = fluid.Executor()
         scope = state_of(exe, startup)
-        vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
-                       scope=scope, return_numpy=False)
+        vals = [f.value for f in exe.run(
+            main, feed=feed, fetch_list=[total] + grads, scope=scope,
+            return_numpy=False)]
         out[impl] = (float(vals[0].reshape(-1)[0]),
                      dict(zip(grads, (v.float() for v in vals[1:]))))
         exe.close()
@@ -3238,8 +3274,8 @@ def seq_host_case(fluid, cr, sc, name, exe):
         fluid, op, ins, {s: len(v) for s, v in direct.items()}, attrs)
     scope = fluid.Scope()
     for _ in range(2):
-        got = exe.run(main, feed=feed, fetch_list=outs, scope=scope,
-                      return_numpy=False)
+        got = [f.value for f in exe.run(main, feed=feed, fetch_list=outs,
+                                        scope=scope, return_numpy=False)]
     entry = exe.last_entry
     exe.close()
     want = [t for s in sorted(direct) for t in direct[s]]
@@ -3487,8 +3523,9 @@ def det_inference(torch, fluid, det, state, batch):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = exe.run(det.infer, feed=feed, fetch_list=fetch, scope=scope,
-                      return_numpy=False)
+        out = [f.value for f in exe.run(det.infer, feed=feed,
+                                        fetch_list=fetch, scope=scope,
+                                        return_numpy=False)]
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -3864,6 +3901,310 @@ def phase_detection(torch, name):
           "qat_busy_share": b["replay"]["device_busy_share"],
           "qat_peak_mem_bytes": b["peak_mem_bytes"],
           "qat_quant_share": b["quant_share"],
+          "seconds": time.perf_counter() - t0})
+    return res
+
+
+# -- phase 22 -----------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_ops(types):
+    """Each op type of `types` timed where it runs (host seconds a call,
+    type -> list), the registry's compute functions put back after."""
+    from paddle_tpu_torch.ops import registry
+
+    spent = {t: [] for t in types}
+    saved = {t: registry.get_op(t).compute for t in types}
+
+    def timed(t, fn):
+        def run(ins, attrs):
+            t0 = time.perf_counter()
+            out = fn(ins, attrs)
+            spent[t].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for t in types:
+        registry.get_op(t).compute = timed(t, saved[t])
+    try:
+        yield spent
+    finally:
+        for t in types:
+            registry.get_op(t).compute = saved[t]
+
+
+def dx_train_eval(torch, fluid, prog, model):
+    """Legs a and b: DX_STEPS training steps of `prog` (a TwoStage) from
+    its startup on the card, one profiled step, then one evaluation
+    pass of its test program on the trained scope."""
+    import numpy as np
+
+    state = book_state(fluid, prog)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v)
+    rng = np.random.RandomState(0)
+    feeds = [prog.feed(rng) for _ in range(DX_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, host_s, losses = [], [], []
+
+    def steps():
+        with timed_ops(prog.host_ops) as spent:
+            for feed in feeds[:DX_STEPS]:
+                before = {t: len(v) for t, v in spent.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = exe.run(prog.main, feed=feed, fetch_list=prog.fetch,
+                              scope=scope)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append([float(o.reshape(-1)[0]) for o in out])
+                host_s.append({t: sum(v[before[t]:]) for t, v in
+                               spent.items()})
+                calls = {t: len(v) - before[t] for t, v in spent.items()}
+        return calls
+
+    calls, warned = recorded_warnings(steps)
+    peak = torch.cuda.max_memory_allocated()
+    train_entry = exe.last_entry
+    busy, wall, kernels = device_busy_share(torch, lambda: exe.run(
+        prog.main, feed=feeds[-1], fetch_list=prog.fetch, scope=scope))
+    test_feed = prog.test_feed(np.random.RandomState(1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dets, m_ap = exe.run(prog.test, feed=test_feed,
+                         fetch_list=prog.test_fetch, scope=scope)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    test_entry = exe.last_entry
+    exe.close()
+    later = step_ms[1:]
+    res = {"model": model, "steps": DX_STEPS, "step_ms": step_ms,
+           "step_median_ms": statistics.median(later),
+           "step_spread_ms": [min(later), max(later)],
+           "host_s_per_step": host_s,
+           "host_s_median": {t: statistics.median(h[t] for h in host_s[1:])
+                             for t in prog.host_ops},
+           "host_calls_per_step": calls, "losses": losses,
+           "profiled_step": {"wall_us": wall, "device_busy_us": busy,
+                             "device_busy_share": busy / wall,
+                             "kernels": kernels},
+           "peak_mem_bytes": peak, "eval_ms": eval_ms,
+           "eval_detections": int(dets.shape[0]), "mAP": float(m_ap[0]),
+           "train_mode": train_entry.mode,
+           "train_reason": train_entry.reason,
+           "eval_mode": test_entry.mode, "eval_reason": test_entry.reason,
+           "nondeterminism_warnings": warned}
+    del state, scope
+    torch.cuda.empty_cache()
+    return res
+
+
+def dx_check_train(res, leg):
+    check(all(math.isfinite(x) for step in res["losses"] for x in step),
+          "detection pipeline %s: losses %s" % (leg, res["losses"]))
+    check(res["train_mode"] == "eager" and res["eval_mode"] == "eager",
+          "detection pipeline %s: modes %s %s" % (leg, res["train_mode"],
+                                                  res["eval_mode"]))
+    check(not res["nondeterminism_warnings"],
+          "detection pipeline %s: nondeterminism warnings %s"
+          % (leg, res["nondeterminism_warnings"]))
+    check(0.0 <= res["mAP"] <= 1.0, "detection pipeline %s: mAP %r"
+          % (leg, res["mAP"]))
+
+
+def dx_leg_a(torch, fluid, dp):
+    """Leg a: Mask R-CNN R50-FPN at 800 x 1344."""
+    t0 = time.perf_counter()
+    prog = dp.mask_rcnn_fpn(fluid, **dp.MASK_RCNN_FULL)
+    build_s = time.perf_counter() - t0
+    res = dict(dx_train_eval(torch, fluid, prog, "mask_rcnn_r50_fpn"),
+               leg="a", build_s=build_s, widths=dict(dp.MASK_RCNN_FULL))
+    emit({"phase": "detection_pipeline_leg", **res})
+    dx_check_train(res, "a")
+    check(res["host_calls_per_step"].get("generate_proposals") == 5,
+          "detection pipeline a: generate_proposals calls %s"
+          % res["host_calls_per_step"])
+    return res
+
+
+def dx_leg_b(torch, fluid, dp):
+    """Leg b: SSD MobileNet-v1 at 300."""
+    t0 = time.perf_counter()
+    prog = dp.ssd_mobilenet_v1(fluid, **dp.SSD_FULL)
+    build_s = time.perf_counter() - t0
+    res = dict(dx_train_eval(torch, fluid, prog, "ssd_mobilenet_v1"),
+               leg="b", build_s=build_s, priors=1917,
+               widths=dict(dp.SSD_FULL))
+    emit({"phase": "detection_pipeline_leg", **res})
+    dx_check_train(res, "b")
+    return res
+
+
+def dx_tiny(torch, fluid, dp, dx, model, builder, size):
+    """One tiny program's first step on the card and on the CPU from one
+    state: losses and gradients within DET_TOL, the input-exact host
+    ops' outputs the recorded ones."""
+    import numpy as np
+
+    prog = builder(fluid, **size)
+    grads = dp.DET_GRADS[model] + ([dp.SSD_DEEP[0]] if model == "ssd"
+                                   else [])
+    host = [op for op in prog.main.global_block().ops
+            if op.type in prog.host_ops]
+    recorded = {t: d for (m, t), d in dp.HOST_OUTPUT_DIGESTS.items()
+                if m == model}
+    outs = [(op.type, s, n) for op in host if op.type in recorded
+            for s, ns in sorted(op.output_names.items()) for n in ns]
+    fetch = prog.fetch + [g + "@GRAD" for g in grads] + [n for _, _, n
+                                                        in outs]
+    state = book_state(fluid, prog)
+    feed = prog.feed(np.random.RandomState(0))
+    exe, scope = fluid.Executor(), fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v.clone())
+    card = exe.run(prog.main, feed=feed, fetch_list=fetch, scope=scope)
+    exe.close()
+    cpu = book_cpu_run(torch, fluid, prog, state, [feed], fetch)[0]
+    k = len(prog.fetch)
+    loss_tol = dp.DET_TOL["mask_loss" if model == "mask_rcnn"
+                          else "ssd_loss"]
+    grad_tol = dp.DET_TOL["mask_grads" if model == "mask_rcnn"
+                          else "ssd_grads"]
+    loss_err = max(abs(float(a.reshape(-1)[0]) / float(b.reshape(-1)[0])
+                       - 1) for a, b in zip(card[:k], cpu[:k]))
+    grad_err = {}
+    for i, g in enumerate(grads):
+        a, b = card[k + i], cpu[k + i]
+        grad_err[g] = float(np.abs(a - b).max()
+                            / max(np.abs(b).max(), 1e-30))
+    bad_grads = {g: e for g, e in grad_err.items()
+                 if e > (dp.SSD_DEEP[1] if g == dp.SSD_DEEP[0]
+                         else grad_tol)}
+    got = {}
+    for (t, s, _), v in zip(outs, card[k + len(grads):]):
+        if s in recorded[t]:
+            got.setdefault(t, {}).setdefault(s, []).append(
+                dx.digest(dx.canon(v)))
+    res = {"program": model, "loss_rel_err": loss_err,
+           "grad_rel_err": grad_err, "bad_grads": bad_grads,
+           "recorded_host_ops": sorted(recorded),
+           "host_equal_recorded": got == recorded,
+           "ok": loss_err <= loss_tol and not bad_grads
+           and got == recorded}
+    return res
+
+
+def dx_leg_c(torch, fluid, dp, dx):
+    """Leg c: the tiny Mask R-CNN and SSD, card against CPU."""
+    out = {"mask_rcnn": dx_tiny(torch, fluid, dp, dx, "mask_rcnn",
+                                dp.mask_rcnn_fpn, dp.TINY_MASK_RCNN),
+           "ssd": dx_tiny(torch, fluid, dp, dx, "ssd",
+                          dp.ssd_mobilenet_v1, dp.TINY_SSD)}
+    res = {"leg": "c", **out, "tol": dict(dp.DET_TOL)}
+    emit({"phase": "detection_pipeline_leg", **res})
+    bad = [k for k, v in out.items() if not v["ok"]]
+    check(not bad, "detection pipeline c: %s" % {k: out[k] for k in bad})
+    return res
+
+
+def dx_leg_d(torch, fluid, cr, dx):
+    """Leg d: every case of tests/torch_det_extra_cases.py (its random
+    cases at one seed) card against CPU; the capturable ones captured,
+    one replay bit-equal to eager; the gathering types twice, bit-equal;
+    each host case as a one-op program whose outputs are the reference's
+    recorded ones (`HOST_DIGESTS`)."""
+    from paddle_tpu_torch.core.place import resolve_device
+    from paddle_tpu_torch.core.types import to_numpy
+    from paddle_tpu_torch.ops import registry
+
+    dev = resolve_device(None)
+    worst, bad, captured, repeated, host = 0.0, [], 0, 0, {}
+    table = dict(dx.CASES, **{n: c + ([],) for n, c in
+                              dx.RANDOM_CASES.items()})
+    for name in sorted(table):
+        op, _, attrs, diff, _ = table[name]
+        ins = dx.inputs(name)
+        got = cr.run_case(op, ins, attrs, dev, diff, seed=7)
+        _, err, faults = cr.compare(
+            got, cr.run_case(op, ins, attrs, "cpu", diff, seed=7),
+            DX_D_RTOL)
+        worst = max(worst, err)
+        bad += [(name,) + f for f in faults]
+        if op in DX_D_REPEAT:
+            repeated += 1
+            bad += [(name, "repeat") + f for f in cr.compare(
+                cr.run_case(op, ins, attrs, dev, diff, seed=7), got,
+                0.0)[2]]
+        if cr.capturable(op):
+            try:
+                graph = cr.capture_case(op, ins, attrs, dev, diff, seed=7)
+            except RuntimeError as e:
+                bad.append((name, "capture", str(e).splitlines()[0][:200]))
+            else:
+                captured += 1
+                bad += [(name, "captured") + f
+                        for f in cr.compare(graph, got, 0.0)[2]]
+            continue
+        block = seq_host_case(fluid, cr, dx, name, fluid.Executor())
+        outs = registry.normalize_outs(registry.get_op(op).compute(
+            {s: [torch.tensor(a).to(dev) for a in v]
+             for s, v in ins.items()}, dict(attrs, _device=dev)))
+        digests = {s: [dx.digest(dx.canon(to_numpy(t))) for t in v]
+                   for s, v in outs.items()}
+        host[name] = {"mode": block["mode"], "ok": block["ok"],
+                      "recorded": digests == dx.HOST_DIGESTS[name]}
+        if not (block["ok"] and host[name]["recorded"]):
+            bad.append((name, "host", host[name], block["reason"]))
+    res = {"leg": "d", "cases": len(table),
+           "types": len({c[0] for c in table.values()}),
+           "captured_cases": captured, "repeated_cases": repeated,
+           "host_cases": sorted(host), "max_rel_err": worst,
+           "tol": "%g x (1 + max |value|); integers exact; captured and "
+           "repeats bit-equal; host outputs the reference's recorded ones"
+           % DX_D_RTOL, "failures": bad[:10]}
+    emit({"phase": "detection_pipeline_leg", **res})
+    check(not bad, "detection pipeline d: %s" % bad[:10])
+    return res
+
+
+def phase_det_extra(torch, name):
+    """Phase 22: the detection pipeline on the card, with
+    ``FLAGS_cudnn_deterministic`` on."""
+    from paddle_tpu_torch import fluid
+
+    dp, cr, dx = tests_modules("torch_detection_programs",
+                               "torch_case_runner", "torch_det_extra_cases")
+    t0 = time.perf_counter()
+    before = fluid.get_flags("FLAGS_cudnn_deterministic")
+    os.environ["FLAGS_cudnn_deterministic"] = "1"
+    fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        res = {"leg_a": dx_leg_a(torch, fluid, dp),
+               "leg_b": dx_leg_b(torch, fluid, dp),
+               "leg_c": dx_leg_c(torch, fluid, dp, dx),
+               "leg_d": dx_leg_d(torch, fluid, cr, dx)}
+    finally:
+        fluid.set_flags(before)
+        os.environ.pop("FLAGS_cudnn_deterministic", None)
+    a, b = res["leg_a"], res["leg_b"]
+    emit({"phase": "detection_pipeline", "device": name,
+          "nvidia_smi": nvidia_smi_line(),
+          "mask_rcnn_step_median_ms": a["step_median_ms"],
+          "mask_rcnn_step_spread_ms": a["step_spread_ms"],
+          "mask_rcnn_host_s_median": a["host_s_median"],
+          "mask_rcnn_busy_share":
+              a["profiled_step"]["device_busy_share"],
+          "mask_rcnn_kernels": a["profiled_step"]["kernels"],
+          "mask_rcnn_peak_mem_bytes": a["peak_mem_bytes"],
+          "mask_rcnn_eval_ms": a["eval_ms"],
+          "ssd_step_median_ms": b["step_median_ms"],
+          "ssd_step_spread_ms": b["step_spread_ms"],
+          "ssd_host_s_median": b["host_s_median"],
+          "ssd_busy_share": b["profiled_step"]["device_busy_share"],
+          "ssd_kernels": b["profiled_step"]["kernels"],
+          "ssd_peak_mem_bytes": b["peak_mem_bytes"],
+          "ssd_eval_ms": b["eval_ms"],
           "seconds": time.perf_counter() - t0})
     return res
 
@@ -6338,6 +6679,7 @@ def main():
     phase_book(torch, name)
     phase_sequences(torch, name)
     phase_detection(torch, name)
+    phase_det_extra(torch, name)
 
     float_err = max(cases[n]["max_abs_err"] for n in cases
                     if "int8" not in n)

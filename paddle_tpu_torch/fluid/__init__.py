@@ -27,7 +27,7 @@ from ..core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from ..core.lod import (  # noqa: F401
     LoDTensor, create_lod_tensor, create_random_int_lodtensor,
 )
-from .executor import Executor  # noqa: F401
+from .executor import Executor, LazyFetch  # noqa: F401
 from .compiler import (  # noqa: F401
     CompiledProgram, BuildStrategy, ExecutionStrategy,
 )

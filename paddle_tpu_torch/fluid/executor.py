@@ -15,8 +15,9 @@ the new values. A block the capture analysis declines (host control
 flow, an initializer), every block on the CPU and every block with
 `FLAGS_cuda_graphs` off run eagerly, op by op; `last_entry` and
 `compiled_blocks` say which and why. Fetches come back as numpy arrays,
-or as tensors on the device (clones of a graph's outputs, which the next
-replay rewrites). `warmup` captures shape buckets ahead of traffic on
+or with ``return_numpy=False`` as `LazyFetch` handles of tensors on the
+device (of clones of a graph's outputs, which the next replay
+rewrites). `warmup` captures shape buckets ahead of traffic on
 copies of the state, or in the background runs a discarded step of each
 on copies (the build of the `csrc` kernels, cuBLAS's handles and cuDNN's
 algorithm choices).
@@ -79,6 +80,53 @@ from ..core.types import from_numpy, to_numpy, to_numpy_dtype, \
 from ..utils.flags import get_flag
 
 
+class LazyFetch:
+    """A fetch left on the device (`Executor.run(...,
+    return_numpy=False)`; counterpart: the reference's `LazyFetch`): the
+    host does not wait for the step that made it. `.value` is the torch
+    tensor; `.numpy()`, `np.asarray` and `float` copy it to the host
+    (through `Executor._fetch_to_numpy`, so a CUDA or bfloat16 tensor
+    works); `.block_until_ready()` waits for its device's current stream
+    without copying. The reference also counts each materialization into
+    its profiler's `sync` step phase; the port's profiler is not ported
+    yet (ROADMAP Queue 1 #10), so nothing is counted here."""
+
+    __slots__ = ("_v",)
+
+    def __init__(self, v):
+        self._v = v
+
+    @property
+    def value(self):
+        return self._v
+
+    @property
+    def shape(self):
+        return tuple(self._v.shape)
+
+    @property
+    def dtype(self):
+        return self._v.dtype
+
+    def block_until_ready(self):
+        if self._v.is_cuda:
+            torch.cuda.current_stream(self._v.device).synchronize()
+        return self
+
+    def numpy(self):
+        return Executor._fetch_to_numpy(self._v)
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a.astype(dtype) if dtype is not None else a
+
+    def __float__(self):
+        return float(self.numpy().reshape(-1)[0])
+
+    def __repr__(self):
+        return "LazyFetch(shape=%s, dtype=%s)" % (self.shape, self.dtype)
+
+
 class Executor:
     def __init__(self, place=None, graph_runner=None):
         """`place`: ``None`` or ``CUDAPlace(i)`` runs on the card (and
@@ -104,8 +152,8 @@ class Executor:
             return_numpy=True, use_program_cache=True):
         """One step: run `program`'s global block with `feed`, update the
         scope's persistables, and return the `fetch_list` values (numpy
-        arrays, or detached tensors on the device with
-        ``return_numpy=False``). `use_program_cache=False` compiles a
+        arrays, or with ``return_numpy=False`` `LazyFetch` handles of
+        tensors on the device). `use_program_cache=False` compiles a
         fresh entry for this run alone (so it runs eagerly)."""
         return self._run_impl(program, feed, fetch_list, scope,
                               return_numpy, use_program_cache)
@@ -148,8 +196,8 @@ class Executor:
             return [self._fetch_to_numpy(v) for v in fetches]
         if entry.mode == "graph":
             # the next replay rewrites the graph's outputs
-            return [v.clone() for v in fetches]
-        return fetches
+            fetches = [v.clone() for v in fetches]
+        return [LazyFetch(v) for v in fetches]
 
     def compiled_blocks(self) -> list:
         """`CompiledBlock.info()` of every cached entry, oldest first."""

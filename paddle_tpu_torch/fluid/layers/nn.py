@@ -19,8 +19,11 @@ module defines but `fluid.layers` does not export; for the book slice
 unexported `adaptive_pool2d`; for the sequence slice `sequence_pool`,
 `sequence_softmax`, `sequence_mask`, `sequence_expand`,
 `sequence_reshape` and `sequence_reverse` (padded [B, T, ...] inputs,
-with an optional `length` var where the reference takes one). Each
-builder
+with an optional `length` var where the reference takes one); and
+`image_resize` with its alias `resize_nearest`, which emit
+`interp_nearest` with `out_h` and `out_w` as the reference's do (a
+`scale` multiplies H and W and `int()` truncates; no `align_corners`).
+Each builder
 creates its params through LayerHelper (init ops go to the startup
 program) and appends its compute op."""
 from __future__ import annotations
@@ -50,7 +53,8 @@ __all__ = ["fc", "embedding", "conv2d", "conv2d_transpose", "pool2d",
            "clip_by_norm", "l2_normalize", "mul", "pad", "pad2d",
            "unstack", "expand_as", "gather_nd", "strided_slice", "flatten",
            "sequence_pool", "sequence_softmax", "sequence_mask",
-           "sequence_expand", "sequence_reshape", "sequence_reverse"]
+           "sequence_expand", "sequence_reshape", "sequence_reverse",
+           "image_resize", "resize_nearest"]
 
 
 def _single(op_type, inputs, attrs, dtype=None, helper=None):
@@ -691,3 +695,18 @@ def sequence_reverse(x, name=None, length=None):
     return apply_op("sequence_reverse", "sequence_reverse",
                     _with_length({"X": [x]}, length), {}, ["Y"],
                     out_dtype=x.dtype)[0]
+
+
+def image_resize(input, out_shape=None, scale=None, resample="NEAREST",
+                 name=None):
+    """Nearest resize to `out_shape` (h, w), or to H and W times `scale`
+    truncated by `int()`; `resample` is ignored, as in the reference."""
+    if out_shape is None:
+        h, w = input.shape[2] * scale, input.shape[3] * scale
+    else:
+        h, w = out_shape
+    return _single("interp_nearest", {"X": [input]},
+                   {"out_h": int(h), "out_w": int(w)}, dtype=input.dtype)
+
+
+resize_nearest = image_resize

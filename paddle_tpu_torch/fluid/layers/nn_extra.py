@@ -8,13 +8,17 @@ builder), `row_conv`, `fsp_matrix`, `im2sequence`, `spectral_norm`,
 framework ops); and the activations `selu`, `softshrink`, `hard_shrink`,
 `tanh_shrink`, `brelu`, `soft_relu`, `thresholded_relu`, with
 `pad_constant_like`, `shard_index`, `uniform_random_batch_size_like`
-and `sampling_id`; and the interpolation functions `interpolate`,
+and `sampling_id`; the interpolation functions `interpolate`,
 `resize_bilinear`, `resize_trilinear`, `resize_linear`, `resize_bicubic`
-and `image_resize_short` (the `*_interp` types; `resize_nearest` and
-`image_resize` stay in `nn.py`, emitting `interp_nearest` as the
-reference's do). Its functions that emit later groups' types (`nce`,
-`hsigmoid`, `warpctc`, `linear_chain_crf`, `deformable_conv`, `unpool`,
-...) are not ported yet (ROADMAP Queue 1 #5)."""
+and `image_resize_short` (the `*_interp` types; `image_resize` and
+`resize_nearest` are in `nn.py`, emitting `interp_nearest` as the
+reference's do); and for the detection slice `deformable_conv`,
+`unpool`, `hsigmoid`, `sampled_softmax_with_cross_entropy`,
+`add_position_encoding`, `random_crop` and `similarity_focus`. The
+reference's functions that emit `specialty_ops`' other types (`nce`,
+`warpctc`, `linear_chain_crf`, `crf_decoding`, `hash`,
+`continuous_value_model` and `filter_by_instag`) are not ported yet
+(ROADMAP Queue 1 #5)."""
 from __future__ import annotations
 
 import numpy as np
@@ -37,7 +41,9 @@ __all__ = [
     "sigmoid_focal_loss", "cos_sim", "spectral_norm", "multiplex",
     "py_func", "selu", "softshrink", "hard_shrink", "tanh_shrink", "brelu",
     "soft_relu", "thresholded_relu", "pad_constant_like", "shard_index",
-    "uniform_random_batch_size_like", "sampling_id",
+    "uniform_random_batch_size_like", "sampling_id", "deformable_conv",
+    "unpool", "hsigmoid", "sampled_softmax_with_cross_entropy",
+    "add_position_encoding", "random_crop", "similarity_focus",
 ]
 
 
@@ -50,7 +56,7 @@ def _n(v, n):
     return [v] * n if isinstance(v, int) else list(v)
 
 
-# -- interpolation -------------------------------------------------------------
+# -- interpolation ------------------------------------------------------------
 
 _RESAMPLE_OP = {"NEAREST": "nearest_interp", "BILINEAR": "bilinear_interp",
                 "TRILINEAR": "trilinear_interp", "BICUBIC": "bicubic_interp",
@@ -573,3 +579,91 @@ def uniform_random_batch_size_like(input, shape, dtype="float32",
 def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
     return _one("sampling_id", {"X": [x]},
                 {"min": min, "max": max, "seed": seed}, dtype="int64")
+
+
+# -- the detection slice's builders -------------------------------------------
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,
+                    stride=1, padding=0, dilation=1, groups=None,
+                    deformable_groups=None, im2col_step=None,
+                    param_attr=None, bias_attr=None,
+                    modulated=True, name=None):
+    """`deformable_conv` (modulated, with `mask`) or
+    `deformable_conv_v1`; the filter [num_filters, C / groups, kh, kw]
+    is a parameter, and no bias is added, as in the reference."""
+    helper = LayerHelper("deformable_conv", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    groups = groups or 1
+    w = helper.create_parameter(
+        helper.param_attr,
+        shape=[num_filters, input.shape[1] // groups] + _n(filter_size, 2),
+        dtype=input.dtype)
+    op = "deformable_conv" if modulated else "deformable_conv_v1"
+    ins = {"Input": [input], "Offset": [offset], "Filter": [w]}
+    if modulated and mask is not None:
+        ins["Mask"] = [mask]
+    return apply_op(helper, op, ins,
+                    {"strides": _n(stride, 2), "paddings": _n(padding, 2),
+                     "dilations": _n(dilation, 2), "groups": groups,
+                     "deformable_groups": deformable_groups or 1},
+                    ["Output"], out_dtype=input.dtype)[0]
+
+
+def unpool(input, indices, unpool_size=None, name=None):
+    oh, ow = unpool_size if unpool_size else (
+        input.shape[2] * 2, input.shape[3] * 2)
+    return _one("unpool", {"X": [input], "Indices": [indices]},
+                {"unpooled_height": oh, "unpooled_width": ow})
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    return _one("add_position_encoding", {"X": [input]},
+                {"alpha": alpha, "beta": beta})
+
+
+def similarity_focus(input, axis, indexes, name=None):
+    return _one("similarity_focus", {"X": [input]},
+                {"axis": axis, "indexes": list(indexes)})
+
+
+def random_crop(x, shape, seed=None):
+    return _one("random_crop", {"X": [x]}, {"shape": list(shape)})
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1,
+                                       remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    """The loss [N, 1]; as in the reference, the customized samples are
+    not bound (the op draws its own)."""
+    outs = apply_op("sampled_softmax_with_cross_entropy",
+                    "sampled_softmax_with_cross_entropy",
+                    {"Logits": [logits], "Label": [label]},
+                    {"num_samples": num_samples,
+                     "remove_accidental_hits": remove_accidental_hits,
+                     "seed": seed}, ["Loss", "Softmax"])
+    return outs[0]
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, path_table=None, path_code=None, is_custom=False,
+             is_sparse=False):
+    """Hierarchical sigmoid over the default complete tree; W
+    [num_classes - 1, D] and the bias [num_classes - 1] are parameters."""
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dtype = input.dtype
+    w = helper.create_parameter(helper.param_attr,
+                                shape=[num_classes - 1, input.shape[-1]],
+                                dtype=dtype)
+    b = helper.create_parameter(helper.bias_attr,
+                                shape=[num_classes - 1], dtype=dtype,
+                                is_bias=True)
+    return apply_op(helper, "hsigmoid",
+                    {"X": [input], "W": [w], "Label": [label],
+                     "Bias": [b]},
+                    {"num_classes": num_classes}, ["Out", "PreOut"],
+                    out_dtype=dtype)[0]

@@ -66,7 +66,7 @@ def train_from_dataset(executor, program, dataset, scope=None,
                                    return_numpy=False)
             if print_period and fetch_list and it % print_period == 0:
                 print("step %d: %s" % (it, [
-                    float(np.ravel(v.detach().float().cpu().numpy())[0])
+                    float(np.ravel(v.value.detach().float().cpu().numpy())[0])
                     for v in results]))
             if (ckpt is not None and checkpoint_every_n_steps
                     and it % checkpoint_every_n_steps == 0):
@@ -91,5 +91,5 @@ def train_from_dataset(executor, program, dataset, scope=None,
     if results is not None:
         from ..core.types import to_numpy
 
-        return [to_numpy(v) for v in results]
+        return [to_numpy(v.value) for v in results]
     return None

@@ -28,3 +28,5 @@ from . import framework_ops  # noqa: F401
 from . import interp_ops  # noqa: F401
 from . import quant_ops  # noqa: F401
 from . import detection_ops  # noqa: F401
+from . import vision_extra_ops  # noqa: F401
+from . import detection_extra_ops  # noqa: F401

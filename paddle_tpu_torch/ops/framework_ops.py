@@ -342,5 +342,5 @@ def _run_program(ins, attrs):
                        return_numpy=False)
     finally:
         exe.close()
-    return {"Out": list(outs)}
+    return {"Out": [f.value for f in outs]}
 

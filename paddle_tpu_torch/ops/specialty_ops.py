@@ -2,8 +2,15 @@
 
 Ported so far: `sync_batch_norm` (`:515`), the batch norm whose moments
 are averaged over the data-parallel ring (reference:
-sync_batch_norm_op.cu, ncclAllReduce of the moments), and `yolov3_loss`
-(`:415`), YOLOv3's training loss, vectorized as in the reference.
+sync_batch_norm_op.cu, ncclAllReduce of the moments), `yolov3_loss`
+(`:415`), YOLOv3's training loss, vectorized as in the reference, and
+`sample_logits` (`:138`), sampled softmax's preparation. Its log-uniform
+negatives are drawn from the op's device seed through `keep_hash`, as the
+other samplers draw (`rng_ops.py`; their stream differs from JAX's by
+design, ROADMAP "Differences by design" 14); `CustomizedSamples` and
+`CustomizedProbabilities` take the draw's place, and the outputs are then
+the reference's. The logits are gathered through one flat index, so
+their gradient is summed in a fixed order.
 """
 from __future__ import annotations
 
@@ -12,7 +19,11 @@ import torch
 from . import collective_ops
 from .interp_ops import consts, f32, take
 from .registry import get_op, register_op
+from .rng_ops import device_uniform
+from ..core.types import to_torch_dtype
 from ..parallel import env as penv
+
+_NEG = -1e30
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -215,3 +226,63 @@ def _yolov3_loss(ins, attrs):
     return {"Loss": loc_loss + cls_loss + obj_loss,
             "ObjectnessMask": obj_mask,
             "GTMatchMask": gt_match.to(torch.int32)}
+
+
+# -- candidate sampling -------------------------------------------------------
+
+def _log32(v, device):
+    """log(v) of a Python number rounded to float32, in float32 (as JAX
+    takes the log of a weakly typed scalar)."""
+    return torch.log(torch.full((), f32(v), dtype=torch.float32,
+                                device=device))
+
+
+def log_uniform_sample(seed_t, num_samples, vocab, device):
+    """`num_samples` log-uniform (Zipf) draws over [0, vocab) and their
+    probabilities P(k) = log((k + 2) / (k + 1)) / log(vocab + 1), by
+    inverting the CDF at uniforms drawn from the op seed (reference:
+    math/sample_prob.h LogUniformSampler)."""
+    u = device_uniform(seed_t, (num_samples,))
+    log_range = _log32(vocab + 1.0, device)
+    samples = torch.clamp(torch.floor(torch.exp(u * log_range) - 1.0),
+                          0, vocab - 1).to(to_torch_dtype("int64"))
+    probs = torch.log((samples + 2.0) / (samples + 1.0)) / log_range
+    return samples, probs
+
+
+@register_op("sample_logits", rng="device")
+def _sample_logits(ins, attrs):
+    """Per row, the true labels' logits and `num_samples` shared
+    log-uniform negatives, each less log(Q * num_samples); with
+    `remove_accidental_hits` a negative equal to one of the row's labels
+    gets -1e30 added."""
+    logits, labels = ins["Logits"][0], ins["Labels"][0]
+    n, vocab = logits.shape
+    nt = labels.shape[1]
+    num_samples = int(attrs.get("num_samples", 1))
+    dev = logits.device
+    if ins.get("CustomizedSamples"):
+        samples = ins["CustomizedSamples"][0]
+        probs = ins["CustomizedProbabilities"][0]
+    else:
+        neg, negp = log_uniform_sample(attrs["_rng_seed"], num_samples,
+                                       vocab, dev)
+        itype = to_torch_dtype("int64")
+        samples = torch.cat([labels.to(itype),
+                             neg.expand(n, num_samples)], 1)
+        tp = torch.log((labels + 2.0) / (labels + 1.0)) \
+            / _log32(vocab + 1.0, dev)
+        probs = torch.cat([tp, negp.expand(n, num_samples)], 1)
+    rows = torch.arange(n, device=dev)[:, None] * vocab
+    flat = (rows + samples.to(torch.int64)).reshape(-1)
+    picked = take(logits.reshape(-1), flat, 0).reshape(samples.shape)
+    sampled = picked - torch.log(probs * num_samples + f32(1e-20))
+    if attrs.get("remove_accidental_hits", True):
+        hit = (samples[:, nt:, None] == samples[:, None, :nt]).any(-1)
+        sampled = torch.cat([sampled[:, :nt], sampled[:, nt:] + torch.where(
+            hit, torch.full((), _NEG, dtype=sampled.dtype, device=dev),
+            torch.zeros((), dtype=sampled.dtype, device=dev))], 1)
+    labels_out = torch.arange(nt, device=dev).expand(n, nt)
+    return {"Samples": samples, "Probabilities": probs,
+            "SampledLogits": sampled,
+            "SampledLabels": labels_out.to(to_torch_dtype("int64"))}

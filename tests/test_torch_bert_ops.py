@@ -33,6 +33,7 @@ from paddle_tpu_torch.ops import registry as treg
 from torch_nn_cases import CASES as NN_CASES
 from torch_seq_cases import CASES as SEQ_CASES
 from torch_det_quant_cases import CASES as DET_CASES
+from torch_det_extra_cases import CASES as DX_CASES, RANDOM_CASES as DX_RANDOM
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -280,6 +281,11 @@ SEQ_SLICE_OPS = {c[0] for c in SEQ_CASES.values()} | {"run_program"}
 #: tests/torch_det_quant_cases.py (`interp_ops.py`, `quant_ops.py`,
 #: `detection_ops.py` and `specialty_ops.py`'s `yolov3_loss`)
 DET_SLICE_OPS = {c[0] for c in DET_CASES.values()}
+#: the detection pipeline slice's op types, every one a case of
+#: tests/torch_det_extra_cases.py (`detection_extra_ops.py`,
+#: `vision_extra_ops.py` and `specialty_ops.py`'s `sample_logits`)
+DX_SLICE_OPS = {c[0] for c in list(DX_CASES.values())
+                + list(DX_RANDOM.values())}
 
 
 def test_cases_cover_the_registry():
@@ -288,13 +294,18 @@ def test_cases_cover_the_registry():
     tests/test_torch_transformer_ops.py, tests/test_torch_tensor_ops.py,
     tests/test_torch_collective_ops.py, tests/test_torch_math_ops.py, or
     the book slice's files (the cases of tests/torch_nn_cases.py), the
-    sequence slice's (the cases of tests/torch_seq_cases.py), or the
-    detection and quantization slice's (tests/torch_det_quant_cases.py)."""
+    sequence slice's (the cases of tests/torch_seq_cases.py), the
+    detection and quantization slice's (tests/torch_det_quant_cases.py),
+    or the detection pipeline slice's (tests/torch_det_extra_cases.py)."""
     types = {c[0] for c in CASES.values()} | set(RNG_OPS)
     assert types | FLUID_SLICE_OPS | RESNET_SLICE_OPS \
         | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS \
         | TENSOR_SLICE_OPS | BOOK_SLICE_OPS | SEQ_SLICE_OPS \
-        | DET_SLICE_OPS == set(treg.registered_ops())
+        | DET_SLICE_OPS | DX_SLICE_OPS == set(treg.registered_ops())
+    assert len(DX_SLICE_OPS) == 31 and not (
+        types | FLUID_SLICE_OPS | RESNET_SLICE_OPS | TRANSFORMER_SLICE_OPS
+        | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS | TENSOR_SLICE_OPS
+        | BOOK_SLICE_OPS | SEQ_SLICE_OPS | DET_SLICE_OPS) & DX_SLICE_OPS
     assert len(DET_SLICE_OPS) == 30 and not (
         types | FLUID_SLICE_OPS | RESNET_SLICE_OPS | TRANSFORMER_SLICE_OPS
         | COLLECTIVE_SLICE_OPS | AMP_SLICE_OPS | TENSOR_SLICE_OPS
@@ -316,7 +327,7 @@ def test_cases_cover_the_registry():
                 | AMP_SLICE_OPS) & TENSOR_SLICE_OPS
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS | COLLECTIVE_SLICE_OPS) \
-        & AMP_SLICE_OPS and len(treg.registered_ops()) == 441
+        & AMP_SLICE_OPS and len(treg.registered_ops()) == 472
     assert not (types | FLUID_SLICE_OPS | RESNET_SLICE_OPS
                 | TRANSFORMER_SLICE_OPS) & COLLECTIVE_SLICE_OPS \
         and len(COLLECTIVE_SLICE_OPS) == 19

@@ -113,10 +113,10 @@ def yolo():
     first = [n for n in first] + [
         op.input_names["X"][0] for op in ref.main.global_block().ops
         if op.type == "yolov3_loss"]
-    want = _steps(rexe, ref.main, feeds[:1], [ref.loss] + first, rscope)
-    want += _steps(rexe, ref.main, feeds[1:], [ref.loss], rscope)
-    got = _steps(texe, port.main, feeds[:1], [port.loss] + first, tscope)
-    got += _steps(texe, port.main, feeds[1:], [port.loss], tscope)
+    # every step fetches `first` beside the loss: one fetch list, one
+    # compile of the reference's step
+    want = _steps(rexe, ref.main, feeds, [ref.loss] + first, rscope)
+    got = _steps(texe, port.main, feeds, [port.loss] + first, tscope)
     return ref, port, (rexe, rscope, texe, tscope), want, got
 
 
@@ -197,10 +197,8 @@ def qat():
     start = {n: np.asarray(rscope.find_var(n)).copy()
              for n in _persistables(ref.main)}
     first = ["image.quantized"]
-    want = _steps(rexe, ref.main, feeds[:1], [ref.loss] + first, rscope)
-    want += _steps(rexe, ref.main, feeds[1:], [ref.loss], rscope)
-    got = _steps(texe, port.main, feeds[:1], [port.loss] + first, tscope)
-    got += _steps(texe, port.main, feeds[1:], [port.loss], tscope)
+    want = _steps(rexe, ref.main, feeds, [ref.loss] + first, rscope)
+    got = _steps(texe, port.main, feeds, [port.loss] + first, tscope)
     return ref, port, (rexe, rscope, texe, tscope), want, got, start, feeds
 
 

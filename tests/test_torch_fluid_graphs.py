@@ -302,8 +302,9 @@ def test_earlier_fetches_are_not_overwritten():
     exe = fluid.Executor(fluid.CPUPlace(), graph_runner=runner)
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    got = [exe.run(main, feed=f, fetch_list=[loss, "fc_0.w_0"],
-                   scope=scope, return_numpy=False)
+    got = [[v.value for v in exe.run(main, feed=f,
+                                     fetch_list=[loss, "fc_0.w_0"],
+                                     scope=scope, return_numpy=False)]
            for f in _mnist_feeds(4)]
     assert exe.last_entry.info()["phase"] == "captured"
     kept = [[t.clone() for t in step] for step in got]

@@ -310,3 +310,37 @@ def test_op_error_names_its_creation_site(rng):
     with pytest.raises(RuntimeError, match=r"(?s)\[operator mul error\]"
                        r".*test_torch_fluid_mnist.py:\d+ in build_mlp"):
         exe.run(feed=feed, fetch_list=[avg_loss])
+
+
+def test_return_numpy_false_gives_lazy_fetches(rng):
+    """`Executor.run(return_numpy=False)` returns `LazyFetch` handles in
+    both packages (`fluid.LazyFetch`): `.numpy()`, `np.asarray` and
+    `float` materialize them to what `return_numpy=True` gives, `.value`
+    is the torch tensor and `.shape`, `.dtype` and
+    `.block_until_ready()` work, over 3 SGD steps of the MLP."""
+    ravg, racc = build_mlp(rfluid)
+    _optimizer(rfluid, "sgd").minimize(ravg)
+    tavg, tacc = build_mlp(tfluid)
+    _optimizer(tfluid, "sgd").minimize(tavg)
+    rfluid.default_startup_program().random_seed = 1
+    rexe, texe, _ = _transplant()
+    fetch = ACC_NAMES + ["fc_0.w_0"]
+    for feed in _batches(rng, 3):
+        r = rexe.run(rfluid.default_main_program(), feed=feed,
+                     fetch_list=[ravg, racc] + fetch, return_numpy=False)
+        t = texe.run(tfluid.default_main_program(), feed=feed,
+                     fetch_list=[tavg, tacc] + fetch, return_numpy=False)
+        assert all(isinstance(v, rfluid.LazyFetch) for v in r)
+        assert all(isinstance(v, tfluid.LazyFetch) for v in t)
+        for rv, tv in zip(r, t):
+            assert isinstance(tv.value, torch.Tensor)
+            assert tv.block_until_ready() is tv
+            assert tv.shape == rv.shape == tuple(tv.value.shape)
+            assert str(tv.dtype).replace("torch.", "") == str(rv.dtype)
+            for got, want in ((tv.numpy(), rv.numpy()),
+                              (np.asarray(tv), np.asarray(rv))):
+                assert got.dtype == want.dtype and got.shape == want.shape
+                np.testing.assert_allclose(got, want, rtol=1e-5,
+                                           atol=1e-7)
+            np.testing.assert_allclose(float(tv), float(rv), rtol=1e-5)
+        assert "LazyFetch(shape=(1,)" in repr(t[0])

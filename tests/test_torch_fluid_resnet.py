@@ -3,15 +3,17 @@ on the CPU) against the JAX package's: full depth (bottleneck blocks
 [3, 4, 6, 3], widths 64-2048), 32 x 32 images, batch 4, 10 classes,
 Momentum(3e-3, 0.9), `scan_stages` on and off.
 
-The reference's startup program runs once, for the unrolled program, and
-each residual branch's last BN scale (`*_branch2c_bn_scale`) is then set
-to 0, the zero-gamma start of Goyal et al. 2017 ("Accurate, Large
-Minibatch SGD", section 5.1). From the plain random start this model is
-chaotic under batch statistics: the gradients grow about 3e4-fold from
-the head to conv1, so a 1e-7 relative change of the input images moves
-the reference's own first-step gradients by 2% (median over the
-parameters) and its scanned and unrolled programs, the same math,
-differ by 1.7e-4 in the first loss and 26% in the second. No two
+The port's startup program runs once, for the unrolled program (the
+reference's would cost a compile of its initializers), its values go to
+both packages, and each residual branch's last BN scale
+(`*_branch2c_bn_scale`) is then set to 0, the zero-gamma start of Goyal
+et al. 2017 ("Accurate, Large Minibatch SGD", section 5.1). From the
+plain random start this model is chaotic under batch statistics: the
+gradients grow about 3e4-fold from the head to conv1, so a 1e-7
+relative change of the input images moves the reference's own
+first-step gradients by 2% (median over the parameters) and its
+scanned and unrolled programs, the same math, differ by 1.7e-4 in the
+first loss and 26% in the second. No two
 float32 implementations can agree to 1e-4 there; from the zero-gamma
 start the reference against itself stays within 1e-6 (loss) and 3e-5
 (gradients), and every op still runs and moves its state.
@@ -185,13 +187,15 @@ def reference():
     """name -> (program, start state, losses, first-step fetches,
     running statistics after the steps) of the JAX package's float32
     unrolled run (its gradients and statistics under the scanned
-    program's names, stacked) and its scanned AMP run."""
-    main_u, start_u, loss_u, grads_u = _build(rfluid, rmp, rresnet, False)
-    exe = rfluid.Executor(rfluid.CPUPlace())
-    scope = RScope()
-    exe.run(start_u, scope=scope)
-    vals = {v.name: np.asarray(scope.find_var(v.name))
-            for v in main_u.list_vars() if v.persistable}
+    program's names, stacked) and its scanned AMP run. The start state is
+    the port's startup program's values (the reference's startup would
+    cost a compile of its initializers) with zero-gamma."""
+    main_u, _, loss_u, grads_u = _build(rfluid, rmp, rresnet, False)
+    _, tstart, _, _ = _build(tfluid, tmp, tresnet, False)
+    tscope = tfluid.Scope()
+    tfluid.Executor(tfluid.CPUPlace()).run(tstart, scope=tscope)
+    vals = dump_numpy_state(tscope, sorted(
+        v.name for v in main_u.list_vars() if v.persistable))
     vals.update((n, np.zeros_like(v)) for n, v in vals.items()
                 if n.endswith("_branch2c_bn_scale"))
     losses, grads, rscope = _ref_run(main_u, loss_u, vals, grads_u)

@@ -352,3 +352,36 @@ def test_lookup_gradient_is_deterministic(dev):
     torch.testing.assert_close(grads[0][:128].float(), want, rtol=2e-2,
                                atol=2e-2)
     assert not grads[0][128:].any()
+
+
+def test_lazy_fetches_after_a_replay(dev, graphs_flag):
+    """`return_numpy=False` on the card gives `LazyFetch` handles, also
+    from a replay (of clones the next replay leaves alone): `.numpy()`,
+    `np.asarray` and `float` give what `return_numpy=True` gives, and
+    `.value` is the CUDA tensor."""
+    main, startup, loss = _mlp("sgd")
+    graphs_flag(True)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    r = np.random.RandomState(0)
+    feed = {"img": r.rand(32, 784).astype("float32"),
+            "label": r.randint(0, 10, (32, 1)).astype("int64")}
+    names = sorted(v.name for v in main.list_vars() if v.persistable)
+    state = dump_numpy_state(scope, names)
+    counter = main._seed_counter
+    lazy = [exe.run(main, feed=feed, fetch_list=[loss, "fc_0.w_0"],
+                    scope=scope, return_numpy=False) for _ in range(4)]
+    assert exe.last_entry.info()["phase"] == "captured"
+    load_numpy_state(scope, state)
+    main._seed_counter = counter
+    plain = [exe.run(main, feed=feed, fetch_list=[loss, "fc_0.w_0"],
+                     scope=scope) for _ in range(4)]
+    exe.close()
+    for step, want in zip(lazy, plain):
+        for f, w in zip(step, want):
+            assert isinstance(f, fluid.LazyFetch) and f.value.is_cuda
+            assert f.block_until_ready() is f and f.shape == w.shape
+            np.testing.assert_array_equal(f.numpy(), w)
+            np.testing.assert_array_equal(np.asarray(f), w)
+        assert float(step[0]) == float(want[0].reshape(-1)[0])
+    assert float(lazy[0][0]) != float(lazy[3][0])

@@ -172,3 +172,34 @@ def test_resize_layers_build_and_run_the_reference_program():
     assert [g.shape for g in got] == [
         (2, 3, 9, 5), (2, 3, 9, 12), (2, 3, 12, 16), (2, 3, 4, 5),
         (2, 2, 4, 2, 6), (2, 3, 11), (2, 4, 4, 3)]
+
+
+def _nearest_program(fluid):
+    main, startup = fluid.Program(), fluid.Program()
+    L = fluid.layers
+    with fluid.program_guard(main, startup), fluid.unique_name_guard():
+        x = L.data(name="x", shape=[3, 5, 7], dtype="float32")
+        outs = [L.image_resize(x, out_shape=[9, 4]),
+                L.resize_nearest(x, scale=2),
+                L.image_resize(x, scale=1.5)]
+    return main, startup, outs
+
+
+def test_image_resize_and_resize_nearest_are_the_reference():
+    """`fluid.layers.image_resize` and its alias `resize_nearest` emit
+    the reference's `interp_nearest` ops (`out_h`, `out_w`; a scale of
+    1.5 truncated to 7 x 10) and fetch its values exactly."""
+    import paddle_tpu_torch.fluid.layers as tlayers
+
+    assert tlayers.resize_nearest is tlayers.image_resize
+    feed = {"x": np.random.RandomState(4).randn(2, 3, 5, 7).astype(
+        "float32")}
+    got, _ = parity.run_both(rfluid, tfluid, _nearest_program(rfluid),
+                             _nearest_program(tfluid), feed, rtol=0,
+                             atol=0)
+    assert [g.shape for g in got] == [(2, 3, 9, 4), (2, 3, 10, 14),
+                                      (2, 3, 7, 10)]
+    ops = _nearest_program(tfluid)[0].global_block().ops
+    assert [(op.type, op.attrs["out_h"], op.attrs["out_w"]) for op in ops] \
+        == [("interp_nearest", 9, 4), ("interp_nearest", 10, 14),
+            ("interp_nearest", 7, 10)]

@@ -7,8 +7,10 @@ files with the bfloat16 sidecar, the ``filename=`` pickle, ``fluid.save``'s
 Three models, each built in both packages with the same names: the MNIST
 MLP (Adam), BERT-tiny (sequence 16, batch 2, dropout off) under bf16 AMP
 O2 with fused Adam, and ResNet18 at 16 x 16 (batch 4, Momentum) with
-zero-gamma (every residual branch's last batch-norm scale 0). The
-reference runs its startup and one step, and writes every format; the
+zero-gamma (every residual branch's last batch-norm scale 0). The port's
+startup program gives the start state (the reference's would cost a
+compile of its initializers); the reference runs one step from it and
+writes every format; the
 port loads each into a fresh scope (every value bit-equal to the
 reference's), writes every format from that state, reads its own files
 back (bit-equal) and the reference reads the port's (bit-equal). Then the
@@ -20,6 +22,7 @@ import pickle
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -33,6 +36,7 @@ from paddle_tpu.models import resnet as rresnet
 
 import paddle_tpu_torch.fluid as tfluid
 from paddle_tpu_torch.core.scope import load_numpy_state
+from paddle_tpu_torch.core.types import to_numpy
 from paddle_tpu_torch.fluid import io as tio
 from paddle_tpu_torch.fluid.contrib import mixed_precision as tmp
 from paddle_tpu_torch.models import bert as tbert
@@ -197,12 +201,20 @@ def crossed(tmp_path_factory):
     for model in MODELS:
         base = tmp_path_factory.mktemp(model)
         feed = _feed(model)
-        rmain, rstart, rloss, feeds, rhead, grads = _build(rfluid, model)
+        rmain, _, rloss, feeds, rhead, grads = _build(rfluid, model)
+        tmain, tstart, tloss, _, thead, tgrads = _build(tfluid, model)
+        assert tgrads == grads and _infer_names(tmain) == _infer_names(rmain)
+        texe = tfluid.Executor(tfluid.CPUPlace())
         rexe = rfluid.Executor(rfluid.CPUPlace())
         rs = RScope()
         names = _infer_names(rmain)
+        # the start state: the port's startup program's (the reference's
+        # would cost a compile of its initializers)
+        t0 = tfluid.Scope()
+        texe.run(tstart, scope=t0)
+        for n in names:
+            rs.set_var(n, jnp.asarray(to_numpy(t0.find_var(n))))
         with rfluid.scope_guard(rs):
-            rexe.run(rstart)
             if model == "resnet":
                 for n in names:
                     if n.endswith("_branch2b_bn_scale"):
@@ -216,9 +228,6 @@ def crossed(tmp_path_factory):
                 _ref_save(fmt, rexe, rmain, feeds, rhead,
                           str(base / ("ref_" + fmt)))
 
-        tmain, tstart, tloss, _, thead, tgrads = _build(tfluid, model)
-        assert tgrads == grads and _infer_names(tmain) == names
-        texe = tfluid.Executor(tfluid.CPUPlace())
         res = {"s1": s1, "port_loaded": {}, "port_round": {},
                "ref_loaded": {}, "names": names}
         for fmt in FORMATS:

@@ -15,7 +15,7 @@ gradients, the polygamma series) within 1e-4, as XLA's and ATen's series
 differ in the last bits. `infer_outputs` with a -1 batch agrees in shape
 and dtype kind. `dpsgd` runs with sigma 0 (its noise comes from another
 stream in each package); its noise is held by its moments. The port's
-op types stay a subset of the reference's, 441 of its 524
+op types stay a subset of the reference's, 472 of its 524
 (`tools/port_op_coverage.py`), and each new type keeps the reference's
 `no_jit` and `dynamic_shape` flags. Last, the float16 plain versions of
 the flash kernels against the reference's in float16."""
@@ -384,11 +384,11 @@ def test_cases_cover_the_slice():
 
 
 def test_port_types_are_a_subset_of_the_reference():
-    """The port registers 441 of the reference's types and none of its
+    """The port registers 472 of the reference's types and none of its
     own (`tools/port_op_coverage.py`)."""
     port, ref = set(treg.registered_ops()), set(rreg.registered_ops())
     assert port <= ref
-    assert len(port) == 441
+    assert len(port) == 472
 
 
 def test_coverage_tool_prints_the_totals(capsys):
@@ -399,7 +399,7 @@ def test_coverage_tool_prints_the_totals(capsys):
         sys.path.pop(0)
     assert port_op_coverage.main([]) == 0
     out = capsys.readouterr().out
-    assert "ported 441 of 524 reference op types; extra: none" in out
+    assert "ported 472 of 524 reference op types; extra: none" in out
     math_line = next(ln for ln in out.splitlines()
                      if ln.startswith("paddle_tpu/ops/math_ops.py"))
     assert "missing   0" in math_line

@@ -91,8 +91,8 @@ def test_recompute_is_bit_equal_with_flash_and_dropout(dev):
         flash_attention.fwd_launches = dropout.launches = 0
         vals = exe.run(main, feed=feed, fetch_list=[total] + grads,
                        scope=_scope(state), return_numpy=False)
-        out[rc] = ([v.clone() for v in vals], flash_attention.fwd_launches,
-                   dropout.launches)
+        out[rc] = ([v.value.clone() for v in vals],
+                   flash_attention.fwd_launches, dropout.launches)
     for a, b in zip(out[False][0], out[True][0]):
         assert torch.equal(a, b)
     assert (out[False][1], out[True][1]) == (L, 2 * L)
@@ -114,7 +114,8 @@ def test_gradient_merge_captured_equals_eager(dev):
         exe, scope = fluid.Executor(), _scope(state)
         main._seed_counter = counter
         losses = [exe.run(main, feed=feed, fetch_list=[total], scope=scope,
-                          return_numpy=False)[0].clone() for _ in range(6)]
+                          return_numpy=False)[0].value.clone()
+                  for _ in range(6)]
         runs[graphs] = (losses, {n: scope.find_var(n).clone()
                                  for n in names}, exe.last_entry.info())
     assert [s["phase"] for s in runs[True][2]["gradient_merge"][

@@ -108,22 +108,23 @@ def port(op_type, ins, attrs):
     return treg.normalize_outs(treg.get_op(op_type).compute(ins, attrs))
 
 
-def _assert_close(got, want, what):
+def _assert_close(got, want, what, rtol=RTOL, atol=ATOL):
     want = np.asarray(want)
     assert got.dtype == to_torch_dtype(normalize_dtype(want.dtype)), (
         what, got.dtype, want.dtype)
     got = got.detach().numpy()
     assert got.shape == want.shape, (what, got.shape, want.shape)
     if np.issubdtype(want.dtype, np.floating):
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
                                    err_msg=what)
     else:
         np.testing.assert_array_equal(got, want, err_msg=what)
 
 
-def check_case(name, ref, cases=torch_nn_cases):
+def check_case(name, ref, cases=torch_nn_cases, rtol=RTOL, atol=ATOL):
     """The port's outputs and gradients of case `name` against the
-    reference's results `ref` (one entry of `reference_results`)."""
+    reference's results `ref` (one entry of `reference_results`), floats
+    within `rtol` and `atol`."""
     op_type, _, attrs, diff, _ = cases.CASES[name]
     r_out, cts, r_grads = ref
     t_ins = {s: [to_torch(a, s in diff and i == 0) for i, a in enumerate(v)]
@@ -133,7 +134,7 @@ def check_case(name, ref, cases=torch_nn_cases):
     for slot in r_out:
         assert len(t_out[slot]) == len(r_out[slot]), slot
         for tv, rv in zip(t_out[slot], r_out[slot]):
-            _assert_close(tv, rv, slot)
+            _assert_close(tv, rv, slot, rtol, atol)
     if not diff:
         return
     # a float output with no grad_fn (a comparison's) carries none
@@ -145,7 +146,7 @@ def check_case(name, ref, cases=torch_nn_cases):
     for s, tg in zip(diff, t_grads):
         want = r_grads[s]
         got = np.zeros_like(want) if tg is None else tg.numpy()
-        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
                                    err_msg="d" + s)
 
 
